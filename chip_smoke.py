@@ -6,21 +6,36 @@ hand-written kernel against its plain PyTorch version.
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
-  1. build   nvcc builds the kernel source of interpret_quality_tpu_torch
-             into build/torch_kernels/.
-  2. kernels the three neighbour kernels at the main path's shapes — the
+  1. build   one nvcc per kernel source of interpret_quality_tpu_torch
+             (csrc/*.cu), all started together, into build/torch_kernels/.
+  2. kernels each of the seven kernels at the main path's shapes — the
              masked-coalition batch of one synthetic cloud (50 orders x 33
-             rows = 1650 clouds of 1024 points, k=20) and the (C, F) of each
-             edge conv — against their plain versions, with times; kNN
-             selections at every layer's width are held to the plain
-             version's up to near ties at f32 noise.
-  3. model   full-width DGCNN and GCNN logits through the kernels vs the same
-             modules on the plain versions, on one order's batch (33 clouds).
+             rows = 1650 clouds of 1024 points) and each layer or level a
+             forward gives it, with a seeded model's own weights — against
+             its plain version, with times and bounds:
+               knn, gather_extrema, knn_gather_extrema (DGCNN/GCNN, k=20):
+                 kNN selections held to the plain version's up to near ties
+                 at f32 noise, gathers bit-equal;
+               fps (1024 -> 512 -> 128): bit-equal;
+               knn_with_density (PointConv SA1 k=32, SA2 k=64): selections
+                 up to near ties, densities bit-equal where they agree;
+               fused_ball_mlp3 (the six PointNet++ MSG branches) and
+                 fused_pointconv_sa (PointConv SA1/SA2): rtol 1e-4 /
+                 atol 1e-5, a ball-query row excused only where a point lies
+                 on the ball's boundary at f32 noise; the plain versions run
+                 a chunk of clouds at a time (the whole batch would need
+                 (B, S, K, C) tensors of up to 55 GB).
+  3. model   full-width logits of all five families through the kernels vs
+             the same modules on the plain versions (PointNet, which has no
+             kernel: card vs CPU), every BatchNorm randomised, on one
+             order's batch (33 clouds).
   4. small   the engine on the card vs on the CPU on a small input.
-  5. main    the CLIs a user runs: save_fps, Shapley init (DGCNN, 100
-             orders), trans enumeration on the plan path (100 orders, 4
-             poses) and a GCNN Shapley init (50 orders); every kernel must
-             launch there, and every artifact must be finite and of its shape.
+  5. main    the CLIs a user runs (MAIN_PATH_CUTS lists the cuts of depth):
+             save_fps; Shapley init for DGCNN, GCNN, PointNet++, PointConv
+             and PointNet; trans enumeration on the plan path for DGCNN,
+             PointNet++ and PointConv.  Every kernel must launch there,
+             every artifact must be finite and of its shape, and every
+             family's per-order estimates must sum to v(N) - v(empty).
 
 Every line on stdout is one JSON object.  The first ("device") carries the
 card's name and power limit as nvidia-smi prints them; the "kernels" line
@@ -49,8 +64,20 @@ CHUNK = 330                       # clouds per plain-version call
 REL_LIMIT = 1e-5                  # kNN selected-distance gap, relative to |x|^2
 F32_OPS_PER_S = 67e12             # H100 SXM f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM HBM3
-DGCNN_LAYERS = ((3, 64), (64, 64), (64, 128), (128, 256))   # (C, F) per conv
-GCNN_F = (64, 64, 128, 256)
+FPS_NPOINTS = (512, 128)          # the two SA levels of PointNet++/PointConv
+BALL_TOL = 1e-6                   # |d - r^2| of a ball-boundary point (f32 noise)
+BALL_CHUNK = 66                   # clouds per plain fused_ball_mlp3 call
+PCONV_CHUNK = 165                 # clouds per plain fused_pointconv_sa call
+
+# The main path: (stage, CLI, argv).  Depth is cut (MAIN_PATH_CUTS); every
+# forward is full width: 1024 points, 32 regions, 50 orders = 1650 clouds.
+INIT_ORDERS = {"dgcnn": 100, "gcnn": 50, "pointnet2": 100, "pointconv": 100,
+               "pointnet": 100}
+ENUM_MODELS = ("dgcnn", "pointnet2", "pointconv")
+POSES = 4
+MAIN_PATH_CUTS = ("one eval cloud of 30; Shapley init 100 orders of 1000 "
+                  "(GCNN 50); trans enumeration on the plan path: the first "
+                  "4 poses of 216 at 100 orders; random weights from a seed")
 
 
 def emit(obj) -> None:
@@ -83,9 +110,9 @@ def cuda_ms(fn, reps: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def chunks(B: int):
-    for s in range(0, B, CHUNK):
-        yield slice(s, min(B, s + CHUNK))
+def chunks(B: int, size: int = CHUNK):
+    for s in range(0, B, size):
+        yield slice(s, min(B, s + size))
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -114,18 +141,27 @@ def coalition_batch(device):
 
 
 def seeded_model(name, device, seed=0):
+    """A full-width model with weights from a seed and every BatchNorm
+    randomised: statistics, and scales of both signs."""
     import torch
     from interpret_quality_tpu_torch.models import build_model
     torch.manual_seed(seed)
     model = build_model(name, 10, K)
-    with torch.no_grad():          # BN statistics and scales of both signs
-        for bn in (model.bn1, model.bn2, model.bn3, model.bn4, model.bn5,
-                   model.bn6, model.bn7):
-            bn.weight.uniform_(0.5, 1.5).mul_(
-                torch.where(torch.rand_like(bn.weight) < 0.5, -1.0, 1.0))
-            bn.bias.normal_(0, 0.1)
-            bn.running_mean.normal_(0, 0.1)
-            bn.running_var.uniform_(0.5, 1.5)
+    with torch.no_grad():
+        for bn in model.modules():
+            if isinstance(bn, torch.nn.modules.batchnorm._BatchNorm):
+                bn.weight.uniform_(0.5, 1.5).mul_(
+                    torch.where(torch.rand_like(bn.weight) < 0.5, -1.0, 1.0))
+                bn.bias.normal_(0, 0.1)
+                bn.running_mean.normal_(0, 0.1)
+                bn.running_var.uniform_(0.5, 1.5)
+        if name == "pointconv":
+            # a negative scale on DensityNet's last BatchNorm ReLUs the
+            # density scale to 0 for every neighbour, and with it most of
+            # the SA output that kernel 7 is held on: keep it positive
+            for sa in (model.sa1, model.sa2, model.sa3):
+                sa.densitynet.mlp_bns[-1].weight.abs_()
+                sa.densitynet.mlp_bns[-1].bias.abs_()
     return model.to(device).eval()
 
 
@@ -152,8 +188,9 @@ def layer_inputs(masked, device):
 
 
 # ----------------------------------------------------------------- kernels
-def selection_gap(x, idx_k, idx_p):
-    """Compare two kNN selections of the same clouds x (B, N, C).
+def selection_gap(query, db, idx_k, idx_p):
+    """Compare two kNN selections of the same queries (B, S, C) among the
+    same database rows (B, N, C).
 
     Returns (rows whose index lists differ, rows whose index sets differ,
     max abs and max relative gap between the two selections' distances).
@@ -165,15 +202,16 @@ def selection_gap(x, idx_k, idx_p):
     import torch
     differ = (idx_k != idx_p).any(-1)                            # (B, S)
     sets_differ = (idx_k.sort(-1).values != idx_p.sort(-1).values).any(-1)
-    scale = (x.double() ** 2).sum(-1).amax(-1)                   # (B,)
+    scale = torch.maximum((db.double() ** 2).sum(-1).amax(-1),
+                          (query.double() ** 2).sum(-1).amax(-1))   # (B,)
     bs, qs = differ.nonzero(as_tuple=True)
     max_abs = max_rel = 0.0
     for s in range(0, bs.numel(), 1 << 16):
         b, q = bs[s:s + (1 << 16)], qs[s:s + (1 << 16)]
-        xq = x[b, q].double()                                    # (M, C)
+        xq = query[b, q].double()                                # (M, C)
 
         def sel_dist(ix):
-            xn = x[b[:, None], ix[b, q].long()].double()         # (M, k, C)
+            xn = db[b[:, None], ix[b, q].long()].double()        # (M, k, C)
             return torch.sort(((xn - xq[:, None]) ** 2).sum(-1), -1).values
         gap = (sel_dist(idx_k) - sel_dist(idx_p)).abs()
         max_abs = max(max_abs, float(gap.max()))
@@ -194,7 +232,8 @@ def check_knn(nb, masked, device):
     differ_rows, rows, max_abs, max_rel = 0, 0, 0.0, 0.0
     for sl in chunks(masked.shape[0]):
         plain = nb.knn_plain(masked[sl], masked[sl], K)
-        differ, _, gap_abs, gap_rel = selection_gap(masked[sl], idx[sl], plain)
+        differ, _, gap_abs, gap_rel = selection_gap(masked[sl], masked[sl],
+                                                    idx[sl], plain)
         differ_rows += int(differ.sum())
         rows += differ.numel()
         max_abs, max_rel = max(max_abs, gap_abs), max(max_rel, gap_rel)
@@ -270,7 +309,7 @@ def check_fused(nb, layers):
                 raise AssertionError("knn_gather_extrema: kernel differs from "
                                      "the gather of the knn kernel's indices")
             pidx = nb.knn_plain(xs[sl], xs[sl], K)
-            _, sets_differ, _, gap_rel = selection_gap(xs[sl], idx[sl], pidx)
+            _, sets_differ, _, gap_rel = selection_gap(xs[sl], xs[sl], idx[sl], pidx)
             layer_rel = max(layer_rel, gap_rel)
             qmax, qmin = nb.knn_gather_extrema_plain(xs[sl], a[sl], K)
             out_differ = ((qmax != kmax[sl]).any(-1) |
@@ -309,37 +348,351 @@ def check_fused(nb, layers):
                 bound_by=by), details
 
 
+# -------------------------------- kernels 4-7 (PointNet++ and PointConv)
+def check_fps(fp, masked):
+    """Kernel 4 at both FPS levels of PointNet++ and PointConv (1024 -> 512,
+    then 512 -> 128): bit-equal to fps_plain on the whole batch."""
+    import torch
+    from interpret_quality_tpu_torch.ops.geometry import index_points
+    ms = plain = ops = nbytes = 0.0
+    details, xyz = [], masked
+    for npoint in FPS_NPOINTS:
+        got = fp.fps(xyz, npoint)
+        if not torch.equal(got, fp.fps_plain(xyz, npoint)):
+            raise AssertionError(f"fps: indices differ from fps_plain at "
+                                 f"npoint={npoint}")
+        t_k = cuda_ms(lambda: fp.fps(xyz, npoint))
+        t_p = cuda_ms(lambda: fp.fps_plain(xyz, npoint), reps=1)
+        B, n = xyz.shape[:2]
+        # per step and point: 3 sub, 3 mul, 2 add, 1 min, 1 compare
+        b_, o_ = B * n * 3 * 4 + B * npoint * 4, 10.0 * B * npoint * n
+        details.append({"kernel": "fps", "B": B, "N": n, "npoint": npoint,
+                        "bit_equal": True, "ms": t_k, "plain_ms": t_p,
+                        "bound_ms": bound_ms(b_, o_)[0]})
+        ms, plain, nbytes, ops = ms + t_k, plain + t_p, nbytes + b_, ops + o_
+        xyz = index_points(xyz, got)
+    bound, by = bound_ms(nbytes, ops)
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bound,
+                bound_by=by), details
+
+
+def near_ball_boundary(new_xyz, xyz, radius):
+    """(B, S) rows with a point whose exact (f64) squared distance to the
+    centre lies within BALL_TOL of radius^2: there f32 rounding can move
+    the point in or out of the ball."""
+    d = ((xyz.double()[:, None] - new_xyz.double()[:, :, None]) ** 2).sum(-1)
+    return ((d - radius ** 2).abs() <= BALL_TOL).any(-1), d
+
+
+def check_ball_mlp3(gr, fp, model, masked):
+    """Kernel 5 on the six PointNet++ MSG branches at the main path's
+    shapes, with the seeded model's folded weights and its own inputs.  A
+    row may leave rtol 1e-4 / atol 1e-5 of the plain version only where a
+    point lies on its ball's boundary at f32 noise."""
+    import torch
+    from interpret_quality_tpu_torch.models.common import fold_stack
+    from interpret_quality_tpu_torch.ops.geometry import index_points
+    ms = plain = ops = nbytes = 0.0
+    max_abs, details = 0.0, []
+    xyz, points = masked, None
+    for level, sa in enumerate((model.sa1, model.sa2)):
+        new_xyz = index_points(xyz, fp.fps(xyz, sa.npoint))
+        D = 0 if points is None else points.shape[-1]
+        outs = []
+        for br, (convs, bns, radius, k) in enumerate(zip(
+                sa.conv_blocks, sa.bn_blocks, sa.radius_list,
+                sa.nsample_list)):
+            (a1, b1), (a2, b2), (a3, b3) = fold_stack(convs, bns)
+            uf = None if points is None else torch.matmul(points, a1[:D])
+            w = (b1, a1[D:], a2, b2, a3, b3)
+            got = gr.fused_ball_mlp3(new_xyz, xyz, uf, *w, radius=radius, k=k)
+            torch.cuda.synchronize()
+
+            def plain_on(sl):
+                return gr.fused_ball_mlp3_plain(
+                    new_xyz[sl], xyz[sl], None if uf is None else uf[sl], *w,
+                    radius=radius, k=k)
+            differ = near = rows = bit_equal = 0
+            filled = 0
+            br_abs = same_abs = 0.0
+            for sl in chunks(xyz.shape[0], BALL_CHUNK):
+                want = plain_on(sl)
+                ok = torch.isclose(got[sl], want, rtol=1e-4, atol=1e-5).all(-1)
+                edge, d = near_ball_boundary(new_xyz[sl], xyz[sl], radius)
+                if bool((~ok & ~edge).any()):
+                    raise AssertionError(
+                        f"fused_ball_mlp3 sa{level + 1} branch {br}: rows "
+                        "differ from the plain version away from any ball "
+                        "boundary")
+                diff = (got[sl] - want).abs()
+                bit_equal += int((diff == 0).sum())
+                br_abs = max(br_abs, float(diff.max()))
+                if bool(ok.any()):
+                    same_abs = max(same_abs, float(diff[ok].max()))
+                differ += int((~ok).sum())
+                near += int(edge.sum())
+                rows += ok.numel()
+                filled += int(torch.clamp((d <= radius ** 2).sum(-1),
+                                          1, k).sum())
+                del want, d
+            max_abs = max(max_abs, br_abs)
+            t_k = cuda_ms(lambda: gr.fused_ball_mlp3(new_xyz, xyz, uf, *w,
+                                                     radius=radius, k=k))
+            t_p = cuda_ms(lambda: [plain_on(sl) for sl in
+                                   chunks(xyz.shape[0], BALL_CHUNK)],
+                          reps=1)
+            B, S, n = new_xyz.shape[0], new_xyz.shape[1], xyz.shape[1]
+            C1, C2, C3 = a2.shape[0], a2.shape[1], a3.shape[1]
+            b_ = (B * S * 3 + B * n * 3 + (0 if uf is None else B * n * C1)
+                  + B * S * C3) * 4
+            # ball query: distances of every centre to every point; the
+            # filled slots' layers 1-3 (layer 1: the 3-row product, bias,
+            # feature row, relu)
+            o_ = 8.0 * B * S * n + filled * (2 * 3 * C1 + 3 * C1
+                                             + 2 * C1 * C2 + 2 * C2 * C3)
+            details.append({
+                "kernel": "fused_ball_mlp3", "level": level + 1,
+                "branch": br, "B": B, "S": S, "N": n, "K": k,
+                "radius": radius, "C": [C1, C2, C3],
+                "filled_slot_rows": filled, "ms": t_k, "plain_ms": t_p,
+                "bound_ms": bound_ms(b_, o_)[0],
+                "plain_compared_in_chunks_of": BALL_CHUNK,
+                "rows_outside_rtol_1e-4": differ / rows,
+                "rows_near_a_ball_boundary": near / rows,
+                "max_abs_diff": br_abs,
+                "max_abs_diff_rows_within_rtol": same_abs,
+                "bit_equal_values": bit_equal / got.numel(),
+                "max_abs_value": float(got.abs().max()),
+                "nonzero_values": float((got != 0).float().mean())})
+            ms, plain = ms + t_k, plain + t_p
+            nbytes, ops = nbytes + b_, ops + o_
+            outs.append(got)
+            del uf
+        xyz, points = new_xyz, torch.cat(outs, dim=-1)
+        del outs
+    bound, by = bound_ms(nbytes, ops)
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain, bound_ms=bound,
+                bound_by=by), details
+
+
+def check_pointconv_kernels(gr, fp, model, masked):
+    """Kernels 6 and 7 at both PointConv SA levels, with the seeded model's
+    folded weights and its own inputs.
+
+    Kernel 6 against knn_with_density_plain on every chunk: selected
+    distances within REL_LIMIT of |x|^2 (selection_gap), den bit-equal
+    where the index rows are, dmax where the sets are.  Kernel 7 takes the
+    kernel-6 indices; on the same indices it must stay within rtol 1e-4 /
+    atol 1e-5 of fused_pointconv_sa_plain on every row."""
+    import torch
+    from interpret_quality_tpu_torch.models.common import fold_stack
+    from interpret_quality_tpu_torch.ops.geometry import (compute_density,
+                                                          index_points)
+    k6 = dict(ms=0.0, plain=0.0, ops=0.0, nbytes=0.0, max_abs=0.0)
+    k7 = dict(ms=0.0, plain=0.0, ops=0.0, nbytes=0.0, max_abs=0.0)
+    details = []
+    xyz, points = masked, None
+    for level, sa in enumerate((model.sa1, model.sa2)):
+        inv = 1.0 / compute_density(xyz, sa.bandwidth)
+        new_xyz = index_points(xyz, fp.fps(xyz, sa.npoint))
+        k = sa.nsample
+        idx, den, dmax = gr.knn_with_density(new_xyz, xyz, inv, k)
+        torch.cuda.synchronize()
+        differ_rows = set_rows = rows = 0
+        gap_abs = gap_rel = 0.0
+        for sl in chunks(xyz.shape[0]):
+            pidx, pden, pdmax = gr.knn_with_density_plain(new_xyz[sl],
+                                                          xyz[sl], inv[sl], k)
+            differ, sets_differ, g_abs, g_rel = selection_gap(
+                new_xyz[sl], xyz[sl], idx[sl], pidx)
+            same = ~differ
+            if not (torch.equal(den[sl][same], pden[same]) and torch.equal(
+                    dmax[sl][~sets_differ], pdmax[~sets_differ])):
+                raise AssertionError("knn_with_density: densities differ "
+                                     "where the neighbours agree")
+            differ_rows += int(differ.sum())
+            set_rows += int(sets_differ.sum())
+            rows += differ.numel()
+            gap_abs, gap_rel = max(gap_abs, g_abs), max(gap_rel, g_rel)
+        if gap_rel > REL_LIMIT:
+            raise AssertionError(f"knn_with_density sa{level + 1}: selected "
+                                 f"distances differ by {gap_rel} relative to "
+                                 f"|x|^2 (limit {REL_LIMIT})")
+        t_k = cuda_ms(lambda: gr.knn_with_density(new_xyz, xyz, inv, k))
+        t_p = cuda_ms(lambda: [gr.knn_with_density_plain(
+            new_xyz[sl], xyz[sl], inv[sl], k) for sl in chunks(xyz.shape[0])],
+            reps=1)
+        B, S, n = new_xyz.shape[0], new_xyz.shape[1], xyz.shape[1]
+        b_ = (B * S * 3 + B * n * 3 + B * n + 2 * B * S * k + B * S) * 4
+        o_ = B * S * n * (2 * 3 + 3)
+        details.append({"kernel": "knn_with_density", "level": level + 1,
+                        "B": B, "S": S, "N": n, "k": k, "ms": t_k,
+                        "plain_ms": t_p, "bound_ms": bound_ms(b_, o_)[0],
+                        "identical_index_rows": 1 - differ_rows / rows,
+                        "rows_with_other_neighbour_set": set_rows / rows,
+                        "max_rel_selected_dist_err": gap_rel})
+        k6["ms"] += t_k
+        k6["plain"] += t_p
+        k6["nbytes"] += b_
+        k6["ops"] += o_
+        k6["max_abs"] = max(k6["max_abs"], gap_abs)
+
+        # kernel 7, on the inputs PointConvDensitySA.forward builds
+        (a1, b1), (a2, b2), (a3, b3) = fold_stack(sa.mlp_convs, sa.mlp_bns)
+        src = xyz if points is None else torch.cat([xyz, points], dim=-1)
+        u = torch.matmul(src, a1) + b1
+        csw = torch.matmul(new_xyz, a1[:3])
+        dnet = fold_stack(sa.densitynet.mlp_convs, sa.densitynet.mlp_bns)
+        wnet = fold_stack(sa.weightnet.mlp_convs, sa.weightnet.mlp_bns)
+        per_cloud = (idx, den, dmax, new_xyz, u, xyz, csw)
+        w = (a2, b2, a3, b3, dnet, wnet)
+        out = gr.fused_pointconv_sa(*per_cloud, *w, k=k)
+        torch.cuda.synchronize()
+
+        def plain_on(sl):
+            return gr.fused_pointconv_sa_plain(*[t[sl] for t in per_cloud],
+                                               *w, k=k)
+        lvl_abs, bit_equal = 0.0, 0
+        for sl in chunks(B, PCONV_CHUNK):
+            want = plain_on(sl)
+            if not torch.allclose(out[sl], want, rtol=1e-4, atol=1e-5):
+                bad = ~torch.isclose(out[sl], want, rtol=1e-4, atol=1e-5)
+                raise AssertionError(
+                    f"fused_pointconv_sa sa{level + 1}: {int(bad.sum())} "
+                    f"values outside rtol 1e-4 of the plain version, max "
+                    f"abs diff {float((out[sl] - want).abs().max())}")
+            lvl_abs = max(lvl_abs, float((out[sl] - want).abs().max()))
+            bit_equal += int((out[sl] == want).sum())
+            del want
+        t_k = cuda_ms(lambda: gr.fused_pointconv_sa(*per_cloud, *w, k=k))
+        t_p = cuda_ms(lambda: [plain_on(sl) for sl in
+                               chunks(B, PCONV_CHUNK)], reps=1)
+        C1, C2, C3 = a2.shape[0], a2.shape[1], a3.shape[1]
+        b_ = (B * S * k * 3 + B * S * 1 + B * S * 3 + B * n * C1 + B * n * 3
+              + B * S * C1 + B * S * C3 * 16) * 4
+        # per neighbour: layer 1 (sub, relu), layers 2-3, the density
+        # scale, WeightNet 3->8->8->16, the contraction into C3 x 16
+        o_ = B * S * k * (2 * C1 + 2 * C1 * C2 + 2 * C2 * C3 + C3
+                          + 2 * (3 * 8 + 8 * 8 + 8 * 16) + 2 * 16 * C3)
+        details.append({"kernel": "fused_pointconv_sa", "level": level + 1,
+                        "B": B, "S": S, "N": n, "K": k, "C": [C1, C2, C3],
+                        "ms": t_k, "plain_ms": t_p,
+                        "bound_ms": bound_ms(b_, o_)[0],
+                        "plain_compared_in_chunks_of": PCONV_CHUNK,
+                        "max_abs_diff": lvl_abs,
+                        "bit_equal_values": bit_equal / out.numel(),
+                        "max_abs_value": float(out.abs().max()),
+                        "nonzero_values": float((out != 0).float().mean())})
+        k7["ms"] += t_k
+        k7["plain"] += t_p
+        k7["nbytes"] += b_
+        k7["ops"] += o_
+        k7["max_abs"] = max(k7["max_abs"], lvl_abs)
+        xyz, points = new_xyz, sa._head(out)
+        del out, u, per_cloud, inv
+
+    def summary(k):
+        bound, by = bound_ms(k["nbytes"], k["ops"])
+        return dict(max_abs_err=k["max_abs"], ms=k["ms"], plain_ms=k["plain"],
+                    bound_ms=bound, bound_by=by)
+    return summary(k6), summary(k7), details
+
+
+# Model attributes that hold a kernel wrapper, and the plain version each
+# is swapped for in plain_kernels()
+KERNEL_CALLS = {
+    "dgcnn": {"knn": "neighbors.knn_plain",
+              "gather_extrema": "neighbors.gather_extrema_plain",
+              "knn_gather_extrema": "neighbors.knn_gather_extrema_plain"},
+    "pointnet2": {"fps": "fps.fps_plain",
+                  "fused_ball_mlp3": "groups.fused_ball_mlp3_plain"},
+    "pointconv": {"fps": "fps.fps_plain",
+                  "knn_with_density": "groups.knn_with_density_plain",
+                  "fused_pointconv_sa": "groups.fused_pointconv_sa_plain"},
+}
+
+
 @contextlib.contextmanager
-def plain_neighbours():
-    """Route the models' neighbour calls to the plain versions, for the
-    kernels-vs-plain comparison of phase 3 only."""
-    from interpret_quality_tpu_torch.models import dgcnn
-    from interpret_quality_tpu_torch.ops.cuda import neighbors as nb
-    saved = (dgcnn.knn, dgcnn.gather_extrema, dgcnn.knn_gather_extrema)
-    dgcnn.knn, dgcnn.gather_extrema, dgcnn.knn_gather_extrema = (
-        nb.knn_plain, nb.gather_extrema_plain, nb.knn_gather_extrema_plain)
+def plain_kernels():
+    """Route the models' kernel calls to the plain versions, for the
+    kernels-vs-plain comparison of the model phase only."""
+    import importlib
+    saved = []
+    for mod_name, calls in KERNEL_CALLS.items():
+        mod = importlib.import_module(
+            f"interpret_quality_tpu_torch.models.{mod_name}")
+        for attr, plain in calls.items():
+            ops_mod, fn = plain.split(".")
+            saved.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, getattr(importlib.import_module(
+                f"interpret_quality_tpu_torch.ops.cuda.{ops_mod}"), fn))
     try:
         yield
     finally:
-        dgcnn.knn, dgcnn.gather_extrema, dgcnn.knn_gather_extrema = saved
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def selection_tie_clouds(name, model, batch):
+    """(B,) clouds where the kernels and the plain versions may rightly
+    select differently: for PointNet++, a point on a ball's boundary at f32
+    noise (FPS is bit-equal, so the centres agree); for PointConv, another
+    kNN neighbour set (near ties in xyz).  None for the other families."""
+    import torch
+    from interpret_quality_tpu_torch.ops.cuda import fps as fp
+    from interpret_quality_tpu_torch.ops.cuda import groups as gr
+    from interpret_quality_tpu_torch.ops.geometry import (compute_density,
+                                                          index_points)
+    tie = torch.zeros(batch.shape[0], dtype=torch.bool, device=batch.device)
+    xyz = batch
+    if name == "pointnet2":
+        for sa in (model.sa1, model.sa2):
+            new_xyz = index_points(xyz, fp.fps(xyz, sa.npoint))
+            for radius in sa.radius_list:
+                tie |= near_ball_boundary(new_xyz, xyz, radius)[0].any(-1)
+            xyz = new_xyz
+        return tie
+    if name == "pointconv":
+        for sa in (model.sa1, model.sa2):
+            inv = 1.0 / compute_density(xyz, sa.bandwidth)
+            new_xyz = index_points(xyz, fp.fps(xyz, sa.npoint))
+            got = gr.knn_with_density(new_xyz, xyz, inv, sa.nsample)[0]
+            want = gr.knn_with_density_plain(new_xyz, xyz, inv, sa.nsample)[0]
+            tie |= (got.sort(-1).values != want.sort(-1).values).any(-1).any(-1)
+            xyz = new_xyz
+        return tie
+    return None
 
 
 def check_models(masked, device):
+    """Full-width logits through the kernels vs through the plain versions
+    on one order's batch (33 clouds), every BatchNorm randomised, within
+    rtol 1e-3 / atol 1e-3; a PointNet++ or PointConv cloud may leave it
+    only where selection_tie_clouds finds a tie.  PointNet has no kernel:
+    its logits on the card are held against the CPU's."""
     import torch
     out = {}
     batch = masked[:R + 1]                         # one order: 33 clouds
-    for name in ("dgcnn", "gcnn"):
+    for name in ("dgcnn", "gcnn", "pointnet2", "pointconv", "pointnet"):
         model = seeded_model(name, device)
         with torch.inference_mode():
-            got = model(batch)
-            with plain_neighbours():
-                want = model(batch)
+            if name == "pointnet":
+                got = model(batch)[0]
+                want = seeded_model(name, "cpu")(batch.cpu())[0].to(device)
+            else:
+                got = model(batch)
+                with plain_kernels():
+                    want = model(batch)
+            tie = selection_tie_clouds(name, model, batch)
         if not torch.isfinite(got).all():
             raise AssertionError(f"{name}: non-finite logits")
         diff = (got - want).abs()
-        ok = diff <= 1e-3 + 1e-3 * want.abs()
+        ok = (diff <= 1e-3 + 1e-3 * want.abs()).all(-1)
         out[name] = {"max_abs_diff": float(diff.max()),
-                     "rows_within_rtol_1e-3": float(ok.all(-1).float().mean())}
+                     "rows_within_rtol_1e-3": float(ok.float().mean())}
+        if tie is not None:
+            out[name]["clouds_with_a_selection_tie"] = int(tie.sum())
+            ok = ok | tie
         if not bool(ok.all()):
             raise AssertionError(f"{name}: logits through the kernels differ "
                                  f"from the plain versions: {out[name]}")
@@ -382,38 +735,51 @@ def stage_rate(log_path: str, prefix: str):
     raise AssertionError(f"no StageTimer line {prefix!r} in {log_path}")
 
 
-def run_main_path(nb, workdir):
+def main_path():
+    """(stage, CLI, argv) of the main path, in order."""
+    spec = [("save_fps", "save_fps", ["--model", "dgcnn"])]
+    for model, orders in INIT_ORDERS.items():
+        spec.append((f"shapley_init_{model}", "shapley_value",
+                     ["--model", model, "--num_samples_save", str(orders)]))
+        if model in ENUM_MODELS:
+            spec.append((f"enum_trans_{model}", "enum", [
+                "--model", model, "--mode", "trans", "--num_samples_save",
+                str(orders), "--num_samples", str(orders), "--max_poses",
+                str(POSES)]))
+    return spec
+
+
+def run_main_path(workdir):
+    """The CLIs a user runs, in order; every count is set to 0 just before.
+    Returns (launches over the whole path, per-stage seconds and launches,
+    forwards/s per stage, efficiency errors)."""
     import torch
     from interpret_quality_tpu_torch.cli import enum, save_fps, shapley_value
     from interpret_quality_tpu_torch.config import ExperimentConfig
     common = ["--synthetic", "--allow_random_init", "--device", "cuda",
-              "--samples", "0", "--checkpoints_root", workdir + "/ck"]
-    stages = {}
-    nb.reset_launches()
-    prev = dict(nb.LAUNCHES)
+              "--samples", "0", "--checkpoints_root", workdir + "/ck",
+              "--num_points", str(N), "--num_regions", str(R)]
+    spec = main_path()
+    from interpret_quality_tpu_torch.ops.cuda import fps, groups, neighbors
+    counters = (neighbors, fps, groups)
+    for c in counters:
+        c.reset_launches()
 
-    def record(stage, seconds):
+    def launches():
+        return {k: v for c in counters for k, v in c.LAUNCHES.items()}
+    stages, prev = {}, launches()
+    for stage, cli, argv in spec:
+        t0 = time.perf_counter()
+        cli_main = {"save_fps": save_fps, "shapley_value": shapley_value,
+                    "enum": enum}[cli].main
+        cli_main(argv + common)
         torch.cuda.synchronize()
-        stages[stage] = {"seconds": seconds,
-                         "launches": {k: nb.LAUNCHES[k] - prev[k]
-                                      for k in nb.LAUNCHES}}
-        prev.update(nb.LAUNCHES)
-
-    t0 = time.perf_counter()
-    save_fps.main(["--model", "dgcnn"] + common)
-    record("save_fps", time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    shapley_value.main(["--model", "dgcnn", "--num_samples_save", "100"] + common)
-    record("shapley_init_dgcnn", time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    enum.main(["--model", "dgcnn", "--mode", "trans", "--num_samples_save",
-               "100", "--num_samples", "100", "--max_poses", "4"] + common)
-    record("enum_trans_dgcnn", time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    shapley_value.main(["--model", "gcnn", "--num_samples_save", "50"] + common)
-    record("shapley_init_gcnn", time.perf_counter() - t0)
-    launches = dict(nb.LAUNCHES)
-    missing = [k for k, v in launches.items() if v == 0]
+        now = launches()
+        stages[stage] = {"seconds": time.perf_counter() - t0,
+                         "launches": {k: now[k] - prev[k] for k in now}}
+        prev = now
+    total = launches()
+    missing = [k for k, v in total.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
 
@@ -423,44 +789,48 @@ def run_main_path(nb, workdir):
                                 num_points=N, num_regions=R).exp_folder \
             + "synthetic_00/"
     fps = np.load(os.path.join(workdir, f"fps_modelnet10_{N}_{R}_index_final30.npy"))
-    expect = {
-        (folder("dgcnn"), "region_sv_all.npy"): (100, R),
-        (folder("dgcnn"), "region_id.npy"): (N,),
-        (folder("dgcnn"), "norm_factor.npy"): (),
-        (folder("dgcnn"), "region_shapley/0_100.npy"): (R,),
-        (folder("dgcnn"), "trans_all/region_shapley_value.npy"): (4, R),
-        (folder("dgcnn"), "trans_all/orig_shapley_value.npy"): (R,),
-        (folder("gcnn"), "region_sv_all.npy"): (50, R),
-    }
     if fps.shape != (30, R) or not (fps[:, 0] == 0).all():
         raise AssertionError(f"fps indices: {fps.shape}")
+    expect = {}
+    for model, orders in INIT_ORDERS.items():
+        expect[(folder(model), "region_sv_all.npy")] = (orders, R)
+        expect[(folder(model), "region_id.npy")] = (N,)
+        expect[(folder(model), "norm_factor.npy")] = ()
+        expect[(folder(model), f"region_shapley/0_{orders}.npy")] = (R,)
+    for model in ENUM_MODELS:
+        expect[(folder(model), "trans_all/region_shapley_value.npy")] = (POSES, R)
+        expect[(folder(model), "trans_all/orig_shapley_value.npy")] = (R,)
     for (d, f), shape in expect.items():
         arr = np.load(d + f)
         if arr.shape != shape or not np.isfinite(arr).all():
             raise AssertionError(f"{d + f}: shape {arr.shape}, want {shape}, "
                                  f"finite {np.isfinite(arr).all()}")
-    logits = torch.load(folder("dgcnn") + "trans_all/all_logits.pt")
-    if tuple(logits.shape) != (4, 100 * (R + 1), 10) or \
-            not torch.isfinite(logits).all():
-        raise AssertionError(f"all_logits.pt: {tuple(logits.shape)}")
+    for model in ENUM_MODELS:
+        logits = torch.load(folder(model) + "trans_all/all_logits.pt")
+        want = (POSES, INIT_ORDERS[model] * (R + 1), 10)
+        if tuple(logits.shape) != want or not torch.isfinite(logits).all():
+            raise AssertionError(f"{model} all_logits.pt: {tuple(logits.shape)}")
     # efficiency: every single-order estimate sums to v(N) - v(empty)
-    for model in ("dgcnn", "gcnn"):
+    efficiency = {}
+    for model in INIT_ORDERS:
         sv_all = np.load(folder(model) + "region_sv_all.npy")
         nf = float(np.load(folder(model) + "norm_factor.npy"))
         err = float(np.abs(sv_all.sum(1) - nf).max())
         if err > 5e-3 * max(1.0, abs(nf)):
             raise AssertionError(f"{model}: efficiency off by {err}")
-        stages[f"efficiency_err_{model}"] = err
+        efficiency[model] = err
 
     rates = {}
-    for key, log_path, prefix in (
-            ("shapley_init_dgcnn", folder("dgcnn") + "log.txt", "shapley_init"),
-            ("enum_trans_dgcnn", folder("dgcnn") + "trans_all/log.txt", "enum"),
-            ("shapley_init_gcnn", folder("gcnn") + "log.txt", "shapley_init")):
-        items, seconds, rate = stage_rate(log_path, prefix)
-        rates[key] = {"forwards": items, "seconds": seconds,
-                      "forwards_per_s": rate}
-    return launches, stages, rates
+    for stage, _, argv in spec[1:]:
+        model = argv[argv.index("--model") + 1]
+        enum_stage = stage.startswith("enum")
+        log_path = folder(model) + ("trans_all/log.txt" if enum_stage
+                                    else "log.txt")
+        items, seconds, rate = stage_rate(
+            log_path, "enum" if enum_stage else "shapley_init")
+        rates[stage] = {"forwards": items, "seconds": seconds,
+                        "forwards_per_s": rate}
+    return total, stages, rates, efficiency
 
 
 def main() -> int:
@@ -474,15 +844,19 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from interpret_quality_tpu_torch.models.common import set_fp32_matmuls
     from interpret_quality_tpu_torch.ops.cuda import build
+    from interpret_quality_tpu_torch.ops.cuda import fps as fp
+    from interpret_quality_tpu_torch.ops.cuda import groups as gr
     from interpret_quality_tpu_torch.ops.cuda import neighbors as nb
     set_fp32_matmuls()
     device = torch.device("cuda")
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
     shutil.rmtree(build.BUILD_DIR, ignore_errors=True)     # build from source
-    log(f"ptxas report:\n{build.build()}")
+    for source, report in build.build().items():           # one nvcc each, at once
+        log(f"ptxas report of {source}.cu:\n{report}")
     build_s = time.perf_counter() - t0
     emit({"phase": "device", "name": name, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -493,9 +867,17 @@ def main() -> int:
     idx, k1, d1 = check_knn(nb, masked, device)
     k2, d2 = check_gather(nb, inputs["gcnn"][0], inputs["gcnn"][1])
     k3, d3 = check_fused(nb, inputs["dgcnn"][0])
-    for d in d1 + d2 + d3:
-        emit({"phase": "kernel_shape", **d})
     del inputs, idx
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        k4, d4 = check_fps(fp, masked)
+        k5, d5 = check_ball_mlp3(gr, fp, seeded_model("pointnet2", device),
+                                 masked)
+        torch.cuda.empty_cache()
+        k6, k7, d67 = check_pointconv_kernels(
+            gr, fp, seeded_model("pointconv", device), masked)
+    for d in d1 + d2 + d3 + d4 + d5 + d67:
+        emit({"phase": "kernel_shape", **d})
     torch.cuda.empty_cache()
 
     emit({"phase": "model", **check_models(masked, device)})
@@ -508,29 +890,33 @@ def main() -> int:
     os.makedirs(workdir)
     cwd = os.getcwd()
     os.chdir(workdir)                       # save_fps writes into the cwd
+    torch.cuda.reset_peak_memory_stats()
     try:
         with contextlib.redirect_stdout(sys.stderr):   # the stages' own prints
-            launches, stages, rates = run_main_path(nb, workdir)
+            launches, stages, rates, efficiency = run_main_path(workdir)
     finally:
         os.chdir(cwd)
     emit({"phase": "main_path", "launches": launches, "stages": stages,
-          "rates": rates, "peak_memory_gb":
-          torch.cuda.max_memory_allocated() / 1e9})
+          "rates": rates, "efficiency_err": efficiency,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "cuts": MAIN_PATH_CUTS})
 
-    src = os.path.relpath(build.SOURCE, REPO)
-    pallas = "interpret_quality_tpu/ops/pallas/neighbors.py"
+    def src(module):
+        return os.path.relpath(build.source_path(module), REPO)
+    pallas = "interpret_quality_tpu/ops/pallas/"
+    rows = (("knn", "neighbors", "neighbors.py:482", k1),
+            ("gather_extrema", "neighbors", "neighbors.py:424", k2),
+            ("knn_gather_extrema", "neighbors", "neighbors.py:353", k3),
+            ("fps", "fps", "fps.py:78", k4),
+            ("fused_ball_mlp3", "groups", "groups.py:250", k5),
+            ("knn_with_density", "groups", "groups.py:337", k6),
+            ("fused_pointconv_sa", "groups", "groups.py:469", k7))
     emit({"kernels": [
-        {"name": "knn", "route": "cuda", "source": src,
-         "replaces": f"{pallas}:482", "launches": launches["knn"],
-         **k1, "library_ms": None},
-        {"name": "gather_extrema", "route": "cuda", "source": src,
-         "replaces": f"{pallas}:424", "launches": launches["gather_extrema"],
-         **k2, "library_ms": None},
-        {"name": "knn_gather_extrema", "route": "cuda", "source": src,
-         "replaces": f"{pallas}:353",
-         "launches": launches["knn_gather_extrema"], **k3,
-         "library_ms": None},
-    ]})
+        {"name": kname, "route": "cuda", "source": src(module),
+         "replaces": pallas + where, "launches": launches[kname], **numbers,
+         "library_ms": None}
+        for kname, module, where, numbers in rows]})
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

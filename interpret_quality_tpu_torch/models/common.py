@@ -5,9 +5,13 @@ size 1, ``Linear``, ``BatchNorm``) so reference state dicts load by name,
 but compute on channels-last ``(B, N, C)`` tensors: a 1x1 convolution is a
 matmul with the weight viewed as ``(out, in)``, which never goes through
 cuDNN (and its TF32 default).  BatchNorm is the eval-mode affine map with
-the running statistics, eps 1e-5; the activation is LeakyReLU(0.2).
+the running statistics, eps 1e-5.  The edge-conv family activates with
+LeakyReLU(0.2), the other families with ReLU.  ``fold_stack`` turns a
+ConvBN stack into the explicit affine maps the set-abstraction kernels take.
 """
 from __future__ import annotations
+
+from typing import Sequence, Tuple
 
 import torch
 from torch import nn
@@ -40,6 +44,43 @@ def bn_eval(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tenso
     operations as flax's: (x - mean) * (rsqrt(var + eps) * scale) + bias."""
     mul = torch.rsqrt(bn.running_var + BN_EPS) * bn.weight
     return (x - bn.running_mean) * mul + bn.bias
+
+
+def conv_bn_stack(c_in: int, widths: Sequence[int]
+                  ) -> Tuple[nn.ModuleList, nn.ModuleList]:
+    """The reference's (mlp_convs, mlp_bns) pair: 1x1 Conv2d layers of the
+    given widths from c_in, each with its BatchNorm2d."""
+    convs, bns = nn.ModuleList(), nn.ModuleList()
+    for c_out in widths:
+        convs.append(nn.Conv2d(c_in, c_out, 1))
+        bns.append(nn.BatchNorm2d(c_out))
+        c_in = c_out
+    return convs, bns
+
+
+def conv_bn_relu(x: torch.Tensor, conv: nn.Module, bn: nn.Module) -> torch.Tensor:
+    """relu(bn(conv(x))) over the channel axis of a channels-last tensor."""
+    return torch.relu(bn_eval(pointwise(x, conv), bn))
+
+
+def mlp_stack(x: torch.Tensor, convs, bns) -> torch.Tensor:
+    """A per-point MLP of ConvBN + ReLU layers (the JAX ``MLPStack``)."""
+    for conv, bn in zip(convs, bns):
+        x = conv_bn_relu(x, conv, bn)
+    return x
+
+
+def fold_stack(convs, bns):
+    """A ConvBN stack's eval layers as affine maps [(A_i, b_i)], A_i (in,
+    out), with bn(conv(x)) = x @ A + b, so each layer is relu(x @ A + b).
+    Computed from the weights and the running statistics (the counterpart
+    of ``MLPStack(fold=True)``, which probes the layers with [0; I])."""
+    folded = []
+    for conv, bn in zip(convs, bns):
+        w = conv.weight.reshape(conv.weight.shape[0], -1)       # (out, in)
+        mul = torch.rsqrt(bn.running_var + BN_EPS) * bn.weight
+        folded.append((w.T * mul, (conv.bias - bn.running_mean) * mul + bn.bias))
+    return folded
 
 
 def set_fp32_matmuls() -> None:

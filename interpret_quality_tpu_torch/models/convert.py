@@ -3,7 +3,7 @@
 ``state_dict_from_jax`` maps the JAX package's variables (nested dicts of
 numpy arrays, ``{"params": ..., "batch_stats": ...}``) onto this package's
 modules.  It is the port's own copy of the export rules of
-``interpret_quality_tpu/models/torch_convert.py:57-77, 207-274``, with the
+``interpret_quality_tpu/models/torch_convert.py:30-135, 207-274``, with the
 per-tensor layout read from the port model's own ``state_dict()``.
 
 ``load_reference_state_dict`` reads a reference ``.t7/.pth/.pt`` state dict
@@ -44,7 +44,74 @@ def dgcnn_rules() -> List[Rule]:
     return r
 
 
-RULES = {"dgcnn": dgcnn_rules, "gcnn": dgcnn_rules, "gcnn_adv": dgcnn_rules}
+def _stn_rules(tprefix: str, path: Tuple[str, ...]) -> List[Rule]:
+    r: List[Rule] = []
+    for i in (1, 2, 3):
+        r.append((f"{tprefix}.conv{i}", path + (f"conv{i}", "conv"), "conv"))
+        r.append((f"{tprefix}.bn{i}", path + (f"conv{i}", "bn"), "bn"))
+    r.append((f"{tprefix}.fc1", path + ("fc1", "fc"), "conv"))
+    r.append((f"{tprefix}.bn4", path + ("fc1", "bn"), "bn"))
+    r.append((f"{tprefix}.fc2", path + ("fc2", "fc"), "conv"))
+    r.append((f"{tprefix}.bn5", path + ("fc2", "bn"), "bn"))
+    r.append((f"{tprefix}.fc3", path + ("fc3",), "conv"))
+    return r
+
+
+def pointnet_rules() -> List[Rule]:
+    r = _stn_rules("feat.stn", ("feat", "stn"))
+    r += _stn_rules("feat.fstn", ("feat", "fstn"))
+    for i in (1, 2, 3):
+        r.append((f"feat.conv{i}", ("feat", f"conv{i}", "conv"), "conv"))
+        r.append((f"feat.bn{i}", ("feat", f"conv{i}", "bn"), "bn"))
+    r.append(("fc1", ("fc1", "fc"), "conv"))
+    r.append(("bn1", ("fc1", "bn"), "bn"))
+    r.append(("fc2", ("fc2",), "conv"))
+    r.append(("bn2", ("bn2",), "bn"))
+    r.append(("fc3", ("fc3",), "conv"))
+    return r
+
+
+def _head_rules() -> List[Rule]:
+    return ([(name, (name,), "conv") for name in ("fc1", "fc2", "fc3")]
+            + [(name, (name,), "bn") for name in ("bn1", "bn2")])
+
+
+def pointnet2_rules() -> List[Rule]:
+    from .pointnet2 import SA1, SA2, SA3
+    r: List[Rule] = []
+    for sa, level in (("sa1", SA1), ("sa2", SA2)):
+        for bi, mlp in enumerate(level[3]):
+            for j in range(len(mlp)):
+                r.append((f"{sa}.conv_blocks.{bi}.{j}",
+                          (sa, f"branch{bi}", f"layer{j}", "conv"), "conv"))
+                r.append((f"{sa}.bn_blocks.{bi}.{j}",
+                          (sa, f"branch{bi}", f"layer{j}", "bn"), "bn"))
+    for j in range(len(SA3)):
+        r.append((f"sa3.mlp_convs.{j}", ("sa3", "mlp", f"layer{j}", "conv"), "conv"))
+        r.append((f"sa3.mlp_bns.{j}", ("sa3", "mlp", f"layer{j}", "bn"), "bn"))
+    return r + _head_rules()
+
+
+def pointconv_rules() -> List[Rule]:
+    r: List[Rule] = []
+    for sa in ("sa1", "sa2", "sa3"):
+        for j in range(3):
+            r.append((f"{sa}.mlp_convs.{j}", (sa, "mlp", f"layer{j}", "conv"), "conv"))
+            r.append((f"{sa}.mlp_bns.{j}", (sa, "mlp", f"layer{j}", "bn"), "bn"))
+        for net in ("weightnet", "densitynet"):     # 3->8->8->16, 1->16->8->1
+            for j in range(3):
+                r.append((f"{sa}.{net}.mlp_convs.{j}",
+                          (sa, net, "mlp", f"layer{j}", "conv"), "conv"))
+                r.append((f"{sa}.{net}.mlp_bns.{j}",
+                          (sa, net, "mlp", f"layer{j}", "bn"), "bn"))
+        r.append((f"{sa}.linear", (sa, "linear"), "conv"))
+        r.append((f"{sa}.bn_linear", (sa, "bn_linear"), "bn"))
+    return r + _head_rules()
+
+
+RULES = {"pointnet": pointnet_rules, "pointnet2": pointnet2_rules,
+         "pointconv": pointconv_rules, "dgcnn": dgcnn_rules,
+         "gcnn": dgcnn_rules, "gcnn_adv": dgcnn_rules}
 
 
 def _get(tree: dict, path: Tuple[str, ...], leaf: str):
@@ -62,7 +129,10 @@ def state_dict_from_jax(model_name: str, variables: Dict,
         raise NotImplementedError(f"no weight rules for {model_name!r} yet")
     params = variables["params"]
     stats = variables.get("batch_stats", {})
-    num_classes = _get(params, ("linear3",), "kernel").shape[1]
+    # the classifier's last layer: fc3 (PointNet, PointNet++, PointConv) or
+    # linear3 (the edge-conv family)
+    last = "fc3" if "fc3" in params else "linear3"
+    num_classes = _get(params, (last,), "kernel").shape[1]
     template = build_model(model_name, num_classes, k).state_dict()
     out: Dict[str, torch.Tensor] = {}
 
@@ -72,8 +142,9 @@ def state_dict_from_jax(model_name: str, variables: Dict,
         shape = tuple(template[key].shape)
         if value.size != int(np.prod(shape)):
             raise ValueError(f"{key}: {value.shape} does not fit {shape}")
-        out[key] = torch.from_numpy(np.ascontiguousarray(
-            value.reshape(shape), dtype=np.float32))
+        # a copy: the JAX package's arrays are read-only
+        out[key] = torch.from_numpy(np.array(value.reshape(shape),
+                                             dtype=np.float32))
 
     for tprefix, path, kind in RULES[model_name]():
         if kind == "conv":

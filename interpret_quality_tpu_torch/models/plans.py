@@ -1,12 +1,23 @@
 """Pose-invariant graph plans (counterpart of
-``interpret_quality_tpu/models/plans.py:60-62, 99-127``).
+``interpret_quality_tpu/models/plans.py``).
 
 Every enumeration pose is a rigid or uniform-scale transform of the same
-masked coalition batch, and masking commutes with the transform; a kNN graph
-depends only on the order of pairwise distances, which those transforms
-keep.  So the enumeration builds the input-space graph once per order chunk
-from the undisturbed batch and reuses it for every pose.  Deviation from
-per-pose recomputation is confined to distance ties at floating-point noise.
+masked coalition batch, and masking commutes with the transform.  FPS, kNN
+graphs and KDE densities depend only on pairwise distances, so the
+enumeration builds them once per order chunk from the undisturbed batch and
+reuses them for every pose.  Deviation from per-pose recomputation is
+confined to distance ties at floating-point noise.
+
+What each family's plan carries, and the enum modes that may reuse it:
+
+  * dgcnn, gcnn, gcnn_adv: the input-space kNN graph; trans/rotate/scale.
+  * pointnet2: the FPS indices of both SA levels.  Ball membership depends
+    on the absolute radius, so the kernel recomputes it per pose on the
+    transformed coordinates; trans/rotate/scale.
+  * pointconv: per SA level the FPS indices, kNN indices, gathered inverse
+    densities and their per-group max, plus the group-all level's inverse
+    density.  Density values change under scale: trans/rotate only.
+  * pointnet: no plan (no graph; its transformers are pose-dependent).
 """
 from __future__ import annotations
 
@@ -14,13 +25,18 @@ from typing import Callable, Optional
 
 import torch
 
+from ..ops.cuda.fps import fps
+from ..ops.cuda.groups import knn_with_density
 from ..ops.cuda.neighbors import knn
+from ..ops.geometry import compute_density, index_points
 
 # enum modes whose transform keeps each family's plan (up to fp-noise ties)
 PLAN_MODES = {
     "dgcnn": frozenset({"trans", "rotate", "scale"}),
     "gcnn": frozenset({"trans", "rotate", "scale"}),
     "gcnn_adv": frozenset({"trans", "rotate", "scale"}),
+    "pointnet2": frozenset({"trans", "rotate", "scale"}),
+    "pointconv": frozenset({"trans", "rotate"}),
 }
 
 
@@ -29,15 +45,53 @@ def dgcnn_plan(x: torch.Tensor, k: int) -> torch.Tensor:
     return knn(x.contiguous(), x.contiguous(), k)
 
 
+def pointnet2_plan(x: torch.Tensor, npoints):
+    """FPS indices of each SA level, (B, npoint) int32 each; ``npoints`` is
+    (512, 128) for PointNet++."""
+    plan, xyz = [], x.contiguous()
+    for npoint in npoints:
+        plan.append(fps(xyz, npoint))
+        xyz = index_points(xyz, plan[-1])
+    return tuple(plan)
+
+
+def pointconv_plan(x: torch.Tensor, levels_spec, bandwidth_all: float):
+    """Per SA level (fps_idx, knn idx, gathered inverse densities, group
+    max), plus the group-all level's inverse density (B, S_last).
+    ``levels_spec``: (npoint, nsample, bandwidth) per SA level."""
+    levels = []
+    xyz = x.contiguous()
+    for npoint, nsample, bandwidth in levels_spec:
+        inv_density = 1.0 / compute_density(xyz, bandwidth)     # (B, N)
+        fps_idx = fps(xyz, npoint)
+        new_xyz = index_points(xyz, fps_idx)
+        idx, den, dmax = knn_with_density(new_xyz, xyz, inv_density, nsample)
+        levels.append((fps_idx, idx, den, dmax))
+        xyz = new_xyz
+    return (tuple(levels), 1.0 / compute_density(xyz, bandwidth_all))
+
+
 def make_plan_fn(model) -> Optional[Callable]:
-    """Plan function ``(B, N, 3) -> plan`` for a model instance."""
+    """Plan function ``(B, N, 3) -> plan`` for a model instance; None for a
+    family without a plan (PointNet)."""
     from .dgcnn import _DGCNNBase
+    from .pointconv import PointConvDensityClsSsg
+    from .pointnet import PointNetCls
+    from .pointnet2 import PointNet2ClsMsg
     if isinstance(model, _DGCNNBase):
         k = model.k
         return lambda x: dgcnn_plan(x, k)
-    raise NotImplementedError(
-        f"{type(model).__name__} has no plan in this package yet; only the "
-        "edge-conv family (dgcnn, gcnn, gcnn_adv) is ported (ROADMAP.md)")
+    if isinstance(model, PointNet2ClsMsg):
+        npoints = (model.sa1.npoint, model.sa2.npoint)
+        return lambda x: pointnet2_plan(x, npoints)
+    if isinstance(model, PointConvDensityClsSsg):
+        spec = [(sa.npoint, sa.nsample, sa.bandwidth)
+                for sa in (model.sa1, model.sa2)]
+        bandwidth_all = model.sa3.bandwidth
+        return lambda x: pointconv_plan(x, spec, bandwidth_all)
+    if isinstance(model, PointNetCls):
+        return None
+    raise NotImplementedError(f"no plan rule for {type(model).__name__}")
 
 
 def plan_modes_for(model_name: str) -> frozenset:

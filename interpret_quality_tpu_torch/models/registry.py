@@ -5,21 +5,36 @@ from __future__ import annotations
 import torch
 
 from .dgcnn import DGCNNCls, GCNNCls
+from .pointconv import PointConvDensityClsSsg
+from .pointnet import PointNetCls
+from .pointnet2 import PointNet2ClsMsg
 
 MODEL_REGISTRY = {
+    "pointnet": PointNetCls,
+    "pointnet2": PointNet2ClsMsg,
+    "pointconv": PointConvDensityClsSsg,
     "dgcnn": DGCNNCls,
     "gcnn": GCNNCls,
     "gcnn_adv": GCNNCls,
 }
+EDGE_CONV = ("dgcnn", "gcnn", "gcnn_adv")
 
 
 def build_model(name: str, num_classes: int = 10, k: int = 20):
-    """Instantiate a model module by reference name, in eval mode."""
+    """Instantiate a model module by reference name, in eval mode; ``k``
+    (the kNN size) is read by the edge-conv family only."""
     if name not in MODEL_REGISTRY:
         raise NotImplementedError(
-            f"model {name!r} is not ported to this package yet; it has "
-            f"{sorted(MODEL_REGISTRY)} (ROADMAP.md lists the rest)")
-    return MODEL_REGISTRY[name](num_classes=num_classes, k=k).eval()
+            f"model {name!r} is not in this package; it has "
+            f"{sorted(MODEL_REGISTRY)}")
+    kwargs = {"k": k} if name in EDGE_CONV else {}
+    return MODEL_REGISTRY[name](num_classes=num_classes, **kwargs).eval()
+
+
+def _logits(out):
+    """The logits of a forward; PointNet returns (logits, trans_feat,
+    crt_points) (reference tools/final_common.py:36-39)."""
+    return out[0] if isinstance(out, tuple) else out
 
 
 class ForwardFn:
@@ -30,15 +45,19 @@ class ForwardFn:
         self.model = model.eval()
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        return self.model(x)
+        return _logits(self.model(x))
 
     def plan_fn(self, x: torch.Tensor):
-        """Pure-geometry plan of a coalition batch (models/plans.py)."""
+        """Pure-geometry plan of a coalition batch (models/plans.py), or
+        None for a family without one (PointNet)."""
         from .plans import make_plan_fn
-        return make_plan_fn(self.model)(x)
+        builder = make_plan_fn(self.model)
+        return None if builder is None else builder(x)
 
     def apply_plan_fn(self, x: torch.Tensor, plan) -> torch.Tensor:
-        return self.model(x, plan=plan)
+        if plan is None:
+            return self(x)
+        return _logits(self.model(x, plan=plan))
 
 
 def make_forward_fn(model: torch.nn.Module) -> ForwardFn:

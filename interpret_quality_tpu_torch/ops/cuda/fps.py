@@ -1,0 +1,63 @@
+"""Farthest-point sampling, hand-written in CUDA C++ for Hopper
+(``csrc/fps.cu``), with its plain PyTorch version.
+
+``fps`` replaces ``interpret_quality_tpu/ops/pallas/fps.py`` ``fps_pallas``
+/ ``_fps_kernel``.  It takes its plain version only for tensors on the CPU;
+for CUDA tensors it launches the kernel or raises.  Each launch adds one to
+``LAUNCHES["fps"]``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..geometry import farthest_point_sample
+from . import build
+from .launch import I, P, check, on_cpu, raise_on, stream
+
+# launches since the last reset_launches()
+LAUNCHES = {"fps": 0}
+
+
+def reset_launches() -> None:
+    LAUNCHES["fps"] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.load("fps")
+    lib.iq_fps.argtypes = [P, P, I, I, I, P]
+    lib.iq_fps.restype = ctypes.c_int
+    return lib
+
+
+def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    """Plain version of ``fps``: ``ops.geometry.farthest_point_sample``."""
+    return farthest_point_sample(xyz, npoint)
+
+
+def fps(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    """Farthest-point sampling, first index 0, argmax ties to the lowest
+    index, f32 distances rounded as the plain version rounds them (the
+    kernel is bit-equal to it).
+
+    Args:
+      xyz: (B, N, 3) float32.
+    Returns:
+      (B, npoint) int32; npoint > N keeps going as the plain version does.
+    """
+    if on_cpu(xyz):
+        return fps_plain(xyz, npoint)
+    check(xyz, "xyz", torch.float32, 3)
+    B, N, C = xyz.shape
+    if C != 3 or npoint < 1:
+        raise ValueError(f"xyz {tuple(xyz.shape)} must be (B, N, 3) and "
+                         f"npoint={npoint} positive")
+    out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
+    rc = _lib().iq_fps(xyz.data_ptr(), out.data_ptr(), B, N, npoint,
+                       stream(xyz))
+    raise_on(rc, "iq_fps")
+    LAUNCHES["fps"] += 1
+    return out

@@ -1,0 +1,270 @@
+"""PointNet++ and PointConv set-abstraction kernels, hand-written in CUDA C++
+for Hopper (``csrc/groups.cu``), with their plain PyTorch versions.
+
+==========================  ==============================================
+wrapper                     replaces (interpret_quality_tpu/ops/pallas/)
+==========================  ==============================================
+``fused_ball_mlp3``         ``groups.py`` ``fused_ball_mlp3`` /
+                            ``_ball_mlp3_kernel``
+``knn_with_density``        ``groups.py`` ``knn_with_density`` /
+                            ``_knn_den_kernel``
+``fused_pointconv_sa``      ``groups.py`` ``fused_pointconv_sa`` /
+                            ``_pconv_kernel``
+==========================  ==============================================
+
+Signatures and layouts are the JAX functions' (without their TPU knobs
+``parts``, ``select``, ``block_q`` and ``interpret``): gathers are exact f32
+and kNN ties go to the lowest index.  As in the JAX package, the work around
+each kernel stays plain PyTorch: the hoisted layer-1 rows the callers pass
+in, and the DensityNet scale (``density_scale``).
+
+A wrapper takes its plain version only for tensors on the CPU.  For CUDA
+tensors it launches its kernel or raises; there is no fallback.  Each launch
+adds one to ``LAUNCHES[name]``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from ..geometry import (index_points, query_ball_point, sorted_topk_indices,
+                        square_distance)
+from . import build
+from .launch import F, I, P, check, on_cpu, raise_on, stream
+
+# launches of each kernel since the last reset_launches()
+LAUNCHES = {"fused_ball_mlp3": 0, "knn_with_density": 0,
+            "fused_pointconv_sa": 0}
+
+MAX_DENSITY_K = 64   # largest k of knn_with_density (kMaxDensityK)
+MAX_PCONV_K = 64     # largest k of fused_pointconv_sa (kRows)
+WNET_WIDTHS = ((3, 8), (8, 8), (8, 16))    # WeightNet (in, out) per layer
+
+Affine = Tuple[torch.Tensor, torch.Tensor]
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.load("groups")
+    lib.iq_ball_mlp3.argtypes = [P] * 10 + [I] * 7 + [F, P]
+    lib.iq_knn_density.argtypes = [P] * 6 + [I] * 5 + [P]
+    lib.iq_pointconv_sa.argtypes = [P] * 12 + [I] * 7 + [P]
+    for fn in (lib.iq_ball_mlp3, lib.iq_knn_density, lib.iq_pointconv_sa):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _weight(t: torch.Tensor, name: str, shape: Tuple[int, ...]) -> torch.Tensor:
+    """A contiguous f32 weight of the given shape, on a 16-byte boundary
+    (the kernels read weight rows as float4s); a sliced view is copied."""
+    if t.dtype != torch.float32 or tuple(t.shape) != shape:
+        raise ValueError(f"{name}: expected float32 {shape}, got {t.dtype} "
+                         f"{tuple(t.shape)}")
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _mlp23(h: torch.Tensor, a2, b2, a3, b3) -> torch.Tensor:
+    h = torch.relu(torch.matmul(h, a2) + b2)
+    return torch.relu(torch.matmul(h, a3) + b3)
+
+
+# --------------------------------------------------------- fused_ball_mlp3
+def fused_ball_mlp3_plain(new_xyz, xyz, uf, b1, a1x, a2, b2, a3, b3, *,
+                          radius: float, k: int) -> torch.Tensor:
+    """Plain version of ``fused_ball_mlp3``: the ball's rows gathered into a
+    (B, S, K, C) tensor, three folded layers, max over the slots."""
+    idx = query_ball_point(radius, k, xyz, new_xyz)           # (B, S, K)
+    off = index_points(xyz, idx) - new_xyz[:, :, None, :]
+    pre = torch.matmul(off, a1x) + b1
+    if uf is not None:
+        pre = pre + index_points(uf, idx)
+    return _mlp23(torch.relu(pre), a2, b2, a3, b3).amax(dim=2)
+
+
+def fused_ball_mlp3(new_xyz: torch.Tensor, xyz: torch.Tensor,
+                    uf: Optional[torch.Tensor], b1, a1x, a2, b2, a3, b3, *,
+                    radius: float, k: int) -> torch.Tensor:
+    """One PointNet++ MSG branch: max over the K ball slots of
+    relu(relu(relu(layer1) @ a2 + b2) @ a3 + b3), where
+    layer1 = (xyz_j - new_xyz_s) @ a1x + b1 + uf_j.
+
+    Args:
+      new_xyz: (B, S, 3) centres; xyz: (B, N, 3) points.
+      uf: (B, N, C1) hoisted feature rows (features @ A1[feature rows]), or
+        None for a level without input features.
+      b1 (C1,), a1x (3, C1): layer 1's bias and xyz-offset rows.
+      a2 (C1, C2), b2, a3 (C2, C3), b3: folded layers 2 and 3.
+      radius, k: the ball (in-ball: squared distance <= radius**2 in f32)
+        and its slot count (the first k in-ball points in index order).
+    Returns:
+      (B, S, C3) float32.
+    """
+    tensors = [new_xyz, xyz] + ([] if uf is None else [uf])
+    if on_cpu(*tensors):
+        return fused_ball_mlp3_plain(new_xyz, xyz, uf, b1, a1x, a2, b2, a3, b3,
+                                     radius=radius, k=k)
+    check(new_xyz, "new_xyz", torch.float32, 3)
+    check(xyz, "xyz", torch.float32, 3)
+    B, S, _ = new_xyz.shape
+    N = xyz.shape[1]
+    C1, C2, C3 = a2.shape[0], a2.shape[1], a3.shape[1]
+    if new_xyz.shape[2] != 3 or xyz.shape != (B, N, 3) or k < 1:
+        raise ValueError(f"new_xyz {tuple(new_xyz.shape)}, xyz "
+                         f"{tuple(xyz.shape)}, k={k}")
+    if uf is not None:
+        check(uf, "uf", torch.float32, 3)
+        if uf.shape != (B, N, C1):
+            raise ValueError(f"uf {tuple(uf.shape)} != {(B, N, C1)}")
+    w = [_weight(b1, "b1", (C1,)), _weight(a1x, "a1x", (3, C1)),
+         _weight(a2, "a2", (C1, C2)), _weight(b2, "b2", (C2,)),
+         _weight(a3, "a3", (C2, C3)), _weight(b3, "b3", (C3,))]
+    if C2 % 4 or C3 % 4:
+        raise ValueError(f"layer widths C2={C2}, C3={C3} must be multiples of 4")
+    out = torch.empty((B, S, C3), dtype=torch.float32, device=xyz.device)
+    rc = _lib().iq_ball_mlp3(new_xyz.data_ptr(), xyz.data_ptr(),
+                             None if uf is None else uf.data_ptr(),
+                             *[t.data_ptr() for t in w], out.data_ptr(),
+                             B, S, N, k, C1, C2, C3, radius ** 2,
+                             stream(xyz))
+    raise_on(rc, "iq_ball_mlp3")
+    LAUNCHES["fused_ball_mlp3"] += 1
+    return out
+
+
+# -------------------------------------------------------- knn_with_density
+def knn_with_density_plain(query, database, inv_density, k: int):
+    """Plain version of ``knn_with_density``."""
+    idx = sorted_topk_indices(square_distance(query, database), k)
+    den = index_points(inv_density[..., None], idx)[..., 0]
+    return idx, den, den.amax(dim=-1, keepdim=True)
+
+
+def knn_with_density(query: torch.Tensor, database: torch.Tensor,
+                     inv_density: torch.Tensor, k: int):
+    """kNN indices, each neighbour's inverse density, and the per-query max.
+
+    Args:
+      query: (B, S, C); database: (B, N, C); inv_density: (B, N); float32.
+    Returns:
+      idx (B, S, k) int32 (ascending distance, ties to the lowest index),
+      den (B, S, k) float32, dmax (B, S, 1) float32.
+    """
+    if on_cpu(query, database, inv_density):
+        return knn_with_density_plain(query, database, inv_density, k)
+    check(query, "query", torch.float32, 3)
+    check(database, "database", torch.float32, 3)
+    check(inv_density, "inv_density", torch.float32, 2)
+    B, S, C = query.shape
+    N = database.shape[1]
+    if database.shape != (B, N, C) or inv_density.shape != (B, N):
+        raise ValueError(f"query {tuple(query.shape)}, database "
+                         f"{tuple(database.shape)} and inv_density "
+                         f"{tuple(inv_density.shape)} disagree")
+    if not 1 <= k <= min(MAX_DENSITY_K, N):
+        raise ValueError(f"k={k} must lie in [1, min({MAX_DENSITY_K}, N={N})]")
+    idx = torch.empty((B, S, k), dtype=torch.int32, device=query.device)
+    den = torch.empty((B, S, k), dtype=torch.float32, device=query.device)
+    dmax = torch.empty((B, S, 1), dtype=torch.float32, device=query.device)
+    rc = _lib().iq_knn_density(query.data_ptr(), database.data_ptr(),
+                               inv_density.data_ptr(), idx.data_ptr(),
+                               den.data_ptr(), dmax.data_ptr(), B, S, N, C, k,
+                               stream(query))
+    raise_on(rc, "iq_knn_density")
+    LAUNCHES["knn_with_density"] += 1
+    return idx, den, dmax
+
+
+# ------------------------------------------------------ fused_pointconv_sa
+def density_scale(den: torch.Tensor, dmax: torch.Tensor,
+                  dnet: Sequence[Affine]) -> torch.Tensor:
+    """DensityNet 1 -> 16 -> 8 -> 1 (folded, ReLU after every layer: the
+    reference's sigmoid branch is dead code) on den / dmax: (B, S, K)."""
+    (d1, e1), (d2, e2), (d3, e3) = dnet
+    x = (den / dmax)[..., None]
+    x = torch.relu(x * d1[0] + e1)
+    x = torch.relu(torch.matmul(x, d2) + e2)
+    return torch.relu(torch.matmul(x, d3) + e3)[..., 0]
+
+
+def weightnet(off: torch.Tensor, wnet: Sequence[Affine]) -> torch.Tensor:
+    """WeightNet 3 -> 8 -> 8 -> 16 (folded, ReLU after every layer)."""
+    for a, b in wnet:
+        off = torch.relu(torch.matmul(off, a) + b)
+    return off
+
+
+def fused_pointconv_sa_plain(idx, den, dmax, new_xyz, u, xyz, csw,
+                             a2, b2, a3, b3, dnet, wnet, *, k: int):
+    """Plain version of ``fused_pointconv_sa``."""
+    B, S = idx.shape[:2]
+    h = torch.relu(index_points(u, idx) - csw[:, :, None, :])
+    h = _mlp23(h, a2, b2, a3, b3) * density_scale(den, dmax, dnet)[..., None]
+    wt = weightnet(index_points(xyz, idx) - new_xyz[:, :, None, :], wnet)
+    return torch.einsum("bskc,bskw->bscw", h, wt).reshape(B, S, -1)
+
+
+def fused_pointconv_sa(idx, den, dmax, new_xyz, u, xyz, csw, a2, b2, a3, b3,
+                       dnet: Sequence[Affine], wnet: Sequence[Affine], *,
+                       k: int) -> torch.Tensor:
+    """PointConv SA grouped compute, after ``knn_with_density``:
+    out[s, c*16 + w] = sum_j h[j, c] * wt[j, w] with
+    h = relu(relu(relu(u[idx_j] - csw_s) @ a2 + b2) @ a3 + b3) * ds_j and
+    wt = WeightNet(xyz[idx_j] - new_xyz_s).
+
+    Args:
+      idx/den/dmax: from knn_with_density.
+      new_xyz: (B, S, 3); u: (B, N, C1) hoisted layer-1 rows
+        (src @ A1 + b1); xyz: (B, N, 3); csw: (B, S, C1) = new_xyz @ A1[:3].
+      a2/b2/a3/b3: folded layers 2-3.
+      dnet / wnet: three folded (A, b) affines each, DensityNet (1->16->8->1)
+        and WeightNet (3->8->8->16).
+    Returns:
+      (B, S, C3*16) float32, the reference's C-major flattened
+      einsum("bskc,bskw->bscw").
+    """
+    if on_cpu(idx, den, dmax, new_xyz, u, xyz, csw):
+        return fused_pointconv_sa_plain(idx, den, dmax, new_xyz, u, xyz, csw,
+                                        a2, b2, a3, b3, dnet, wnet, k=k)
+    check(idx, "idx", torch.int32, 3)
+    for t, name in ((new_xyz, "new_xyz"), (u, "u"), (xyz, "xyz"),
+                    (csw, "csw")):
+        check(t, name, torch.float32, 3)
+    B, S, K = idx.shape
+    N, C1 = u.shape[1], u.shape[2]
+    C2, C3 = a2.shape[1], a3.shape[1]
+    if (K != k or not 1 <= k <= MAX_PCONV_K or den.shape != (B, S, K)
+            or dmax.shape != (B, S, 1) or new_xyz.shape != (B, S, 3)
+            or u.shape != (B, N, C1) or xyz.shape != (B, N, 3)
+            or csw.shape != (B, S, C1)):
+        raise ValueError(f"k={k} (at most {MAX_PCONV_K}) and the shapes of "
+                         f"idx {tuple(idx.shape)}, u {tuple(u.shape)}, xyz "
+                         f"{tuple(xyz.shape)}, csw {tuple(csw.shape)} disagree")
+    if C2 % 4 or C3 % 4:
+        raise ValueError(f"layer widths C2={C2}, C3={C3} must be multiples of 4")
+    w = [_weight(a2, "a2", (C1, C2)), _weight(b2, "b2", (C2,)),
+         _weight(a3, "a3", (C2, C3)), _weight(b3, "b3", (C3,))]
+    packed = []
+    for (a, b), (cin, cout) in zip(wnet, WNET_WIDTHS):
+        packed += [_weight(a, "wnet", (cin, cout)).reshape(-1),
+                   _weight(b, "wnet bias", (cout,))]
+    packed = torch.cat(packed)
+    ds = density_scale(den, dmax, dnet).contiguous()
+    out = torch.empty((B, S, C3 * 16), dtype=torch.float32, device=u.device)
+    rc = _lib().iq_pointconv_sa(idx.data_ptr(), ds.data_ptr(),
+                                new_xyz.data_ptr(), u.data_ptr(),
+                                xyz.data_ptr(), csw.data_ptr(),
+                                *[t.data_ptr() for t in w], packed.data_ptr(),
+                                out.data_ptr(), B, S, N, K, C1, C2, C3,
+                                stream(u))
+    raise_on(rc, "iq_pointconv_sa")
+    LAUNCHES["fused_pointconv_sa"] += 1
+    return out

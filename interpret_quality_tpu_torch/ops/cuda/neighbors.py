@@ -26,14 +26,12 @@ import torch
 
 from ..geometry import index_points, sorted_topk_indices, square_distance
 from . import build
+from .launch import I, P, check, on_cpu, raise_on, stream
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES = {"knn": 0, "gather_extrema": 0, "knn_gather_extrema": 0}
 
 MAX_K = 32      # largest neighbourhood the kernels take (kMaxK in the source)
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 
 
 def reset_launches() -> None:
@@ -43,45 +41,18 @@ def reset_launches() -> None:
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = build.load()
-    lib.iq_knn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
-    lib.iq_gather_extrema.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
-    lib.iq_knn_gather_extrema.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                          _P]
+    lib = build.load("neighbors")
+    lib.iq_knn.argtypes = [P, P, P, I, I, I, I, I, P]
+    lib.iq_gather_extrema.argtypes = [P, P, P, P, I, I, I, I, I, P]
+    lib.iq_knn_gather_extrema.argtypes = [P, P, P, P, I, I, I, I, I, P]
     for fn in (lib.iq_knn, lib.iq_gather_extrema, lib.iq_knn_gather_extrema):
         fn.restype = ctypes.c_int
     return lib
 
 
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return True
-    if kinds != {"cuda"} or len({t.device for t in tensors}) != 1:
-        raise ValueError(f"tensors must all lie on the CPU or on one CUDA "
-                         f"device, got {[str(t.device) for t in tensors]}")
-    return False
-
-
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int):
-    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous {ndim}-d {dtype} "
-                         f"tensor, got {t.dtype} {tuple(t.shape)} "
-                         f"contiguous={t.is_contiguous()}")
-
-
 def _check_k(k: int, n: int):
     if not 1 <= k <= min(MAX_K, n):
         raise ValueError(f"k={k} must lie in [1, min({MAX_K}, N={n})]")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _raise_on(rc: int, kernel: str):
-    if rc != 0:
-        raise RuntimeError(f"{kernel} launch failed with CUDA error {rc}")
 
 
 # --------------------------------------------------------------------- knn
@@ -98,10 +69,10 @@ def knn(query: torch.Tensor, database: torch.Tensor, k: int) -> torch.Tensor:
     Returns:
       (B, S, k) int32, ascending distance, ties to the lowest index.
     """
-    if _on_cpu(query, database):
+    if on_cpu(query, database):
         return knn_plain(query, database, k)
-    _check(query, "query", torch.float32, 3)
-    _check(database, "database", torch.float32, 3)
+    check(query, "query", torch.float32, 3)
+    check(database, "database", torch.float32, 3)
     B, S, C = query.shape
     if database.shape[0] != B or database.shape[2] != C:
         raise ValueError(f"query {tuple(query.shape)} and database "
@@ -110,8 +81,8 @@ def knn(query: torch.Tensor, database: torch.Tensor, k: int) -> torch.Tensor:
     _check_k(k, N)
     out = torch.empty((B, S, k), dtype=torch.int32, device=query.device)
     rc = _lib().iq_knn(query.data_ptr(), database.data_ptr(), out.data_ptr(),
-                       B, S, N, C, k, _stream(query))
-    _raise_on(rc, "iq_knn")
+                       B, S, N, C, k, stream(query))
+    raise_on(rc, "iq_knn")
     LAUNCHES["knn"] += 1
     return out
 
@@ -140,10 +111,10 @@ def gather_extrema(idx: torch.Tensor, a: torch.Tensor
     bounds; the plain version on the CPU raises instead.  The main path's
     indices come from ``knn``, which keeps them in range.
     """
-    if _on_cpu(idx, a):
+    if on_cpu(idx, a):
         return gather_extrema_plain(idx, a)
-    _check(idx, "idx", torch.int32, 3)
-    _check(a, "a", torch.float32, 3)
+    check(idx, "idx", torch.int32, 3)
+    check(a, "a", torch.float32, 3)
     B, S, k = idx.shape
     N, F = a.shape[1], a.shape[2]
     if a.shape[0] != B:
@@ -154,8 +125,8 @@ def gather_extrema(idx: torch.Tensor, a: torch.Tensor
     amin = torch.empty_like(amax)
     rc = _lib().iq_gather_extrema(idx.data_ptr(), a.data_ptr(),
                                   amax.data_ptr(), amin.data_ptr(),
-                                  B, S, N, F, k, _stream(a))
-    _raise_on(rc, "iq_gather_extrema")
+                                  B, S, N, F, k, stream(a))
+    raise_on(rc, "iq_gather_extrema")
     LAUNCHES["gather_extrema"] += 1
     return amax, amin
 
@@ -178,10 +149,10 @@ def knn_gather_extrema(xs: torch.Tensor, a: torch.Tensor, k: int
     Returns:
       (amax, amin), each (B, N, F) float32.
     """
-    if _on_cpu(xs, a):
+    if on_cpu(xs, a):
         return knn_gather_extrema_plain(xs, a, k)
-    _check(xs, "xs", torch.float32, 3)
-    _check(a, "a", torch.float32, 3)
+    check(xs, "xs", torch.float32, 3)
+    check(a, "a", torch.float32, 3)
     B, N, C = xs.shape
     F = a.shape[2]
     if a.shape[:2] != xs.shape[:2]:
@@ -192,7 +163,7 @@ def knn_gather_extrema(xs: torch.Tensor, a: torch.Tensor, k: int
     amin = torch.empty_like(amax)
     rc = _lib().iq_knn_gather_extrema(xs.data_ptr(), a.data_ptr(),
                                       amax.data_ptr(), amin.data_ptr(),
-                                      B, N, C, F, k, _stream(xs))
-    _raise_on(rc, "iq_knn_gather_extrema")
+                                      B, N, C, F, k, stream(xs))
+    raise_on(rc, "iq_knn_gather_extrema")
     LAUNCHES["knn_gather_extrema"] += 1
     return amax, amin

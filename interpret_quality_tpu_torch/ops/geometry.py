@@ -7,7 +7,10 @@ semantics:
   * kNN in ascending distance with ties to the lowest index (the order of
     ``jax.lax.top_k`` on negated distances).  ``torch.topk`` promises no tie
     order, so selection is a stable sort;
-  * FPS with the first index fixed at 0 and argmax ties to the lowest index.
+  * FPS with the first index fixed at 0 and argmax ties to the lowest index;
+  * ball query with the sort-and-clamp convention (slots beyond the ball
+    filled with the first in-ball index);
+  * the Gaussian-KDE density of PointConv.
 """
 from __future__ import annotations
 
@@ -64,3 +67,55 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
         distance = torch.minimum(distance, dist)
         farthest = torch.argmax(distance, dim=-1)              # first maximum
     return centroids
+
+
+def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,
+                     new_xyz: torch.Tensor) -> torch.Tensor:
+    """Ball query with sort-and-clamp semantics.
+
+    Args:
+      xyz: (B, N, 3) all points; new_xyz: (B, S, 3) query centres.
+    Returns:
+      (B, S, min(nsample, N)) int32: the first in-ball indices in index
+      order; slots beyond the ball repeat the first in-ball index, and an
+      empty ball gives index 0.  In-ball is ``square_distance <= radius**2``
+      in the tensors' dtype.
+    """
+    N = xyz.shape[1]
+    sqrdists = square_distance(new_xyz, xyz)                   # (B, S, N)
+    arange = torch.arange(N, dtype=torch.int64, device=xyz.device)
+    group_idx = torch.where(sqrdists > radius ** 2, N, arange)
+    group_idx = torch.sort(group_idx, dim=-1).values[..., :nsample]
+    first = group_idx[..., :1]
+    first = torch.where(first == N, 0, first)
+    group_idx = torch.where(group_idx == N, first, group_idx)
+    return group_idx.to(torch.int32)
+
+
+def knn_point(nsample: int, xyz: torch.Tensor,
+              new_xyz: torch.Tensor) -> torch.Tensor:
+    """k nearest points of each query: (B, N, 3), (B, S, 3) -> (B, S, k)
+    int32, ascending distance, ties to the lowest index."""
+    return sorted_topk_indices(square_distance(new_xyz, xyz), nsample)
+
+
+DENSITY_CHUNK = 1 << 28      # distances per compute_density chunk (1 GiB f32)
+
+
+def compute_density(xyz: torch.Tensor, bandwidth: float) -> torch.Tensor:
+    """Gaussian-KDE point density, mean_j exp(-d_ij / (2 h^2)) / (2.5 h):
+    (B, N, 3) -> (B, N).
+
+    The (B, N, N) distances are taken a chunk of clouds at a time, at most
+    ``DENSITY_CHUNK`` of them per chunk: one masked-coalition batch of 1650
+    clouds of 1024 points would otherwise hold 6.9 GB.  Each cloud's
+    arithmetic is the same either way.
+    """
+    B, N, _ = xyz.shape
+    step = max(1, DENSITY_CHUNK // max(1, N * N))
+    out = []
+    for s in range(0, B, step):
+        x = xyz[s:s + step]
+        g = torch.exp(-square_distance(x, x) / (2.0 * bandwidth * bandwidth))
+        out.append(torch.mean(g / (2.5 * bandwidth), dim=-1))
+    return torch.cat(out, dim=0)

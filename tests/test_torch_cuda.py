@@ -8,6 +8,8 @@ file imports no JAX, so it also runs on a machine that has only PyTorch:
 import pytest
 import torch
 
+from interpret_quality_tpu_torch.ops.cuda import fps as fp
+from interpret_quality_tpu_torch.ops.cuda import groups as gr
 from interpret_quality_tpu_torch.ops.cuda import neighbors as nb
 
 
@@ -67,3 +69,102 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         nb.knn(xs.double(), xs.double(), 4)                  # not f32
     with pytest.raises(ValueError):
         nb.knn_gather_extrema(xs, torch.randn(2, 64, 8), 4)  # mixed devices
+
+
+def _cloud(cuda, B, N, seed, collapse=True):
+    """Random clouds; with ``collapse`` the second half of each cloud sits on
+    its first point, as a masked coalition puts a region on the centre
+    (exact ties everywhere)."""
+    g = torch.Generator().manual_seed(seed)
+    xyz = torch.rand(B, N, 3, generator=g) - 0.5
+    if collapse:
+        xyz[:, N // 2:] = xyz[:, :1]
+    return xyz.to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,npoint", [(1024, 512), (512, 128), (256, 512),
+                                      (100, 7)])
+def test_fps_bit_equal_to_plain(cuda, N, npoint):
+    xyz = _cloud(cuda, 5, N, N)
+    fp.reset_launches()
+    got = fp.fps(xyz, npoint)
+    assert torch.equal(got, fp.fps_plain(xyz, npoint))
+    assert (got[:, 0] == 0).all() and fp.LAUNCHES == {"fps": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,collapse", [(32, True), (64, True), (20, False),
+                                        (64, False)])
+def test_knn_with_density_matches_plain(cuda, k, collapse):
+    xyz = _cloud(cuda, 3, 256, k, collapse)
+    query = xyz[:, :77].contiguous()
+    inv = torch.rand(3, 256, device=cuda) + 0.5
+    gr.reset_launches()
+    idx, den, dmax = gr.knn_with_density(query, xyz, inv, k)
+    pidx, pden, pdmax = gr.knn_with_density_plain(query, xyz, inv, k)
+    assert torch.equal(idx, pidx)
+    assert torch.equal(den, pden) and torch.equal(dmax, pdmax)
+    assert gr.LAUNCHES["knn_with_density"] == 1
+
+
+def _affine(g, cin, cout, cuda):
+    return ((torch.randn(cin, cout, generator=g) / cin ** 0.5).to(cuda),
+            (0.1 * torch.randn(cout, generator=g)).to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths,k,radius,with_uf", [
+    ((32, 32, 64), 16, 0.1, False), ((64, 96, 128), 128, 0.4, False),
+    ((64, 64, 128), 32, 0.2, True), ((128, 128, 256), 64, 0.4, True)])
+def test_ball_mlp3_matches_plain(cuda, widths, k, radius, with_uf):
+    """Within rtol 1e-4, atol 1e-5 (f32 sums in another order); the clouds
+    are random, so no point sits on a ball's boundary at f32 noise."""
+    g = torch.Generator().manual_seed(k)
+    xyz = _cloud(cuda, 2, 512, k, collapse=False)
+    new_xyz = xyz[:, :128].contiguous()
+    C1, C2, C3 = widths
+    (a1, b1), (a2, b2), (a3, b3) = (_affine(g, 3 + (5 if with_uf else 0), C1, cuda),
+                                    _affine(g, C1, C2, cuda),
+                                    _affine(g, C2, C3, cuda))
+    uf = None
+    if with_uf:
+        uf = torch.randn(2, 512, 5, generator=g).to(cuda) @ a1[:5]
+        a1 = a1[5:]
+    gr.reset_launches()
+    got = gr.fused_ball_mlp3(new_xyz, xyz, uf, b1, a1, a2, b2, a3, b3,
+                             radius=radius, k=k)
+    want = gr.fused_ball_mlp3_plain(new_xyz, xyz, uf, b1, a1, a2, b2, a3, b3,
+                                    radius=radius, k=k)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert gr.LAUNCHES["fused_ball_mlp3"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths,k,D", [((64, 64, 128), 32, 0),
+                                        ((128, 128, 256), 64, 128),
+                                        ((32, 32, 64), 20, 8)])
+def test_pointconv_sa_matches_plain(cuda, widths, k, D):
+    g = torch.Generator().manual_seed(k)
+    xyz = _cloud(cuda, 2, 256, k)
+    new_xyz = xyz[:, ::4].contiguous()
+    inv = torch.rand(2, 256, generator=g).to(cuda) + 0.5
+    idx, den, dmax = gr.knn_with_density(new_xyz, xyz, inv, k)
+    C1, C2, C3 = widths
+    (a1, b1), (a2, b2), (a3, b3) = (_affine(g, 3 + D, C1, cuda),
+                                    _affine(g, C1, C2, cuda),
+                                    _affine(g, C2, C3, cuda))
+    src = torch.cat([xyz, torch.randn(2, 256, D, generator=g).to(cuda)], -1)
+    u = src @ a1 + b1
+    csw = new_xyz @ a1[:3]
+    dnet = [_affine(g, 1, 16, cuda), _affine(g, 16, 8, cuda),
+            _affine(g, 8, 1, cuda)]
+    wnet = [_affine(g, 3, 8, cuda), _affine(g, 8, 8, cuda),
+            _affine(g, 8, 16, cuda)]
+    gr.reset_launches()
+    args = (idx, den, dmax, new_xyz, u, xyz, csw, a2, b2, a3, b3, dnet, wnet)
+    got = gr.fused_pointconv_sa(*args, k=k)
+    want = gr.fused_pointconv_sa_plain(*args, k=k)
+    assert got.shape == (2, 64, C3 * 16)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert gr.LAUNCHES["fused_pointconv_sa"] == 1

@@ -56,7 +56,11 @@ def test_importing_every_port_module_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert len(_port_modules()) >= 25
+    assert len(_port_modules()) >= 37
+    assert {f"interpret_quality_tpu_torch.{m}" for m in (
+        "ops.cuda.fps", "ops.cuda.groups", "ops.cuda.launch",
+        "models.pointnet", "models.pointnet2", "models.pointconv")
+    } <= set(_port_modules())
 
 
 def test_cli_asks_for_cuda_and_raises_without_it(tmp_path, monkeypatch):

@@ -8,7 +8,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
   1. build   one nvcc per kernel source of interpret_quality_tpu_torch
              (csrc/*.cu), all started together, into build/torch_kernels/.
-  2. kernels each of the seven kernels at the main path's shapes — the
+  2. kernels each of the eight kernels at the main path's shapes — the
              masked-coalition batch of one synthetic cloud (50 orders x 33
              rows = 1650 clouds of 1024 points) and each layer or level a
              forward gives it, with a seeded model's own weights — against
@@ -24,18 +24,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  atol 1e-5, a ball-query row excused only where a point lies
                  on the ball's boundary at f32 noise; the plain versions run
                  a chunk of clouds at a time (the whole batch would need
-                 (B, S, K, C) tensors of up to 55 GB).
+                 (B, S, K, C) tensors of up to 55 GB);
+               gather_rows (GCNN layer 2's 64-wide input at its kNN indices):
+                 bit-equal, beside one torch.gather call, the library's
+                 version of the same function.
   3. model   full-width logits of all five families through the kernels vs
              the same modules on the plain versions (PointNet, which has no
              kernel: card vs CPU), every BatchNorm randomised, on one
              order's batch (33 clouds).
-  4. small   the engine on the card vs on the CPU on a small input.
+  4. small   on a small input, card vs CPU: the Shapley engine, the
+             interaction engine with a short last chunk, and one smoothness
+             epoch of all regions.
   5. main    the CLIs a user runs (MAIN_PATH_CUTS lists the cuts of depth):
              save_fps; Shapley init for DGCNN, GCNN, PointNet++, PointConv
              and PointNet; trans enumeration on the plan path for DGCNN,
-             PointNet++ and PointConv.  Every kernel must launch there,
-             every artifact must be finite and of its shape, and every
-             family's per-order estimates must sum to v(N) - v(empty).
+             PointNet++ and PointConv; gen_pair -> interaction_logits ->
+             cal_interactions for DGCNN and PointNet++; smoothness_enum
+             (linearity, both objectives) for DGCNN.  Every kernel on the
+             path must launch there (OFF_PATH names the one no path
+             reaches), every artifact must be finite and of its shape, every
+             family's per-order estimates must sum to v(N) - v(empty), every
+             pair's v(whole cloud) - v(all-centre cloud) must equal the
+             norm factor, and the smoothness run must keep its bounds,
+             never move a region against its objective, and give Shapley
+             values that sum to v(N) - v(empty) of their own logits.
 
 Every line on stdout is one JSON object.  The first ("device") carries the
 card's name and power limit as nvidia-smi prints them; the "kernels" line
@@ -75,9 +87,22 @@ INIT_ORDERS = {"dgcnn": 100, "gcnn": 50, "pointnet2": 100, "pointconv": 100,
                "pointnet": 100}
 ENUM_MODELS = ("dgcnn", "pointnet2", "pointconv")
 POSES = 4
+INTERACTION_MODELS = ("dgcnn", "pointnet2")
+INTER_PAIRS = 20
+INTER_RATIOS = ("0", "0.1", "0.5", "1")
+SMOOTH_EPOCHS = 2
+SMOOTH_MIN_POINTS = 4   # fewer points: a variance that is 0 exactly, f32 noise here
 MAIN_PATH_CUTS = ("one eval cloud of 30; Shapley init 100 orders of 1000 "
                   "(GCNN 50); trans enumeration on the plan path: the first "
-                  "4 poses of 216 at 100 orders; random weights from a seed")
+                  "4 poses of 216 at 100 orders; interactions (trans) on "
+                  "those 4 poses: 20 random pairs of 300, ratios 0, 0.1, 0.5 "
+                  "and 1 of 13; smoothness: linearity of 3 modes, 2 epochs "
+                  "of 50 at 100 orders; random weights from a seed")
+# Kernels that no entry point reaches, so the main path cannot launch them:
+# they are held in the kernel phase alone.
+OFF_PATH = {"gather_rows": "no entry point of the JAX package calls "
+                           "gather_rows (only its kernel test does), so none "
+                           "of the port's does"}
 
 
 def emit(obj) -> None:
@@ -598,6 +623,37 @@ def check_pointconv_kernels(gr, fp, model, masked):
     return summary(k6), summary(k7), details
 
 
+def check_gather_rows(gr, values, idx):
+    """Kernel 8 at the shapes a graph layer gives it (values (B, N, 64) at
+    kNN indices (B, N, K)): bit-equal to gather_rows_plain, timed beside one
+    torch.gather call (library_ms).  Returns (numbers, detail, launches of
+    this phase)."""
+    import torch
+    gr.reset_launches()
+    got = gr.gather_rows(values, idx)
+    want = gr.gather_rows_plain(values, idx)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("gather_rows: kernel differs from its plain "
+                             "version")
+    del got, want
+    B, N_, F = values.shape
+    S, K_ = idx.shape[1], idx.shape[2]
+    lidx = idx.reshape(B, -1).long()[..., None].expand(-1, -1, F)
+    t_k = cuda_ms(lambda: gr.gather_rows(values, idx))
+    t_p = cuda_ms(lambda: gr.gather_rows_plain(values, idx))
+    t_l = cuda_ms(lambda: torch.gather(values, 1, lidx))
+    del lidx
+    bound, by = bound_ms((B * N_ * F + B * S * K_ + B * S * K_ * F) * 4, 0.0)
+    detail = {"kernel": "gather_rows", "B": B, "N": N_, "S": S, "K": K_,
+              "F": F, "bit_equal": True, "ms": t_k, "plain_ms": t_p,
+              "library_ms": t_l, "bound_ms": bound,
+              "output_gb": B * S * K_ * F * 4 / 1e9}
+    return (dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p, bound_ms=bound,
+                 bound_by=by, library_ms=t_l), detail,
+            gr.LAUNCHES["gather_rows"])
+
+
 # Model attributes that hold a kernel wrapper, and the plain version each
 # is swapped for in plain_kernels()
 KERNEL_CALLS = {
@@ -725,6 +781,79 @@ def check_small_reference(device):
             "logits_max_abs_diff": float(np.abs(lg_g - lg_c).max())}
 
 
+def small_cloud():
+    """Synthetic cloud 1 at 256 points in 8 FPS regions (6 to 87 points
+    each): (data, label, region_id)."""
+    import torch
+    from interpret_quality_tpu_torch.attrib.shapley import region_id_from_fps
+    from interpret_quality_tpu_torch.data.datasets import SyntheticClouds
+    from interpret_quality_tpu_torch.ops.geometry import farthest_point_sample
+    data, label = SyntheticClouds(30, 256, 10, seed=1)[1]
+    x = torch.from_numpy(data)
+    region_id = region_id_from_fps(x, farthest_point_sample(x[None], 8)[0])
+    return data, label, region_id.numpy()
+
+
+def check_small_interactions(device):
+    """InteractionEngine.logits_for_pairs on the card vs the CPU, GCNN:
+    3 pairs x 5 contexts at 4 cells per forward, so the last forward holds
+    3; rtol 1e-4 / atol 1e-4."""
+    from interpret_quality_tpu_torch.attrib.interactions import (
+        InteractionEngine)
+    from interpret_quality_tpu_torch.models import make_forward_fn
+    data, _, region_id = small_cloud()
+    rng = np.random.RandomState(4)
+    pairs = np.array([[0, 5], [3, 7], [1, 2]])
+    ctx = np.stack([np.stack([rng.choice([r for r in range(8) if r not in p],
+                                         3, replace=False) for _ in range(5)])
+                    for p in pairs])
+    res = {}
+    for dev in ("cpu", device):
+        engine = InteractionEngine(make_forward_fn(seeded_model("gcnn", dev, 3)),
+                                   8, batch_contexts=4, device=dev)
+        res[str(dev)] = engine.logits_for_pairs(data, region_id, pairs, ctx)
+    got, want = res[str(device)], res["cpu"]
+    if got.shape != (3, 20, 10):
+        raise AssertionError(f"interaction logits: shape {got.shape}")
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    return {"interaction_logits_max_abs_diff": float(np.abs(got - want).max())}
+
+
+def check_small_smoothness(device):
+    """One smoothness_epoch_all_regions (linearity, inc) on the card vs the
+    CPU: cloud within rtol 1e-4 / atol 1e-5, smoothness likewise, the same
+    regions still active."""
+    import torch
+    from interpret_quality_tpu_torch.attrib import smoothness as sm
+    data, _, region_id = small_cloud()
+    masks, orients, bounds, smooth = [], [], [], []
+    for r in range(8):
+        pts = data[region_id == r]
+        ori = np.stack(sm.principal_orientations(pts))
+        v = np.array([np.var(pts @ o, ddof=1) for o in ori])
+        masks.append((region_id == r).astype(np.float32))
+        orients.append(ori)
+        bounds.append(np.stack([v + sm.VAR_THRESHOLD, v - sm.VAR_THRESHOLD]))
+        smooth.append(sm.region_smoothness_np(pts, "linearity"))
+    res = {}
+    for dev in ("cpu", device):
+        def t(a, dtype=torch.float32):
+            return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+        s0 = t(smooth)
+        out = sm.smoothness_epoch_all_regions(
+            t(data), t(data), t(np.stack(masks)), t(np.stack(orients)),
+            t(np.stack(bounds)), s0, t([True] * 8, torch.bool),
+            s0 + sm.ENUM_STEP, "linearity", "inc")
+        res[str(dev)] = [o.cpu().numpy() for o in out]
+    (xg, sg, ag), (xc, sc, ac) = res[str(device)], res["cpu"]
+    np.testing.assert_allclose(xg, xc, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(sg, sc, rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(ag, ac)
+    return {"smoothness_epoch_max_abs_diff": float(np.abs(xg - xc).max()),
+            "smoothness_epoch_points_moved": int((np.abs(xg - data) > 0).any(
+                -1).sum())}
+
+
 # --------------------------------------------------------------- main path
 def stage_rate(log_path: str, prefix: str):
     with open(log_path) as f:
@@ -746,6 +875,18 @@ def main_path():
                 "--model", model, "--mode", "trans", "--num_samples_save",
                 str(orders), "--num_samples", str(orders), "--max_poses",
                 str(POSES)]))
+    inter = ["--mode", "trans", "--ratio", *INTER_RATIOS]
+    for model in INTERACTION_MODELS:
+        spec += [(f"gen_pair_{model}", "gen_pair", [
+                     "--model", model, *inter, "--num_pairs_random",
+                     str(INTER_PAIRS)]),
+                 (f"interaction_logits_{model}", "interaction_logits",
+                  ["--model", model, *inter]),
+                 (f"cal_interactions_{model}", "cal_interactions",
+                  ["--model", model, *inter])]
+    spec.append(("smoothness_enum_dgcnn", "smoothness_enum", [
+        "--model", "dgcnn", "--modes", "linearity", "--max_epochs",
+        str(SMOOTH_EPOCHS), "--num_samples", str(INIT_ORDERS["dgcnn"])]))
     return spec
 
 
@@ -753,8 +894,9 @@ def run_main_path(workdir):
     """The CLIs a user runs, in order; every count is set to 0 just before.
     Returns (launches over the whole path, per-stage seconds and launches,
     forwards/s per stage, efficiency errors)."""
+    import importlib
+
     import torch
-    from interpret_quality_tpu_torch.cli import enum, save_fps, shapley_value
     from interpret_quality_tpu_torch.config import ExperimentConfig
     common = ["--synthetic", "--allow_random_init", "--device", "cuda",
               "--samples", "0", "--checkpoints_root", workdir + "/ck",
@@ -770,16 +912,15 @@ def run_main_path(workdir):
     stages, prev = {}, launches()
     for stage, cli, argv in spec:
         t0 = time.perf_counter()
-        cli_main = {"save_fps": save_fps, "shapley_value": shapley_value,
-                    "enum": enum}[cli].main
-        cli_main(argv + common)
+        importlib.import_module(
+            f"interpret_quality_tpu_torch.cli.{cli}").main(argv + common)
         torch.cuda.synchronize()
         now = launches()
         stages[stage] = {"seconds": time.perf_counter() - t0,
                          "launches": {k: now[k] - prev[k] for k in now}}
         prev = now
     total = launches()
-    missing = [k for k, v in total.items() if v == 0]
+    missing = [k for k, v in total.items() if v == 0 and k not in OFF_PATH]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
 
@@ -820,17 +961,153 @@ def run_main_path(workdir):
             raise AssertionError(f"{model}: efficiency off by {err}")
         efficiency[model] = err
 
+    # where each timed stage writes its StageTimer line, and the line's name
+    timed = {"shapley_init": ("log.txt", "shapley_init"),
+             "enum": ("trans_all/log.txt", "enum"),
+             "interaction_logits": ("interaction_seed1/log.txt", "interaction"),
+             "smoothness_enum": ("linearity_all/allregion_{}/log.txt",
+                                 "smoothness:linearity:{}")}
     rates = {}
-    for stage, _, argv in spec[1:]:
+    for stage, _, argv in spec:
+        kind = next((k for k in timed if stage.startswith(k)), None)
+        if kind is None:
+            continue
         model = argv[argv.index("--model") + 1]
-        enum_stage = stage.startswith("enum")
-        log_path = folder(model) + ("trans_all/log.txt" if enum_stage
-                                    else "log.txt")
-        items, seconds, rate = stage_rate(
-            log_path, "enum" if enum_stage else "shapley_init")
-        rates[stage] = {"forwards": items, "seconds": seconds,
-                        "forwards_per_s": rate}
-    return total, stages, rates, efficiency
+        for objective in (("inc", "dec") if kind == "smoothness_enum"
+                          else ("",)):
+            path, prefix = (x.format(objective) for x in timed[kind])
+            items, seconds, rate = stage_rate(folder(model) + path, prefix)
+            name = stage + (f"_{objective}" if objective else "")
+            rates[name] = {"forwards": items, "seconds": seconds,
+                           "forwards_per_s": rate}
+    checks = {"interactions": check_interactions(folder),
+              "smoothness": check_smoothness(folder("dgcnn"))}
+    return total, stages, rates, efficiency, checks
+
+
+def synthetic_label() -> int:
+    from interpret_quality_tpu_torch.data.datasets import SyntheticClouds
+    return SyntheticClouds(30, N, 10, seed=1)[0][1]
+
+
+def reward_np(logits):
+    from interpret_quality_tpu_torch.attrib.reward import reward_from_logits_np
+    return reward_from_logits_np(logits, synthetic_label())
+
+
+def check_interactions(folder):
+    """The interaction artifacts of each family: finite and of their shapes,
+    single-region folders named range_rank%02d_region%02d with the ranks a
+    permutation of 1..R; and, in every pose state at the normal pose, each
+    pair's v(row 0 at ratio 1: the whole cloud) - v(row 3 at ratio 0: the
+    all-centre cloud) equal to norm_factor.npy within rtol 1e-3 (atol
+    1e-4): the two forwards differ from init's in batch, and DGCNN's
+    feature-space near ties move a logit by up to ~1e-3."""
+    import re
+
+    import torch
+    from scipy.special import comb
+    out = {}
+    for model in INTERACTION_MODELS:
+        inter = folder(model) + "interaction_seed1/"
+        single = inter + "trans_adv_single_region/"
+        names = sorted(os.listdir(single))
+        ranks = []
+        for d in names:
+            if not re.fullmatch(r"range_rank\d\d_region\d\d", d):
+                raise AssertionError(f"{model}: single-region folder {d!r}")
+            ranks.append(int(d[10:12]))
+        if sorted(ranks) != list(range(1, R + 1)):
+            raise AssertionError(f"{model}: ranks {sorted(ranks)}")
+        rank1 = single + names[ranks.index(1)] + "/"
+        nf = float(np.load(folder(model) + "norm_factor.npy"))
+        worst, rows = 0.0, 0
+        rank1_pairs = len(np.load(rank1 + "region_pair_list.npy"))
+        # (folder, pairs, at the normal pose: v(N) is the norm factor's)
+        for pose_dir, pairs, normal in ((inter + "normal/", INTER_PAIRS, True),
+                                        (inter + "trans_adv/", INTER_PAIRS,
+                                         False),
+                                        (rank1 + "normal/", rank1_pairs, True)):
+            if pairs == 0:
+                continue                 # a region without neighbours
+            logits = {}
+            for ratio in map(float, INTER_RATIOS):
+                r = int(ratio * 100)
+                # every context of size m, or 100 drawn ones (gen_context)
+                contexts = int(min(100, comb(R - 2, int((R - 2) * ratio))))
+                lg = torch.load(pose_dir + f"ratio{r}_all_logits.pt").numpy()
+                inter_v = np.load(pose_dir + f"ratio{r}_pred_interaction.npy")
+                if (lg.shape != (pairs, 4 * contexts, 10)
+                        or inter_v.shape != (pairs, contexts)
+                        or not (np.isfinite(lg).all()
+                                and np.isfinite(inter_v).all())):
+                    raise AssertionError(f"{pose_dir} ratio {r}: {lg.shape} "
+                                         f"{inter_v.shape}")
+                logits[r] = lg
+            if not normal:
+                continue                     # another pose: another v(N)
+            gap = reward_np(logits[100][:, 0]) - reward_np(logits[0][:, 3])
+            err = np.abs(gap - nf)
+            if not (err <= 1e-3 * np.abs(nf) + 1e-4).all():
+                raise AssertionError(f"{pose_dir}: v(N) - v(empty) per pair "
+                                     f"{gap} vs norm factor {nf}")
+            worst, rows = max(worst, float(err.max())), rows + pairs
+        out[model] = {"norm_factor": nf, "max_abs_err_to_norm_factor": worst,
+                      "pairs_checked": rows, "rank1_folder": names[ranks.index(1)],
+                      "rank1_pairs": rank1_pairs}
+    return out
+
+
+def check_smoothness(base):
+    """DGCNN's smoothness run, both objectives: finite artifacts of their
+    shapes; no point further than 0.03 + 1e-6 from the original; no region
+    of at least SMOOTH_MIN_POINTS points moving against its objective from
+    one epoch to the next (by more than 1e-5); each epoch's Shapley values
+    summing to v(N) - v(empty) of that epoch's own logits within 5e-3."""
+    import torch
+    from interpret_quality_tpu_torch.attrib.smoothness import (
+        DIST_THRESHOLD, region_smoothness_np)
+    from interpret_quality_tpu_torch.data.datasets import SyntheticClouds
+    data = SyntheticClouds(30, N, 10, seed=1)[0][0]
+    region_id = np.load(base + "region_id.npy")
+    sizes = np.bincount(region_id, minlength=R)
+    out = {}
+    for objective in ("inc", "dec"):
+        d = base + f"linearity_all/allregion_{objective}/"
+        sv = np.load(d + "region_shapley_value.npy")
+        smooth = np.load(d + "linearity.npy")
+        clouds = np.load(d + "data_smoothness.npy")
+        logits = torch.load(d + "all_logits.pt").numpy()
+        E = sv.shape[0]
+        want = {"sv": (E, R), "smooth": (E, R), "clouds": (E, 1, N, 3),
+                "logits": (E, INIT_ORDERS["dgcnn"] * (R + 1), 10)}
+        got = {"sv": sv, "smooth": smooth, "clouds": clouds, "logits": logits}
+        for k, shape in want.items():
+            if not 1 <= E <= SMOOTH_EPOCHS or got[k].shape != shape or \
+                    not np.isfinite(got[k]).all():
+                raise AssertionError(f"{d} {k}: {got[k].shape}, want {shape}")
+        disp = float(np.linalg.norm(clouds[:, 0] - data, axis=-1).max())
+        if disp > DIST_THRESHOLD + 1e-6:
+            raise AssertionError(f"{d}: a point moved {disp} from the original")
+        prev = np.array([region_smoothness_np(data[region_id == r], "linearity")
+                         for r in range(R)], np.float32)
+        sign = 1.0 if objective == "inc" else -1.0
+        moves = sign * (smooth - np.concatenate([prev[None], smooth[:-1]]))
+        toward = float(moves[:, sizes >= SMOOTH_MIN_POINTS].min())
+        if toward < -1e-5:
+            raise AssertionError(f"{d}: a region moved against its objective "
+                                 f"by {-toward}")
+        v = reward_np(logits[:, :R + 1].reshape(-1, 10)).reshape(E, R + 1)
+        eff = float(np.abs(sv.sum(1) - (v[:, R] - v[:, 0])).max())
+        if eff > 5e-3 * max(1.0, float(np.abs(v[:, R] - v[:, 0]).max())):
+            raise AssertionError(f"{d}: efficiency off by {eff}")
+        out[objective] = {"epochs": E, "max_displacement": disp,
+                          "min_move_toward_objective": toward,
+                          "degenerate_regions_excused": int(
+                              ((sizes > 0) & (sizes < SMOOTH_MIN_POINTS)).sum()),
+                          "efficiency_err": eff,
+                          "smoothness_change": float(np.abs(smooth[-1] - prev).max())}
+    return out
 
 
 def main() -> int:
@@ -867,6 +1144,9 @@ def main() -> int:
     idx, k1, d1 = check_knn(nb, masked, device)
     k2, d2 = check_gather(nb, inputs["gcnn"][0], inputs["gcnn"][1])
     k3, d3 = check_fused(nb, inputs["dgcnn"][0])
+    # GCNN layer 2's input (B, N, 64) at the kNN indices of the masked batch
+    k8, d8, k8_launches = check_gather_rows(
+        gr, inputs["gcnn"][0][1][0].contiguous(), inputs["gcnn"][1])
     del inputs, idx
     torch.cuda.empty_cache()
     with torch.inference_mode():
@@ -876,12 +1156,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         k6, k7, d67 = check_pointconv_kernels(
             gr, fp, seeded_model("pointconv", device), masked)
-    for d in d1 + d2 + d3 + d4 + d5 + d67:
+    for d in d1 + d2 + d3 + d4 + d5 + d67 + [d8]:
         emit({"phase": "kernel_shape", **d})
     torch.cuda.empty_cache()
 
     emit({"phase": "model", **check_models(masked, device)})
-    emit({"phase": "small_reference", **check_small_reference(device)})
+    emit({"phase": "small_reference", **check_small_reference(device),
+          **check_small_interactions(device), **check_small_smoothness(device)})
     del masked
     torch.cuda.empty_cache()
 
@@ -893,11 +1174,12 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     try:
         with contextlib.redirect_stdout(sys.stderr):   # the stages' own prints
-            launches, stages, rates, efficiency = run_main_path(workdir)
+            launches, stages, rates, efficiency, checks = run_main_path(
+                workdir)
     finally:
         os.chdir(cwd)
     emit({"phase": "main_path", "launches": launches, "stages": stages,
-          "rates": rates, "efficiency_err": efficiency,
+          "rates": rates, "efficiency_err": efficiency, **checks,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
           "cuts": MAIN_PATH_CUTS})
 
@@ -910,11 +1192,14 @@ def main() -> int:
             ("fps", "fps", "fps.py:78", k4),
             ("fused_ball_mlp3", "groups", "groups.py:250", k5),
             ("knn_with_density", "groups", "groups.py:337", k6),
-            ("fused_pointconv_sa", "groups", "groups.py:469", k7))
+            ("fused_pointconv_sa", "groups", "groups.py:469", k7),
+            ("gather_rows", "groups", "groups.py:171", k8))
     emit({"kernels": [
         {"name": kname, "route": "cuda", "source": src(module),
-         "replaces": pallas + where, "launches": launches[kname], **numbers,
-         "library_ms": None}
+         "replaces": pallas + where, "launches": launches[kname],
+         "library_ms": None, **numbers,
+         **({"kernel_phase_launches": k8_launches, "off_path": OFF_PATH[kname]}
+            if kname in OFF_PATH else {})}
         for kname, module, where, numbers in rows]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,5 +1,5 @@
 """Coalition masking as tensor algebra (counterpart of
-``interpret_quality_tpu/attrib/coalitions.py:24-58, 107-131``).
+``interpret_quality_tpu/attrib/coalitions.py``).
 
 Row semantics (the reference's): for permutation ``order``, row ``r`` of its
 (R+1)-row block keeps regions ``order[0..r-1]`` and collapses regions
@@ -47,6 +47,40 @@ def masked_coalitions(data: torch.Tensor, center: torch.Tensor,
     point_keep = keep[:, :, region_id]                     # (O, R+1, N)
     masked = torch.where(point_keep[..., None], data, center)
     return masked.reshape(O * Rp1, data.shape[0], 3)
+
+
+def interaction_masks(context_keep: torch.Tensor, region_i: int,
+                      region_j: int) -> torch.Tensor:
+    """Region-level keep masks of the 4-row interaction pattern.
+
+    Row layout per context (reference
+    final_point_binary_interaction_logits.py:44-56):
+      row 0: S u {i, j};  row 1: S u {i};  row 2: S u {j};  row 3: S.
+
+    Args:
+      context_keep: (C, R) bool; True for the regions of context S.
+      region_i, region_j: the pair's region indices.
+    Returns:
+      (C, 4, R) bool keep masks.
+    """
+    R = context_keep.shape[1]
+    regions = torch.arange(R, device=context_keep.device)
+    onehot_i = regions == int(region_i)
+    onehot_j = regions == int(region_j)
+    rows = torch.stack([onehot_i | onehot_j, onehot_i, onehot_j,
+                        torch.zeros_like(onehot_i)])         # (4, R)
+    return context_keep[:, None, :] | rows[None]
+
+
+def masked_interaction_batch(data: torch.Tensor, center: torch.Tensor,
+                             keep_rows: torch.Tensor,
+                             region_id: torch.Tensor) -> torch.Tensor:
+    """Apply (C, 4, R) keep masks to one cloud (N, 3): (C * 4, N, 3) masked
+    clouds in the reference's row order [S u {i,j}, S u {i}, S u {j}, S]
+    per context."""
+    point_keep = keep_rows[:, :, region_id]                # (C, 4, N)
+    masked = torch.where(point_keep[..., None], data, center)
+    return masked.reshape(-1, data.shape[0], 3)
 
 
 def marginals_by_region(dv: torch.Tensor, orders: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,9 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--data_root", type=str, default="./data")
     p.add_argument("--checkpoints_root", type=str, default="./checkpoints")
     p.add_argument("--shapley_batch_size", type=int, default=None)
+    p.add_argument("--interaction_batch_size", type=int, default=None,
+                   help="(pair, context) cells per interaction forward "
+                        "(4 clouds each)")
     p.add_argument("--num_points", type=int, default=None,
                    help="points per cloud (default: config NUM_POINTS=1024)")
     p.add_argument("--num_regions", type=int, default=None,
@@ -55,6 +58,7 @@ def config_from_args(args) -> ExperimentConfig:
         softmax_type=args.softmax_type, model_path=args.model_path,
         data_root=args.data_root, checkpoints_root=args.checkpoints_root,
         shapley_batch_size=args.shapley_batch_size,
+        interaction_batch_size=args.interaction_batch_size,
         device=args.device, **extra)
 
 

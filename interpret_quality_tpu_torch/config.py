@@ -6,8 +6,7 @@ constants, knob names and artifact-naming contract (reference
 ``final_shapley_value.py:194-195``), so both packages write the same
 artifact tree.  Added: ``device``; left out: the TPU gather-precision knob
 and the pose-chunk knob of the one-dispatch enumeration, and the constants
-and knobs of the stages not ported yet (the interaction batch size and
-samples, ball-query radius, the real datasets' file lists and ShapeNet
+of the real datasets not ported yet (their file lists and ShapeNet
 categories), which come with them.
 """
 from __future__ import annotations
@@ -23,6 +22,11 @@ NUM_REGIONS = 32           # FPS regions per cloud
 NUM_SAMPLES_SAVE = 1000    # permutations saved at Shapley init
 NUM_SAMPLES = 100          # permutations used per pose in enumeration
 K_FOR_DGCNN = 20           # kNN neighbourhood size for DGCNN/GCNN
+BALL_QUERY_COEF = 0.25     # region-neighbourhood ball radius coefficient
+
+# samples selected for interaction analysis (reference: final_util.py:26-27)
+MODELNET_INTER_SELECTED_SAMPLE = [0, 3, 6, 9, 12, 15, 18, 21, 24, 27]
+SHAPENET_INTER_SELECTED_SAMPLE = [0, 3, 6, 9, 12, 15, 19, 21, 24, 27]
 
 MODEL_NAMES = ["pointnet", "pointnet2", "pointconv", "dgcnn", "gcnn", "gcnn_adv"]
 DATASET_NAMES = ["modelnet10", "shapenet"]
@@ -31,7 +35,8 @@ DEVICES = ["cuda", "cpu"]
 # ---------------------------------------------------------------------------
 # Batch-size knobs.  "shapley_batch_size" is the number of permutation
 # orders masked and forwarded together: the forward batch is
-# (num_regions+1)*bs clouds of 1024 points.
+# (num_regions+1)*bs clouds of 1024 points.  "interaction_batch_size" is the
+# number of (pair, context) cells per forward: the batch is 4*bs clouds.
 # ---------------------------------------------------------------------------
 CONFIG = {
     "shapley_batch_size": {
@@ -41,12 +46,24 @@ CONFIG = {
         "gcnn": 50,
         "pointconv": 50,
     },
+    "interaction_batch_size": {
+        "pointnet2": 200,
+        "pointnet": 400,
+        "dgcnn": 200,
+        "gcnn": 200,
+        "pointconv": 400,
+    },
 }
 
 
 def shapley_batch_size(model: str) -> int:
     key = "gcnn" if model == "gcnn_adv" else model
     return CONFIG["shapley_batch_size"][key]
+
+
+def interaction_batch_size(model: str) -> int:
+    key = "gcnn" if model == "gcnn_adv" else model
+    return CONFIG["interaction_batch_size"][key]
 
 
 def num_classes_for(dataset: str) -> int:
@@ -76,6 +93,7 @@ class ExperimentConfig:
     num_samples: int = NUM_SAMPLES
     k: int = K_FOR_DGCNN
     shapley_batch_size: Optional[int] = None
+    interaction_batch_size: Optional[int] = None
     checkpoints_root: str = "./checkpoints"
     data_root: str = "./data"
     model_path: Optional[str] = None      # override checkpoint path
@@ -90,6 +108,8 @@ class ExperimentConfig:
             raise ValueError(f"unknown device {self.device!r}")
         if self.shapley_batch_size is None:
             self.shapley_batch_size = shapley_batch_size(self.model)
+        if self.interaction_batch_size is None:
+            self.interaction_batch_size = interaction_batch_size(self.model)
 
     # -- artifact naming contract (reference: final_shapley_value.py:194-195)
     @property

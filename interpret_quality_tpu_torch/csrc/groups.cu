@@ -1,6 +1,6 @@
 // Set-abstraction kernels of PointNet++ and PointConv for Hopper (sm_90a).
 //
-// Three kernels, one plain C launcher each (bound with ctypes from
+// Four kernels, one plain C launcher each (bound with ctypes from
 // interpret_quality_tpu_torch/ops/cuda/groups.py):
 //
 //   iq_ball_mlp3      one PointNet++ MSG branch: ball query, layer 1 on exact
@@ -15,6 +15,8 @@
 //                     layers 2-3, density scale, WeightNet on exact offsets,
 //                     and the contraction over the neighbours
 //                     replaces groups.py fused_pointconv_sa -> _pconv_kernel
+//   iq_gather_rows    grouped row gather, out[b, r, :] = values[b, idx[b, r], :]
+//                     replaces groups.py gather_rows -> _gather_rows_kernel
 //
 // All arithmetic is f32 on the CUDA cores.  None of the TPU workarounds are
 // carried over: rows are gathered directly in f32 (no one-hot matmuls, no
@@ -31,8 +33,8 @@
 //
 // Launchers run on the caller's stream, allocate nothing and return
 // cudaGetLastError() (0 on success); cudaErrorInvalidValue for arguments the
-// kernels do not take.  Indices handed to iq_pointconv_sa must lie in
-// [0, N).
+// kernels do not take.  Indices handed to iq_pointconv_sa and
+// iq_gather_rows must lie in [0, N); neither checks.
 
 #include "knn_select.cuh"
 
@@ -451,6 +453,30 @@ pointconv_sa_kernel(const int32_t* __restrict__ idx, const float* __restrict__ d
   }
 }
 
+// out[b, r, :] = values[b, idx[b, r], :] over the R = S * K rows of each
+// cloud; T is float4 where F % 4 == 0 (FT = F / 4), else float (FT = F).
+// A pure copy, so bound by bytes: the output, K times the values, dominates.
+// The TPU kernel gathered by one-hot matmuls against bf16 hi/lo planes with F
+// padded to 128; here each row is copied exactly in f32.  The tx threads of
+// a row (a power of two up to 32, inside one warp) walk it along F, so a
+// warp's stores are contiguous; the row's first thread reads its index once
+// and shuffles it to the others.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gather_rows_kernel(const T* __restrict__ values, const int32_t* __restrict__ idx,
+                   T* __restrict__ out, int N, long long R, long long rows, int FT) {
+  const int tx = blockDim.x;
+  const long long row = (long long)blockIdx.x * blockDim.y + threadIdx.y;
+  const bool live = row < rows;
+  int src = 0;
+  if (live && threadIdx.x == 0) src = __ldg(idx + row);
+  src = __shfl_sync(0xffffffffu, src, 0, tx);   // every lane of the warp takes part
+  if (!live) return;
+  const T* in = values + ((size_t)(row / R) * N + src) * FT;
+  T* o = out + (size_t)row * FT;
+  for (int c = threadIdx.x; c < FT; c += tx) o[c] = __ldg(in + c);
+}
+
 }  // namespace
 
 extern "C" {
@@ -525,6 +551,31 @@ int iq_pointconv_sa(const int32_t* idx, const float* ds, const float* new_xyz,
                         static_cast<cudaStream_t>(stream)>>>(
       idx, ds, new_xyz, u, xyz, csw, a2, b2, a3, b3, wnet, out, S, N, K, C1, C2, C3, G,
       nqb);
+  return cudaGetLastError();
+}
+
+int iq_gather_rows(const float* values, const int32_t* idx, float* out, int B, int N, int R,
+                   int F, void* stream) {
+  if (B <= 0 || R <= 0) return cudaSuccess;
+  if (N < 1 || F < 1) return cudaErrorInvalidValue;
+  const bool vec = F % 4 == 0 && reinterpret_cast<uintptr_t>(values) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const int FT = vec ? F / 4 : F;
+  int tx = 1;
+  while (tx < FT && tx < 32) tx <<= 1;
+  const dim3 block(tx, kThreads / tx);
+  const long long rows = (long long)B * R;
+  const long long nblocks = (rows + block.y - 1) / block.y;
+  if (nblocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    gather_rows_kernel<float4><<<(unsigned)nblocks, block, 0, s>>>(
+        reinterpret_cast<const float4*>(values), idx, reinterpret_cast<float4*>(out), N, R,
+        rows, FT);
+  } else {
+    gather_rows_kernel<float><<<(unsigned)nblocks, block, 0, s>>>(values, idx, out, N, R,
+                                                                   rows, FT);
+  }
   return cudaGetLastError();
 }
 

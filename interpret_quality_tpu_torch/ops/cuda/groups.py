@@ -1,5 +1,6 @@
-"""PointNet++ and PointConv set-abstraction kernels, hand-written in CUDA C++
-for Hopper (``csrc/groups.cu``), with their plain PyTorch versions.
+"""PointNet++ and PointConv set-abstraction kernels and the grouped row
+gather, hand-written in CUDA C++ for Hopper (``csrc/groups.cu``), with their
+plain PyTorch versions.
 
 ==========================  ==============================================
 wrapper                     replaces (interpret_quality_tpu/ops/pallas/)
@@ -10,6 +11,8 @@ wrapper                     replaces (interpret_quality_tpu/ops/pallas/)
                             ``_knn_den_kernel``
 ``fused_pointconv_sa``      ``groups.py`` ``fused_pointconv_sa`` /
                             ``_pconv_kernel``
+``gather_rows``             ``groups.py`` ``gather_rows`` /
+                            ``_gather_rows_kernel``
 ==========================  ==============================================
 
 Signatures and layouts are the JAX functions' (without their TPU knobs
@@ -37,7 +40,7 @@ from .launch import F, I, P, check, on_cpu, raise_on, stream
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES = {"fused_ball_mlp3": 0, "knn_with_density": 0,
-            "fused_pointconv_sa": 0}
+            "fused_pointconv_sa": 0, "gather_rows": 0}
 
 MAX_DENSITY_K = 64   # largest k of knn_with_density (kMaxDensityK)
 MAX_PCONV_K = 64     # largest k of fused_pointconv_sa (kRows)
@@ -57,7 +60,9 @@ def _lib() -> ctypes.CDLL:
     lib.iq_ball_mlp3.argtypes = [P] * 10 + [I] * 7 + [F, P]
     lib.iq_knn_density.argtypes = [P] * 6 + [I] * 5 + [P]
     lib.iq_pointconv_sa.argtypes = [P] * 12 + [I] * 7 + [P]
-    for fn in (lib.iq_ball_mlp3, lib.iq_knn_density, lib.iq_pointconv_sa):
+    lib.iq_gather_rows.argtypes = [P] * 3 + [I] * 4 + [P]
+    for fn in (lib.iq_ball_mlp3, lib.iq_knn_density, lib.iq_pointconv_sa,
+               lib.iq_gather_rows):
         fn.restype = ctypes.c_int
     return lib
 
@@ -267,4 +272,41 @@ def fused_pointconv_sa(idx, den, dmax, new_xyz, u, xyz, csw, a2, b2, a3, b3,
                                 stream(u))
     raise_on(rc, "iq_pointconv_sa")
     LAUNCHES["fused_pointconv_sa"] += 1
+    return out
+
+
+# ------------------------------------------------------------- gather_rows
+def gather_rows_plain(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``gather_rows``: ``index_points`` (``torch.gather``)."""
+    return index_points(values, idx)
+
+
+def gather_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Grouped row gather: out[b, s, j, :] = values[b, idx[b, s, j], :],
+    an exact f32 copy.
+
+    Every index must lie in [0, N).  The JAX package's Pallas kernel writes
+    zeros for one outside (its one-hot row is empty), the plain version
+    (``torch.gather``) raises, and the CUDA kernel does not check: it reads
+    outside the cloud's rows.
+
+    Args:
+      values: (B, N, F) float32; idx: (B, S, K) int32.
+    Returns:
+      (B, S, K, F) float32.
+    """
+    if on_cpu(values, idx):
+        return gather_rows_plain(values, idx)
+    check(values, "values", torch.float32, 3)
+    check(idx, "idx", torch.int32, 3)
+    B, N, F = values.shape
+    S, K = idx.shape[1], idx.shape[2]
+    if idx.shape[0] != B:
+        raise ValueError(f"values {tuple(values.shape)} and idx "
+                         f"{tuple(idx.shape)} disagree on B")
+    out = torch.empty((B, S, K, F), dtype=torch.float32, device=values.device)
+    rc = _lib().iq_gather_rows(values.data_ptr(), idx.data_ptr(),
+                               out.data_ptr(), B, N, S * K, F, stream(values))
+    raise_on(rc, "iq_gather_rows")
+    LAUNCHES["gather_rows"] += 1
     return out

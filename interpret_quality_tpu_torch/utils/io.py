@@ -52,3 +52,8 @@ def save_torch_tensor(path: str, arr):
     if not isinstance(arr, torch.Tensor):
         arr = torch.from_numpy(np.asarray(arr))
     torch.save(arr.detach().cpu(), path)
+
+
+def load_torch_tensor(path: str) -> np.ndarray:
+    """A ``.pt`` tensor as a numpy array, read on the CPU."""
+    return torch.load(path, map_location="cpu").numpy()

@@ -168,3 +168,21 @@ def test_pointconv_sa_matches_plain(cuda, widths, k, D):
     assert got.shape == (2, 64, C3 * 16)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
     assert gr.LAUNCHES["fused_pointconv_sa"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,offset", [(64, 0), (7, 0), (130, 0), (16, 1)])
+def test_gather_rows_bit_equal_to_plain(cuda, F, offset):
+    """float4 rows (F % 4 == 0), scalar rows otherwise, and values that
+    start off a 16-byte boundary (``offset``: the scalar path)."""
+    g = torch.Generator().manual_seed(F)
+    buf = torch.randn(offset + 3 * 1024 * F, generator=g).to(cuda)
+    values = buf[offset:].view(3, 1024, F)
+    idx = torch.randint(0, 1024, (3, 256, 20), generator=g,
+                        dtype=torch.int32).to(cuda)
+    gr.reset_launches()
+    got = gr.gather_rows(values, idx)
+    torch.cuda.synchronize()
+    assert got.shape == (3, 256, 20, F)
+    assert torch.equal(got, gr.gather_rows_plain(values, idx))
+    assert gr.LAUNCHES["gather_rows"] == 1

@@ -56,10 +56,13 @@ def test_importing_every_port_module_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert len(_port_modules()) >= 37
+    assert len(_port_modules()) >= 44
     assert {f"interpret_quality_tpu_torch.{m}" for m in (
         "ops.cuda.fps", "ops.cuda.groups", "ops.cuda.launch",
-        "models.pointnet", "models.pointnet2", "models.pointconv")
+        "models.pointnet", "models.pointnet2", "models.pointconv",
+        "attrib.interactions", "attrib.smoothness", "utils.region_geom",
+        "cli.gen_pair", "cli.interaction_logits", "cli.cal_interactions",
+        "cli.smoothness_enum")
     } <= set(_port_modules())
 
 
@@ -75,8 +78,24 @@ def test_cli_asks_for_cuda_and_raises_without_it(tmp_path, monkeypatch):
     assert not os.listdir(tmp_path)        # nothing ran on the CPU instead
 
 
+@pytest.mark.parametrize("cli", ["gen_pair", "interaction_logits",
+                                 "smoothness_enum"])
+def test_stage_clis_ask_for_cuda_and_raise_without_it(cli, tmp_path,
+                                                      monkeypatch):
+    import importlib
+    mod = importlib.import_module(f"interpret_quality_tpu_torch.cli.{cli}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(["--model", "dgcnn", "--synthetic", "--allow_random_init",
+                  "--checkpoints_root", str(tmp_path / "ck"),
+                  "--num_points", "64", "--num_regions", "4", "--samples", "0"])
+    assert not os.listdir(tmp_path)        # nothing ran on the CPU instead
+
+
 def test_config_defaults_to_cuda():
     from interpret_quality_tpu_torch.config import ExperimentConfig
     assert ExperimentConfig(model="dgcnn").device == "cuda"
+    assert ExperimentConfig(model="gcnn_adv").interaction_batch_size == 200
     with pytest.raises(ValueError):
         ExperimentConfig(model="dgcnn", device="tpu")

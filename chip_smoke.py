@@ -16,17 +16,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
                knn, gather_extrema, knn_gather_extrema (DGCNN/GCNN, k=20):
                  kNN selections held to the plain version's up to near ties
                  at f32 noise, gathers bit-equal;
-               fps (1024 -> 512 -> 128): bit-equal;
+               fps (1024 -> 512 -> 128): bit-equal, with the route each N
+                 takes and the clouds the card holds at once;
                knn_with_density (PointConv SA1 k=32, SA2 k=64): selections
                  up to near ties, densities bit-equal where they agree;
                fused_ball_mlp3 (the six PointNet++ MSG branches) and
                  fused_pointconv_sa (PointConv SA1/SA2): rtol 1e-4 /
                  atol 1e-5, a ball-query row excused only where a point lies
-                 on the ball's boundary at f32 noise (fused_ball_mlp3 runs
-                 layers 2-3 on the tensor cores as three TF32 products: its
-                 bound is that route's, the f32 cores' figure beside it, and
-                 its first chunk is also held against the plain version on
-                 the emulated split); the plain versions run
+                 on the ball's boundary at f32 noise (both run layers 2-3 on
+                 the tensor cores as three TF32 products, fused_pointconv_sa
+                 its contraction too: their bound is that route's, the f32
+                 cores' figure beside it, and the first chunk is also held
+                 against the plain version on the emulated split); then one
+                 PointConv forward of the whole batch, split by CUDA events
+                 into its parts; the plain versions run
                  a chunk of clouds at a time (the whole batch would need
                  (B, S, K, C) tensors of up to 55 GB);
                gather_rows (GCNN layer 2's 64-wide input at its kNN indices):
@@ -432,7 +435,8 @@ def check_fps(fp, masked):
         b_, o_ = B * n * 3 * 4 + B * npoint * 4, 10.0 * B * npoint * n
         details.append({"kernel": "fps", "B": B, "N": n, "npoint": npoint,
                         "bit_equal": True, "ms": t_k, "plain_ms": t_p,
-                        "bound_ms": bound_ms(b_, o_)[0]})
+                        "bound_ms": bound_ms(b_, o_)[0],
+                        **fp.fps_occupancy(n)})
         ms, plain, nbytes, ops = ms + t_k, plain + t_p, nbytes + b_, ops + o_
         xyz = index_points(xyz, got)
     bound, by = bound_ms(nbytes, ops)
@@ -584,13 +588,17 @@ def check_pointconv_kernels(gr, fp, model, masked):
     distances within REL_LIMIT of |x|^2 (selection_gap), den bit-equal
     where the index rows are, dmax where the sets are.  Kernel 7 takes the
     kernel-6 indices; on the same indices it must stay within rtol 1e-4 /
-    atol 1e-5 of fused_pointconv_sa_plain on every row."""
+    atol 1e-5 of fused_pointconv_sa_plain on every row (its first chunk is
+    also compared with the plain version on the emulated TF32 split)."""
     import torch
     from interpret_quality_tpu_torch.models.common import fold_stack
+    from interpret_quality_tpu_torch.ops.cuda.emulation import (
+        pointconv_sa_3xtf32)
     from interpret_quality_tpu_torch.ops.geometry import (compute_density,
                                                           index_points)
     k6 = dict(ms=0.0, plain=0.0, ops=0.0, nbytes=0.0, max_abs=0.0)
-    k7 = dict(ms=0.0, plain=0.0, ops=0.0, nbytes=0.0, max_abs=0.0)
+    k7 = dict(ms=0.0, plain=0.0, ops=0.0, mops=0.0, f32_ops=0.0, nbytes=0.0,
+              max_abs=0.0)
     details = []
     xyz, points = masked, None
     for level, sa in enumerate((model.sa1, model.sa2)):
@@ -654,6 +662,9 @@ def check_pointconv_kernels(gr, fp, model, masked):
             return gr.fused_pointconv_sa_plain(*[t[sl] for t in per_cloud],
                                                *w, k=k)
         lvl_abs, bit_equal = 0.0, 0
+        sl = next(chunks(B, PCONV_CHUNK))
+        emu_abs = float((out[sl] - pointconv_sa_3xtf32(
+            *[t[sl] for t in per_cloud], *w, k=k)).abs().max())
         for sl in chunks(B, PCONV_CHUNK):
             want = plain_on(sl)
             if not torch.allclose(out[sl], want, rtol=1e-4, atol=1e-5):
@@ -671,14 +682,20 @@ def check_pointconv_kernels(gr, fp, model, masked):
         C1, C2, C3 = a2.shape[0], a2.shape[1], a3.shape[1]
         b_ = (B * S * k * 3 + B * S * 1 + B * S * 3 + B * n * C1 + B * n * 3
               + B * S * C1 + B * S * C3 * 16) * 4
-        # per neighbour: layer 1 (sub, relu), layers 2-3, the density
-        # scale, WeightNet 3->8->8->16, the contraction into C3 x 16
-        o_ = B * S * k * (2 * C1 + 2 * C1 * C2 + 2 * C2 * C3 + C3
-                          + 2 * (3 * 8 + 8 * 8 + 8 * 16) + 2 * 16 * C3)
+        # per neighbour: layer 1 (sub, relu), the density scale and
+        # WeightNet 3->8->8->16 on the f32 units; layers 2-3 and the
+        # contraction into C3 x 16 on the tensor cores
+        per_row = 2 * C1 + C3 + 2 * (3 * 8 + 8 * 8 + 8 * 16)
+        per_row_mm = 2 * C1 * C2 + 2 * C2 * C3 + 2 * 16 * C3
+        o_, m_ = float(B * S * k * per_row), float(B * S * k * per_row_mm)
+        # everything on the f32 cores: the earlier kernel's bound
+        f32_ = o_ + m_
         details.append({"kernel": "fused_pointconv_sa", "level": level + 1,
                         "B": B, "S": S, "N": n, "K": k, "C": [C1, C2, C3],
                         "ms": t_k, "plain_ms": t_p,
-                        "bound_ms": bound_ms(b_, o_)[0],
+                        "bound_ms": bound_ms(b_, o_, m_)[0],
+                        "bound_f32_cores_ms": bound_ms(b_, f32_)[0],
+                        "max_abs_diff_to_3xtf32_emulation_first_chunk": emu_abs,
                         "plain_compared_in_chunks_of": PCONV_CHUNK,
                         "max_abs_diff": lvl_abs,
                         "bit_equal_values": bit_equal / out.numel(),
@@ -688,15 +705,100 @@ def check_pointconv_kernels(gr, fp, model, masked):
         k7["plain"] += t_p
         k7["nbytes"] += b_
         k7["ops"] += o_
+        k7["mops"] += m_
+        k7["f32_ops"] += f32_
         k7["max_abs"] = max(k7["max_abs"], lvl_abs)
         xyz, points = new_xyz, sa._head(out)
         del out, u, per_cloud, inv
 
     def summary(k):
-        bound, by = bound_ms(k["nbytes"], k["ops"])
-        return dict(max_abs_err=k["max_abs"], ms=k["ms"], plain_ms=k["plain"],
-                    bound_ms=bound, bound_by=by)
+        # the bound of the route taken (kernel 7: layers 2-3 and the
+        # contraction as three TF32 products on the tensor cores), and for
+        # kernel 7 the earlier kernel's beside it (everything on the f32 cores)
+        bound, by = bound_ms(k["nbytes"], k["ops"], k.get("mops", 0.0))
+        out = dict(max_abs_err=k["max_abs"], ms=k["ms"], plain_ms=k["plain"],
+                   bound_ms=bound, bound_by=by)
+        if "f32_ops" in k:
+            out["bound_f32_cores_ms"] = bound_ms(k["nbytes"], k["f32_ops"])[0]
+        return out
     return summary(k6), summary(k7), details
+
+
+def pointconv_forward_split(model, masked):
+    """One PointConv forward of the whole masked batch, as
+    PointConvDensityClsSsg.forward runs it without a plan, with CUDA events
+    between its parts: ms per part, summed over the two SA levels, and the
+    logits' largest difference to the model's own forward.  Measurement
+    only; the main path calls the model."""
+    import torch
+    from interpret_quality_tpu_torch.models.common import (bn_eval, fold_stack,
+                                                           pointwise)
+    from interpret_quality_tpu_torch.ops.cuda import fps as fp
+    from interpret_quality_tpu_torch.ops.cuda import groups as gr
+    from interpret_quality_tpu_torch.ops.geometry import (compute_density,
+                                                          index_points)
+    parts = ("density", "fps", "knn_with_density", "layer1_and_folds",
+             "density_scale", "fused_pointconv_sa", "sa_head", "sa3",
+             "classifier")
+
+    def forward(marks):
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+        mark(None)
+        xyz, points = masked, None
+        for sa in (model.sa1, model.sa2):
+            inv = 1.0 / compute_density(xyz, sa.bandwidth)
+            mark("density")
+            fps_idx = fp.fps(xyz, sa.npoint)
+            new_xyz = index_points(xyz, fps_idx)
+            mark("fps")
+            idx, den, dmax = gr.knn_with_density(new_xyz, xyz, inv, sa.nsample)
+            mark("knn_with_density")
+            (a1, b1), (a2, b2), (a3, b3) = fold_stack(sa.mlp_convs, sa.mlp_bns)
+            src = xyz if points is None else torch.cat([xyz, points], dim=-1)
+            u = torch.matmul(src, a1) + b1
+            csw = torch.matmul(new_xyz, a1[:3])
+            dnet = fold_stack(sa.densitynet.mlp_convs, sa.densitynet.mlp_bns)
+            wnet = fold_stack(sa.weightnet.mlp_convs, sa.weightnet.mlp_bns)
+            mark("layer1_and_folds")
+            # the wrapper's own first step, timed apart: DensityNet on (B, S, K)
+            gr.density_scale(den, dmax, dnet)
+            mark("density_scale")
+            out = gr.fused_pointconv_sa(idx, den, dmax, new_xyz, u, xyz, csw,
+                                        a2, b2, a3, b3, dnet, wnet, k=sa.nsample)
+            mark("fused_pointconv_sa")
+            xyz, points = new_xyz, sa._head(out)
+            del out, u
+            mark("sa_head")
+        _, h = model.sa3(xyz, points)
+        mark("sa3")
+        h = torch.relu(bn_eval(pointwise(h, model.fc1), model.bn1))
+        h = torch.relu(bn_eval(pointwise(h, model.fc2), model.bn2))
+        logits = pointwise(h, model.fc3)
+        mark("classifier")
+        return logits
+    forward([])                                             # warm-up
+    torch.cuda.synchronize()
+    marks = []
+    logits = forward(marks)
+    torch.cuda.synchronize()
+    ms = dict.fromkeys(parts, 0.0)
+    for (_, before), (name, after) in zip(marks[:-1], marks[1:]):
+        ms[name] += before.elapsed_time(after)
+    whole = cuda_ms(lambda: model(masked), reps=2)
+    diff = float((logits - model(masked)).abs().max())
+    if diff > 1e-4:
+        raise AssertionError(f"pointconv forward split: logits differ from "
+                             f"the model's forward by {diff}")
+    # density_scale ran twice in the split (apart, and inside the wrapper)
+    return {"B": masked.shape[0], "parts_ms": ms,
+            "sum_of_parts_ms": marks[0][1].elapsed_time(marks[-1][1]),
+            "model_forward_ms": whole,
+            "max_abs_diff_to_model_forward": diff,
+            "note": "fused_pointconv_sa includes the wrapper's own "
+                    "density_scale, which is also timed apart"}
 
 
 def check_gather_rows(gr, values, idx):
@@ -1230,10 +1332,14 @@ def main() -> int:
         k5, d5 = check_ball_mlp3(gr, fp, seeded_model("pointnet2", device),
                                  masked)
         torch.cuda.empty_cache()
-        k6, k7, d67 = check_pointconv_kernels(
-            gr, fp, seeded_model("pointconv", device), masked)
+        pconv = seeded_model("pointconv", device)
+        k6, k7, d67 = check_pointconv_kernels(gr, fp, pconv, masked)
+        torch.cuda.empty_cache()
+        split = pointconv_forward_split(pconv, masked)
+        del pconv
     for d in d1 + d2 + d3 + d4 + d5 + d67 + [d8]:
         emit({"phase": "kernel_shape", **d})
+    emit({"phase": "pointconv_forward_split", **split})
     torch.cuda.empty_cache()
 
     emit({"phase": "model", **check_models(masked, device)})

@@ -21,16 +21,13 @@
 // None of the TPU workarounds are carried over: rows are gathered directly
 // in f32 (no one-hot matmuls, no bf16 hi/lo planes) and the kNN keeps exact
 // f32 distances with ties to the lowest index (select_knn, shared with
-// neighbors.cu).  iq_ball_mlp3 runs its layers 2 and 3 on the tensor cores
-// with a three-product TF32 split that keeps f32 accuracy (see there); all
-// other arithmetic is f32 on the CUDA cores.
-//
-// Layers 2 and 3 of iq_pointconv_sa run through one tiled product,
-// dense_tile: a tile of kRows slot rows sits transposed in shared memory,
-// each thread computes a kTM x kTN block of outputs with the weight rows
-// read as float4 through the read-only cache, and an epilogue consumes the
-// block (store for the next layer, max into the ball's row, or scale for
-// the contraction).  The (B, S, K, C) grouped tensors never exist in device
+// neighbors.cu).  iq_ball_mlp3 and iq_pointconv_sa run their layers 2 and 3
+// on the tensor cores with a three-product TF32 split that keeps f32
+// accuracy, through one piece of code (order_weights_kernel, WeightRing,
+// mma_layer, mlp_layers23; see iq_ball_mlp3); each brings its own front (a
+// ball query, a gather of given neighbours) and its own epilogue (a max over
+// the ball, a contraction over the neighbours).  All other arithmetic is f32
+// on the CUDA cores.  The (B, S, K, C) grouped tensors never exist in device
 // memory.
 //
 // Launchers run on the caller's stream, allocate nothing and return
@@ -43,71 +40,11 @@
 namespace {
 
 constexpr int kThreads = 256;               // threads per block of the MLP kernels
-constexpr int kRows = 64;                   // slot rows per tile
-constexpr int kStride = kRows + 4;          // row stride of a transposed activation tile
-constexpr int kTM = 8;                      // rows of a thread's output block
-constexpr int kTN = 4;                      // columns of a thread's output block
 constexpr int kMaxDensityK = 64;            // largest k of iq_knn_density
+constexpr int kMaxPconvK = 64;              // largest K of iq_pointconv_sa
 constexpr int kWH = 8;                      // WeightNet 3 -> kWH -> kWH -> kWO
 constexpr int kWO = 16;
 constexpr int kWnetFloats = 3 * kWH + kWH + kWH * kWH + kWH + kWH * kWO + kWO;
-
-// y = x @ w + bias for the kRows rows of one tile.  x is held transposed in
-// shared memory (xt[i * kStride + r], cin rows); w is (cin, cout) row-major
-// in device memory, bias (cout,); cout is a multiple of kTN.  Each thread
-// takes kTM x kTN blocks of y in turn and hands each to epi(r0, c0, v).
-template <typename Epi>
-__device__ __forceinline__ void dense_tile(const float* xt, int cin,
-                                           const float* __restrict__ w,
-                                           const float* __restrict__ bias, int cout,
-                                           Epi&& epi) {
-  const int ncg = cout / kTN;
-  const int ntiles = (kRows / kTM) * ncg;
-  for (int t = threadIdx.x; t < ntiles; t += blockDim.x) {
-    const int c0 = (t % ncg) * kTN, r0 = (t / ncg) * kTM;
-    float acc[kTM][kTN];
-#pragma unroll
-    for (int r = 0; r < kTM; ++r)
-#pragma unroll
-      for (int c = 0; c < kTN; ++c) acc[r][c] = 0.f;
-    const float* xp = xt + r0;
-    const float* wp = w + c0;
-#pragma unroll 4
-    for (int i = 0; i < cin; ++i) {
-      const float4 xa = *reinterpret_cast<const float4*>(xp + i * kStride);
-      const float4 xb = *reinterpret_cast<const float4*>(xp + i * kStride + 4);
-      const float4 wv = __ldg(reinterpret_cast<const float4*>(wp + (size_t)i * cout));
-      const float xr[kTM] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
-      const float wc[kTN] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-      for (int r = 0; r < kTM; ++r)
-#pragma unroll
-        for (int c = 0; c < kTN; ++c) acc[r][c] = fmaf(xr[r], wc[c], acc[r][c]);
-    }
-    const float4 bv = __ldg(reinterpret_cast<const float4*>(bias + c0));
-    const float bc[kTN] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-    for (int r = 0; r < kTM; ++r)
-#pragma unroll
-      for (int c = 0; c < kTN; ++c) acc[r][c] = __fadd_rn(acc[r][c], bc[c]);
-    epi(r0, c0, acc);
-  }
-}
-
-// relu(v) stored transposed for the next dense_tile: yt[c * kStride + r]
-__device__ __forceinline__ void store_relu_t(float* yt, int r0, int c0,
-                                             const float (&v)[kTM][kTN]) {
-#pragma unroll
-  for (int c = 0; c < kTN; ++c) {
-    float* dst = yt + (c0 + c) * kStride + r0;
-    *reinterpret_cast<float4*>(dst) =
-        make_float4(fmaxf(v[0][c], 0.f), fmaxf(v[1][c], 0.f), fmaxf(v[2][c], 0.f),
-                    fmaxf(v[3][c], 0.f));
-    *reinterpret_cast<float4*>(dst + 4) =
-        make_float4(fmaxf(v[4][c], 0.f), fmaxf(v[5][c], 0.f), fmaxf(v[6][c], 0.f),
-                    fmaxf(v[7][c], 0.f));
-  }
-}
 
 // ------------------------------------------------------------ iq_ball_mlp3
 // Replaces fused_ball_mlp3 -> _ball_mlp3_kernel (ops/pallas/groups.py:40-113,
@@ -330,13 +267,19 @@ __device__ __forceinline__ void mma_layer(const float* x, int xs, int cin, int c
   }
 }
 
-// Layers 2 and 3 of one tile for this warp; NT2/NT3: column tiles per warp.
-template <int NT2, int NT3>
-__device__ __forceinline__ void ball_layers23(const float* h1, float* h2, int C1, int C2,
-                                              int C3, WeightRing& wr,
-                                              const float* __restrict__ b2,
-                                              const float* __restrict__ b3,
-                                              const int* row_c, float* __restrict__ out) {
+// Layers 2 and 3 of one tile of kBallRows rows, for the whole block; NT2/NT3:
+// column tiles of 8 per warp (a quarter of each layer's columns).  h1 is
+// [kBallRows][C1 + 4], h2 [kBallRows][C2 + 4]; the result,
+// relu(relu(h1 @ a2 + b2) @ a3 + b3), with SCALE times row_scale[row], is
+// left in shared memory over h1 and h2 (both dead by then) at row stride xs3
+// (kBallRows * xs3 floats must fit in h1 and h2 together), visible to every
+// thread on return.  Each caller brings its own epilogue from there.
+template <int NT2, int NT3, bool SCALE>
+__device__ __forceinline__ float* mlp_layers23(const float* h1, float* h2, int C1, int C2,
+                                               int C3, int xs3, WeightRing& wr,
+                                               const float* __restrict__ b2,
+                                               const float* __restrict__ b3,
+                                               const float* row_scale) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int rg = warp >> 2, cq = warp & 3;
@@ -363,25 +306,46 @@ __device__ __forceinline__ void ball_layers23(const float* h1, float* h2, int C1
   float acc[4][NT3][4];
   mma_layer<NT3>(h2, C2 + 4, C2, C3, wr.n3, wr, acc);
   __syncthreads();                    // every warp is done reading h2
-  // relu(acc + b3) of the tile into o3 (over h1 and h2, both dead now), then a
-  // thread per column folds each centre's run of rows into `out`
   float* o3 = const_cast<float*>(h1);
+  float s0[4], s1[4];                 // the scales of this thread's rows
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+    s0[mt] = SCALE ? row_scale[rg * 64 + mt * 16 + g] : 1.f;
+    s1[mt] = SCALE ? row_scale[rg * 64 + mt * 16 + g + 8] : 1.f;
+  }
 #pragma unroll
   for (int nt = 0; nt < NT3; ++nt) {
     const int c = (cq * NT3 + nt) * 8 + 2 * t;
     const float2 bias = __ldg(reinterpret_cast<const float2*>(b3 + c));
 #pragma unroll
     for (int mt = 0; mt < 4; ++mt) {
-      float* dst = o3 + (rg * 64 + mt * 16 + g) * (C3 + 4) + c;
-      *reinterpret_cast<float2*>(dst) =
-          make_float2(fmaxf(__fadd_rn(acc[mt][nt][0], bias.x), 0.f),
-                      fmaxf(__fadd_rn(acc[mt][nt][1], bias.y), 0.f));
-      *reinterpret_cast<float2*>(dst + 8 * (C3 + 4)) =
-          make_float2(fmaxf(__fadd_rn(acc[mt][nt][2], bias.x), 0.f),
-                      fmaxf(__fadd_rn(acc[mt][nt][3], bias.y), 0.f));
+      float* dst = o3 + (rg * 64 + mt * 16 + g) * xs3 + c;
+      float2 lo = make_float2(fmaxf(__fadd_rn(acc[mt][nt][0], bias.x), 0.f),
+                              fmaxf(__fadd_rn(acc[mt][nt][1], bias.y), 0.f));
+      float2 hi = make_float2(fmaxf(__fadd_rn(acc[mt][nt][2], bias.x), 0.f),
+                              fmaxf(__fadd_rn(acc[mt][nt][3], bias.y), 0.f));
+      if (SCALE) {
+        lo = make_float2(__fmul_rn(lo.x, s0[mt]), __fmul_rn(lo.y, s0[mt]));
+        hi = make_float2(__fmul_rn(hi.x, s1[mt]), __fmul_rn(hi.y, s1[mt]));
+      }
+      *reinterpret_cast<float2*>(dst) = lo;
+      *reinterpret_cast<float2*>(dst + 8 * xs3) = hi;
     }
   }
   __syncthreads();
+  return o3;
+}
+
+// iq_ball_mlp3's layers 2 and 3 of one tile and its epilogue: a thread per
+// four columns folds each centre's run of rows into `out`.
+template <int NT2, int NT3>
+__device__ __forceinline__ void ball_layers23(const float* h1, float* h2, int C1, int C2,
+                                              int C3, WeightRing& wr,
+                                              const float* __restrict__ b2,
+                                              const float* __restrict__ b3,
+                                              const int* row_c, float* __restrict__ out) {
+  const float* o3 =
+      mlp_layers23<NT2, NT3, false>(h1, h2, C1, C2, C3, C3 + 4, wr, b2, b3, nullptr);
   // a thread takes four columns of a stretch of 128 / parts rows
   const int cg = C3 / 4, rows_per = kBallRows / (kThreads / cg);
   const int c = (threadIdx.x % cg) * 4, r0 = (threadIdx.x / cg) * rows_per;
@@ -646,155 +610,350 @@ knn_density_kernel(const float* __restrict__ query, const float* __restrict__ db
 }
 
 // --------------------------------------------------------- iq_pointconv_sa
-// WeightNet 3 -> 8 -> 8 -> 16 (BN folded, ReLU after every layer) on one
-// neighbour's exact f32 offset; wn packs (w1, f1, w2, f2, w3, f3) with each
-// w as (in, out) row-major.
-__device__ __forceinline__ void weightnet(const float (&off)[3], const float* wn,
-                                          float (&o)[kWO]) {
+// Replaces fused_pointconv_sa -> _pconv_kernel (ops/pallas/groups.py:367-501).
+//
+// What bounds it on H100: operations.  Per neighbour, layers 2 and 3 cost
+// 2*(C1*C2 + C2*C3) FLOP and the contraction 2*16*C3: 2.0 and 0.2 TFLOP for
+// one PointConv forward of 1650 clouds.  Both run on the tensor cores in the
+// three-product TF32 split of iq_ball_mlp3 (f32 accuracy; see there), the
+// layers through the same code: order_weights_kernel, WeightRing, mma_layer,
+// mlp_layers23.  The output, (B, S, C3*16), is 10.4 GB a forward, three
+// milliseconds of writes.
+//
+// The design.  Blocks are persistent (one per SM; the weights are resident in
+// shared memory where both layers fit, as SA1's 48 KB, and stream through
+// the ring otherwise, as SA2's 192 KB) and walk over tiles of kBallRows = 128
+// rows: G = 128 / K whole centres of one cloud (4 at K = 32, 2 at K = 64).
+// Every slot is a real neighbour and K is fixed, so a tile's rows belong to
+// its own centres: no row queue, no search for copies (the contraction is a
+// sum over the neighbours, so a copy counts) and no atomics.  A tile goes
+// through four phases, each on all 256 threads:
+//   front     two threads a row: index, density scale, the exact f32 offset,
+//             and half of WeightNet's 16 outputs each (wt, row stride 24);
+//   layer 1   relu(u[p] - csw[q]) as float4 loads, eight rows in flight a
+//             thread, each thread keeping its four columns, stored row-major
+//             at stride C1 + 4 as mma_layer reads it;
+//   layers    mlp_layers23, whose epilogue applies bias, ReLU and the row's
+//             density scale and leaves h3 over h1/h2 at stride C3 + 8;
+//   contract  out[q, c, 0..15] = sum_j h3[j, c] * wt[j, 0..15] per centre, as
+//             a (C3 x K) (K x 16) product on the tensor cores in the same
+//             split: a warp takes a centre and 64 channels (four 16 x 8 x 2
+//             accumulator tiles), reads h3 transposed straight from the tile
+//             (stride C3 + 8 and wt's 24 keep those loads free of bank
+//             conflicts), and writes each channel's 16 outputs as float4s,
+//             512 contiguous bytes a warp and store, in the reference's
+//             C-major flattening.  (An f32 register loop, a thread per
+//             centre and channel, was the slower of the two on an H100;
+//             PERF.md has both times.)
+// The next tile's indices and density scales are fetched with cp.async while
+// the products run.
+constexpr int kWtStride = 24;               // row stride of the WeightNet outputs
+constexpr int kL1Batch = 8;                 // rows a thread gathers at once in layer 1
+// floats of shared memory beside the activations and the weight ring: wt,
+// WeightNet's weights (padded to 16 bytes), row scale, row point, and the
+// next tile's (index, scale)
+constexpr int kWnetPadded = (kWnetFloats + 3) & ~3;
+constexpr int kPconvFixedFloats = kBallRows * kWtStride + kWnetPadded + 4 * kBallRows;
+
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+// Half of WeightNet 3 -> 8 -> 8 -> 16 (BN folded, ReLU after every layer) on
+// one neighbour's exact f32 offset: outputs o0 .. o0 + 7 (o0 = 0 or 8).  wn
+// packs (w1, f1, w2, f2, w3, f3) with each w as (in, out) row-major, on a
+// 16-byte boundary in shared memory; every row there is 8 or 16 floats.
+__device__ __forceinline__ void weightnet_half(const float (&off)[3], const float* wn,
+                                               int o0, float (&o)[kWO / 2]) {
+  static_assert(kWH == 8 && kWO == 16, "rows are read as two float4s");
   const float* w1 = wn;
   const float* f1 = w1 + 3 * kWH;
   const float* w2 = f1 + kWH;
   const float* f2 = w2 + kWH * kWH;
   const float* w3 = f2 + kWH;
   const float* f3 = w3 + kWH * kWO;
-  float h[kWH], g[kWH];
+  float h[kWH], g[kWH], w[8], x[8], y[8];
+  load8(w1, w);
+  load8(w1 + kWH, x);
+  load8(w1 + 2 * kWH, y);
 #pragma unroll
-  for (int n = 0; n < kWH; ++n) {
-    const float acc = fmaf(off[2], w1[2 * kWH + n],
-                           fmaf(off[1], w1[kWH + n], __fmul_rn(off[0], w1[n])));
-    h[n] = fmaxf(__fadd_rn(acc, f1[n]), 0.f);
+  for (int n = 0; n < kWH; ++n)
+    h[n] = fmaf(off[2], y[n], fmaf(off[1], x[n], __fmul_rn(off[0], w[n])));
+  load8(f1, w);
+#pragma unroll
+  for (int n = 0; n < kWH; ++n) h[n] = fmaxf(__fadd_rn(h[n], w[n]), 0.f);
+#pragma unroll
+  for (int n = 0; n < kWH; ++n) g[n] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kWH; ++i) {
+    load8(w2 + i * kWH, w);
+#pragma unroll
+    for (int n = 0; n < kWH; ++n) g[n] = fmaf(h[i], w[n], g[n]);
   }
+  load8(f2, w);
 #pragma unroll
-  for (int n = 0; n < kWH; ++n) {
-    float acc = 0.f;
+  for (int n = 0; n < kWH; ++n) g[n] = fmaxf(__fadd_rn(g[n], w[n]), 0.f);
 #pragma unroll
-    for (int i = 0; i < kWH; ++i) acc = fmaf(h[i], w2[i * kWH + n], acc);
-    g[n] = fmaxf(__fadd_rn(acc, f2[n]), 0.f);
+  for (int n = 0; n < kWO / 2; ++n) o[n] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kWH; ++i) {
+    load8(w3 + i * kWO + o0, w);
+#pragma unroll
+    for (int n = 0; n < kWO / 2; ++n) o[n] = fmaf(g[i], w[n], o[n]);
   }
+  load8(f3 + o0, w);
 #pragma unroll
-  for (int n = 0; n < kWO; ++n) {
-    float acc = 0.f;
+  for (int n = 0; n < kWO / 2; ++n) o[n] = fmaxf(__fadd_rn(o[n], w[n]), 0.f);
+}
+
+// The contraction of one tile on the tensor cores.  A unit is (centre q, 64
+// channels): out[q, c, w] = sum_j h3[q*K + j, c] * wt[q*K + j, w] as an
+// m16n8k8 product with A = h3^T (row c, k = j), B = wt (k = j, n = w); a
+// k-step beyond K is filled with zeros.  out_tile points at out[b, s0, 0].
+__device__ __forceinline__ void contract_mma(const float* h3, int xs3, const float* wt,
+                                             float* __restrict__ out_tile, int nc, int K,
+                                             int C3) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int groups = C3 / 64;
+  for (int unit = warp; unit < nc * groups; unit += kThreads / 32) {
+    const int q = unit / groups, c0 = (unit - q * groups) * 64;
+    float acc[4][2][4];
 #pragma unroll
-    for (int i = 0; i < kWH; ++i) acc = fmaf(g[i], w3[i * kWO + n], acc);
-    o[n] = fmaxf(__fadd_rn(acc, f3[n]), 0.f);
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+    const float* hq = h3 + q * K * xs3 + c0 + g;
+    const float* wq = wt + q * K * kWtStride + g;
+    for (int j0 = 0; j0 < K; j0 += 8) {
+      const bool in0 = j0 + t < K, in1 = j0 + t + 4 < K;
+      const float* w0 = wq + (j0 + t) * kWtStride;
+      const float* hr = hq + (j0 + t) * xs3;
+      float bh[2][2], bl[2][2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float x0 = in0 ? w0[nt * 8] : 0.f;
+        const float x1 = in1 ? w0[4 * kWtStride + nt * 8] : 0.f;
+        bh[nt][0] = tf32_hi(x0);
+        bh[nt][1] = tf32_hi(x1);
+        bl[nt][0] = tf32_lo(x0, bh[nt][0]);
+        bl[nt][1] = tf32_lo(x1, bh[nt][1]);
+      }
+      float ahi[4][4], alo[4][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        const float v[4] = {in0 ? hr[mt * 16] : 0.f, in0 ? hr[mt * 16 + 8] : 0.f,
+                            in1 ? hr[4 * xs3 + mt * 16] : 0.f,
+                            in1 ? hr[4 * xs3 + mt * 16 + 8] : 0.f};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ahi[mt][i] = tf32_hi(v[i]);
+          alo[mt][i] = tf32_lo(v[i], ahi[mt][i]);
+        }
+      }
+      // pass by pass: 8 independent accumulators between two products into
+      // the same one
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) mma_tf32(acc[mt][nt], alo[mt], bh[nt][0], bh[nt][1]);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) mma_tf32(acc[mt][nt], ahi[mt], bl[nt][0], bl[nt][1]);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) mma_tf32(acc[mt][nt], ahi[mt], bh[nt][0], bh[nt][1]);
+    }
+    // A thread holds w = 2t, 2t+1 of both column tiles.  Neighbouring lanes
+    // swap a pair, so that an even lane stores w = 2t .. 2t+3 and an odd one
+    // w = 8 + 2(t-1) .. 8 + 2(t-1) + 3: one float4 each, a channel's 64 bytes
+    // per four lanes.
+    const bool odd = t & 1;
+    float* oq = out_tile + ((size_t)q * C3 + c0 + g) * kWO + (odd ? 8 + 2 * (t - 1) : 2 * t);
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const float a0 = acc[mt][0][2 * hf], a1 = acc[mt][0][2 * hf + 1];
+        const float b0 = acc[mt][1][2 * hf], b1 = acc[mt][1][2 * hf + 1];
+        const float r0 = __shfl_xor_sync(0xffffffffu, odd ? a0 : b0, 1);
+        const float r1 = __shfl_xor_sync(0xffffffffu, odd ? a1 : b1, 1);
+        *reinterpret_cast<float4*>(oq + (mt * 16 + 8 * hf) * kWO) =
+            odd ? make_float4(r0, r1, b0, b1) : make_float4(a0, a1, r0, r1);
+      }
   }
 }
 
-// Replaces fused_pointconv_sa -> _pconv_kernel (ops/pallas/groups.py:367-501).
-//
-// What bounds it on H100: operations.  Per neighbour, layers 2 and 3 cost
-// 2*(C1*C2 + C2*C3) FLOP and the contraction 2*16*C3, about 2.2 TFLOP for one
-// PointConv forward of 1650 clouds, against 67 TFLOP/s of f32; the output,
-// (B, S, C3*16), is 6.9 GB at SA1, two milliseconds of writes.  The design:
-// one block takes G = kRows / K whole centres, so a tile holds all their
-// neighbours (K <= kRows).  A thread per row gathers the index and density
-// scale, computes the exact offset and runs the small WeightNet in
-// registers; layer 1 is the elementwise relu(u[p] - csw[q]); layers 2 and 3
-// run through dense_tile, layer 3's epilogue scales each row by its density
-// scale into the shared buffer that layer 1 no longer needs.  Then one
-// thread per (centre, channel) sums h[j, c] * wt[j, 0..15] over the
-// neighbours in slot order, in registers, and writes its 16 outputs as four
-// float4s at out[q, c*16 .. c*16+15], the reference's C-major flattening.
-__global__ void __launch_bounds__(kThreads)
+// Layers 2 and 3 of one tile and iq_pointconv_sa's epilogue.
+template <int NT2, int NT3>
+__device__ __forceinline__ void pconv_layers_contract(const float* h1, float* h2, int C1,
+                                                      int C2, int C3, WeightRing& wr,
+                                                      const float* __restrict__ b2,
+                                                      const float* __restrict__ b3,
+                                                      const float* dsr, const float* wt,
+                                                      float* __restrict__ out_tile, int nc,
+                                                      int K) {
+  const float* h3 =
+      mlp_layers23<NT2, NT3, true>(h1, h2, C1, C2, C3, C3 + 8, wr, b2, b3, dsr);
+  contract_mma(h3, C3 + 8, wt, out_tile, nc, K, C3);
+}
+
+// cp.async of one 4-byte word (a tile's indices and scales are contiguous,
+// but start on a 16-byte boundary only where K is a multiple of 4)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
 pointconv_sa_kernel(const int32_t* __restrict__ idx, const float* __restrict__ ds,
                     const float* __restrict__ new_xyz, const float* __restrict__ u,
                     const float* __restrict__ xyz, const float* __restrict__ csw,
-                    const float* __restrict__ a2, const float* __restrict__ b2,
-                    const float* __restrict__ a3, const float* __restrict__ b3,
-                    const float* __restrict__ wnet, float* __restrict__ out, int S, int N,
-                    int K, int C1, int C2, int C3, int G, int nqb) {
+                    const float* __restrict__ wfrag, const float* __restrict__ b2,
+                    const float* __restrict__ b3, const float* __restrict__ wnet,
+                    float* __restrict__ out, int B, int S, int N, int K, int C1, int C2,
+                    int C3, int G, int nqb, int nbuf) {
   extern __shared__ __align__(16) float smem[];
-  float* ha = smem;                                   // h1^T [C1][kStride], then h3 [kRows][C3]
-  float* h2 = ha + max(C1 * kStride, kRows * C3);     // [C2][kStride]
-  float* wt = h2 + C2 * kStride;                      // [kRows][kWO] WeightNet outputs
-  float* wn = wt + kRows * kWO;                       // [kWnetFloats]
-  float* dsr = wn + kWnetFloats;                      // [kRows] density scale of each row
-  int* row_p = reinterpret_cast<int*>(dsr + kRows);   // [kRows] point of each row
+  float* h1 = smem;                                       // [kBallRows][C1 + 4]
+  float* h2 = h1 + kBallRows * (C1 + 4);                  // [kBallRows][C2 + 4]
+  float* ring = h2 + kBallRows * (C2 + 4);                // [nbuf][kSlabFloats]
+  float* wt = ring + nbuf * kSlabFloats;                  // [kBallRows][kWtStride]
+  float* wn = wt + kBallRows * kWtStride;                 // [kWnetPadded]
+  float* dsr = wn + kWnetPadded;                          // [kBallRows] row scale
+  int* row_p = reinterpret_cast<int*>(dsr + kBallRows);   // [kBallRows] row point
+  int* next_p = row_p + kBallRows;                        // [kBallRows] next tile's
+  float* next_d = reinterpret_cast<float*>(next_p + kBallRows);
 
-  const int b = blockIdx.x / nqb;
-  const int s0 = (blockIdx.x - b * nqb) * G;
-  const int nc = min(G, S - s0);
-  const int rows = nc * K;
-  for (int e = threadIdx.x; e < kWnetFloats; e += blockDim.x) wn[e] = wnet[e];
-  __syncthreads();
+  const int total = B * nqb;
+  // rows of a tile (whole centres), its cloud and first centre
+  auto tile_rows = [&](int tile, int& b, int& s0) {
+    b = tile / nqb;
+    s0 = (tile - b * nqb) * G;
+    return min(G, S - s0) * K;
+  };
+  // start fetching a tile's indices and scales: one commit group, made also
+  // when there is no such tile, so that every thread counts the same groups
+  auto fetch = [&](int tile) {
+    if (tile < total) {
+      int b, s0;
+      const int rows = tile_rows(tile, b, s0);
+      const size_t at = ((size_t)b * S + s0) * K;
+      const int r = (int)threadIdx.x - kBallRows;     // the second half fetches scales
+      if (r < 0 && r + kBallRows < rows) cp_async4(next_p + r + kBallRows, idx + at + r + kBallRows);
+      if (r >= 0 && r < rows) cp_async4(next_d + r, ds + at + r);
+    }
+    cp_async_commit();
+  };
+  fetch(blockIdx.x);                    // before the ring's first slabs
 
-  if (threadIdx.x < kRows) {
-    const int r = threadIdx.x;
-    float o[kWO];
-    int p = 0;
-    float d = 0.f;
-    if (r < rows) {
-      const int q = r / K;
-      const size_t at = ((size_t)b * S + s0 + q) * K + (r - q * K);
-      p = idx[at];
-      d = ds[at];
-      const float* c = new_xyz + ((size_t)b * S + s0 + q) * 3;
-      const float* pt = xyz + ((size_t)b * N + p) * 3;
-      const float off[3] = {__fsub_rn(pt[0], c[0]), __fsub_rn(pt[1], c[1]),
-                            __fsub_rn(pt[2], c[2])};
-      weightnet(off, wn, o);
-    } else {
+  WeightRing wr;
+  wr.frag = wfrag;
+  wr.ring = ring;
+  wr.n2 = (C1 / 8) / slab_ksteps(C1, C2);
+  wr.s2 = slab_ksteps(C1, C2) * C2 * 8;
+  wr.n3 = (C2 / 8) / slab_ksteps(C2, C3);
+  wr.s3 = slab_ksteps(C2, C3) * C3 * 8;
+  wr.nbuf = nbuf;
+  wr.start();
+  for (int e = threadIdx.x; e < kWnetFloats; e += kThreads) wn[e] = wnet[e];
+
+  // layer 1's four columns of this thread (C1 / 4 divides kThreads) and its rows
+  const int c1 = (threadIdx.x % (C1 / 4)) * 4;
+  const int j1 = threadIdx.x / (C1 / 4), jstep = kThreads / (C1 / 4);
+  const int kinv = 65536 / K + 1;       // r / K == (r * kinv) >> 16 for r < 128
+
+  for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
+    int b, s0;
+    const int rows = tile_rows(tile, b, s0);
+    const int nc = rows / K;
+    // The tile's fetch is older than the kAhead slabs a streaming ring keeps
+    // in flight (a tile's layers commit more slabs than that after it), so
+    // this does not wait for the stream; a resident ring has nothing in flight.
+    if (wr.resident())
+      cp_async_wait<0>();
+    else
+      cp_async_wait<kAhead>();
+    __syncthreads();    // the fetch is visible; everyone is done with wt and h3
+
+    // front: two threads a row
+    {
+      const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
+      float o[kWO / 2];
+      int p = 0;
+      float d = 0.f;
+      if (r < rows) {
+        p = next_p[r];
+        d = next_d[r];
+        const int q = (r * kinv) >> 16;
+        const float* c = new_xyz + ((size_t)b * S + s0 + q) * 3;
+        const float* pt = xyz + ((size_t)b * N + p) * 3;
+        const float off[3] = {__fsub_rn(pt[0], c[0]), __fsub_rn(pt[1], c[1]),
+                              __fsub_rn(pt[2], c[2])};
+        weightnet_half(off, wn, half * (kWO / 2), o);
+      } else {
 #pragma unroll
-      for (int w = 0; w < kWO; ++w) o[w] = 0.f;
+        for (int w = 0; w < kWO / 2; ++w) o[w] = 0.f;
+      }
+      if (half == 0) {
+        row_p[r] = p;
+        dsr[r] = d;
+      }
+      float4* dst = reinterpret_cast<float4*>(wt + r * kWtStride + half * (kWO / 2));
+      dst[0] = make_float4(o[0], o[1], o[2], o[3]);
+      dst[1] = make_float4(o[4], o[5], o[6], o[7]);
     }
-    row_p[r] = p;
-    dsr[r] = d;
+    __syncthreads();
+    fetch(tile + gridDim.x);            // lands while the products run
+    // layer 1: relu(u[p] - csw[q]), kL1Batch rows in flight; rows beyond the
+    // tile's are zero
+    for (int r0 = j1; r0 < kBallRows; r0 += kL1Batch * jstep) {
+      float4 uu[kL1Batch], cs[kL1Batch];
 #pragma unroll
-    for (int w = 0; w < kWO; w += 4)
-      *reinterpret_cast<float4*>(wt + r * kWO + w) =
-          make_float4(o[w], o[w + 1], o[w + 2], o[w + 3]);
-  }
-  __syncthreads();
-  // layer 1: relu(u[p] - csw[q]), transposed into ha
-  for (int e = threadIdx.x; e < kRows * C1; e += blockDim.x) {
-    const int r = e / C1, c = e - r * C1;
-    float v = 0.f;
-    if (r < rows) {
-      const int q = r / K;
-      v = fmaxf(__fsub_rn(u[((size_t)b * N + row_p[r]) * C1 + c],
-                          csw[((size_t)b * S + s0 + q) * C1 + c]),
-                0.f);
-    }
-    ha[c * kStride + r] = v;
-  }
-  __syncthreads();
-  dense_tile(ha, C1, a2, b2, C2, [&](int r0, int c0, const float (&v)[kTM][kTN]) {
-    store_relu_t(h2, r0, c0, v);
-  });
-  __syncthreads();
-  dense_tile(h2, C2, a3, b3, C3, [&](int r0, int c0, const float (&v)[kTM][kTN]) {
+      for (int i = 0; i < kL1Batch; ++i) {
+        const int r = r0 + i * jstep;
+        uu[i] = cs[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (r < rows) {
+          const int q = (r * kinv) >> 16;
+          uu[i] = __ldg(
+              reinterpret_cast<const float4*>(u + ((size_t)b * N + row_p[r]) * C1 + c1));
+          cs[i] = __ldg(
+              reinterpret_cast<const float4*>(csw + ((size_t)b * S + s0 + q) * C1 + c1));
+        }
+      }
 #pragma unroll
-    for (int r = 0; r < kTM; ++r) {
-      const float s = dsr[r0 + r];
-      *reinterpret_cast<float4*>(ha + (r0 + r) * C3 + c0) = make_float4(
-          __fmul_rn(fmaxf(v[r][0], 0.f), s), __fmul_rn(fmaxf(v[r][1], 0.f), s),
-          __fmul_rn(fmaxf(v[r][2], 0.f), s), __fmul_rn(fmaxf(v[r][3], 0.f), s));
-    }
-  });
-  __syncthreads();
-  for (int e = threadIdx.x; e < nc * C3; e += blockDim.x) {
-    const int q = e / C3, c = e - q * C3;
-    float acc[kWO];
-#pragma unroll
-    for (int w = 0; w < kWO; ++w) acc[w] = 0.f;
-    for (int j = 0; j < K; ++j) {
-      const int r = q * K + j;
-      const float h = ha[r * C3 + c];
-      const float4* wr = reinterpret_cast<const float4*>(wt + r * kWO);
-#pragma unroll
-      for (int w4 = 0; w4 < kWO / 4; ++w4) {
-        const float4 t = wr[w4];
-        acc[4 * w4] = fmaf(h, t.x, acc[4 * w4]);
-        acc[4 * w4 + 1] = fmaf(h, t.y, acc[4 * w4 + 1]);
-        acc[4 * w4 + 2] = fmaf(h, t.z, acc[4 * w4 + 2]);
-        acc[4 * w4 + 3] = fmaf(h, t.w, acc[4 * w4 + 3]);
+      for (int i = 0; i < kL1Batch; ++i) {
+        const int r = r0 + i * jstep;
+        if (r < kBallRows)
+          *reinterpret_cast<float4*>(h1 + r * (C1 + 4) + c1) = make_float4(
+              fmaxf(__fsub_rn(uu[i].x, cs[i].x), 0.f), fmaxf(__fsub_rn(uu[i].y, cs[i].y), 0.f),
+              fmaxf(__fsub_rn(uu[i].z, cs[i].z), 0.f), fmaxf(__fsub_rn(uu[i].w, cs[i].w), 0.f));
       }
     }
-    float4* dst = reinterpret_cast<float4*>(out + (((size_t)b * S + s0 + q) * C3 + c) * kWO);
-#pragma unroll
-    for (int w4 = 0; w4 < kWO / 4; ++w4)
-      dst[w4] = make_float4(acc[4 * w4], acc[4 * w4 + 1], acc[4 * w4 + 2], acc[4 * w4 + 3]);
+    __syncthreads();
+    float* out_tile = out + ((size_t)b * S + s0) * C3 * kWO;
+    switch ((C2 / 32) * 16 + C3 / 32) {
+      case 1 * 16 + 2:
+        pconv_layers_contract<1, 2>(h1, h2, C1, C2, C3, wr, b2, b3, dsr, wt, out_tile, nc, K);
+        break;
+      case 2 * 16 + 4:
+        pconv_layers_contract<2, 4>(h1, h2, C1, C2, C3, wr, b2, b3, dsr, wt, out_tile, nc, K);
+        break;
+      case 3 * 16 + 4:
+        pconv_layers_contract<3, 4>(h1, h2, C1, C2, C3, wr, b2, b3, dsr, wt, out_tile, nc, K);
+        break;
+      default:
+        pconv_layers_contract<4, 8>(h1, h2, C1, C2, C3, wr, b2, b3, dsr, wt, out_tile, nc, K);
+        break;
+    }
   }
+  cp_async_wait<0>();
 }
 
 // out[b, r, :] = values[b, idx[b, r], :] over the R = S * K rows of each
@@ -908,27 +1067,49 @@ int iq_knn_density(const float* query, const float* db, const float* invden, int
   return cudaGetLastError();
 }
 
+// scratch: C1*C2 + C2*C3 floats of device memory on a 16-byte boundary (both
+// layers' weights in fragment order).  u and csw rows are read as float4s.
 int iq_pointconv_sa(const int32_t* idx, const float* ds, const float* new_xyz,
                     const float* u, const float* xyz, const float* csw, const float* a2,
                     const float* b2, const float* a3, const float* b3, const float* wnet,
-                    float* out, int B, int S, int N, int K, int C1, int C2, int C3,
-                    void* stream) {
+                    float* out, float* scratch, int B, int S, int N, int K, int C1, int C2,
+                    int C3, void* stream) {
   if (B <= 0 || S <= 0) return cudaSuccess;
-  if (N < 1 || K < 1 || K > kRows || C1 < 1 || C2 < kTN || C3 < kTN || C2 % kTN ||
-      C3 % kTN)
+  const int widths = (C2 / 32) * 16 + C3 / 32;
+  if (N < 1 || K < 1 || K > kMaxPconvK || C1 < 8 || kThreads % C1 || C2 % 32 || C3 % 32 ||
+      C1 + C2 < C3 ||
+      (widths != 1 * 16 + 2 && widths != 2 * 16 + 4 && widths != 3 * 16 + 4 &&
+       widths != 4 * 16 + 8) ||
+      (long long)B * S > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  const int G = kRows / K;
-  const size_t ha = (size_t)C1 * kStride > (size_t)kRows * C3 ? (size_t)C1 * kStride
-                                                               : (size_t)kRows * C3;
-  const size_t smem = (ha + (size_t)C2 * kStride + (size_t)kRows * kWO + kWnetFloats +
-                       2 * kRows) * sizeof(float);
+  const int G = kBallRows / K;
   const int nqb = (S + G - 1) / G;
+  const int nslabs = (C1 / 8) / slab_ksteps(C1, C2) + (C2 / 8) / slab_ksteps(C2, C3);
+  const int fixed = kPconvFixedFloats + kBallRows * (C1 + 4) + kBallRows * (C2 + 4);
+  const int room = (kMaxSmem / 4 - fixed) / kSlabFloats;
+  const int nbuf = nslabs <= room ? nslabs : kAhead + 1;
+  if (nbuf > room) return cudaErrorInvalidValue;
+  const size_t smem = ((size_t)fixed + (size_t)nbuf * kSlabFloats) * sizeof(float);
+
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+      cudaSuccess)
+    return err;
+  float* frag2 = scratch;
+  float* frag3 = frag2 + C1 * C2;
+  order_weights_kernel<<<(C1 * C2 / 2 + 255) / 256, 256, 0, s>>>(
+      a2, C1, C2, reinterpret_cast<float2*>(frag2));
+  order_weights_kernel<<<(C2 * C3 / 2 + 255) / 256, 256, 0, s>>>(
+      a3, C2, C3, reinterpret_cast<float2*>(frag3));
+  const long long tiles = (long long)B * nqb;
+  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
   if ((err = prepare(pointconv_sa_kernel, smem)) != cudaSuccess) return err;
-  pointconv_sa_kernel<<<(unsigned)B * nqb, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      idx, ds, new_xyz, u, xyz, csw, a2, b2, a3, b3, wnet, out, S, N, K, C1, C2, C3, G,
-      nqb);
+  pointconv_sa_kernel<<<grid, kThreads, smem, s>>>(idx, ds, new_xyz, u, xyz, csw, frag2, b2,
+                                                   b3, wnet, out, B, S, N, K, C1, C2, C3, G,
+                                                   nqb, nbuf);
   return cudaGetLastError();
 }
 

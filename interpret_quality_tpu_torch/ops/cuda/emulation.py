@@ -1,6 +1,8 @@
 """The arithmetic of the redesigned kernels, emulated in plain PyTorch: the
-three-product TF32 split of ``csrc/groups.cu``'s tensor-core layers and the
-distance chain of ``csrc/knn_select.cuh``.
+three-product TF32 split of ``csrc/groups.cu``'s tensor-core layers (both
+``fused_ball_mlp3``'s and ``fused_pointconv_sa``'s, the latter with its
+contraction), the distance chain of ``csrc/knn_select.cuh`` and the argmax
+of ``csrc/fps.cu``'s register route.
 
 The kernels that run a matrix product on the tensor cores keep f32 accuracy
 by splitting every f32 operand into two TF32 values, x = hi + lo, and
@@ -13,9 +15,11 @@ use it as a second reference for the kernels' arithmetic.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
+
+from ..geometry import index_points
 
 _LOW13 = 0x1FFF          # the 13 mantissa bits that TF32 does not keep
 
@@ -42,10 +46,73 @@ def matmul_3xtf32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def mlp23_3xtf32(h: torch.Tensor, a2, b2, a3, b3) -> torch.Tensor:
-    """Layers 2 and 3 of ``fused_ball_mlp3`` on the split products:
-    relu(relu(h @ a2 + b2) @ a3 + b3)."""
+    """Layers 2 and 3 of ``fused_ball_mlp3`` and ``fused_pointconv_sa`` on
+    the split products: relu(relu(h @ a2 + b2) @ a3 + b3)."""
     h = torch.relu(matmul_3xtf32(h, a2) + b2)
     return torch.relu(matmul_3xtf32(h, a3) + b3)
+
+
+def pointconv_sa_3xtf32(idx, den, dmax, new_xyz, u, xyz, csw, a2, b2, a3, b3,
+                        dnet: Sequence, wnet: Sequence, *,
+                        k: int) -> torch.Tensor:
+    """``fused_pointconv_sa`` as its kernel computes it: layer 1, the density
+    scale and WeightNet in f32, layers 2-3 on the split products, the scaled
+    rows h3 contracted against the WeightNet outputs as the (C3, K) @ (K, 16)
+    product per centre, on the split as well.  Arguments and result are
+    those of ``ops.cuda.groups.fused_pointconv_sa_plain``."""
+    from .groups import density_scale, weightnet
+    B, S = idx.shape[:2]
+    h = torch.relu(index_points(u, idx) - csw[:, :, None, :])
+    h3 = (mlp23_3xtf32(h, a2, b2, a3, b3)
+          * density_scale(den, dmax, dnet)[..., None])          # (B, S, K, C3)
+    wt = weightnet(index_points(xyz, idx) - new_xyz[:, :, None, :], wnet)
+    return matmul_3xtf32(h3.transpose(-1, -2).contiguous(),
+                         wt).reshape(B, S, -1)
+
+
+def fps_register_route(xyz: torch.Tensor, npoint: int,
+                       threads: int = 128) -> torch.Tensor:
+    """Farthest-point sampling with the argmax of ``csrc/fps.cu``'s register
+    route, step for step: thread t owns the points t, t + threads, ... (slots
+    beyond N hold distance 0), scans them in ascending index with a strict
+    ``>``, a warp takes the maximum of the distances' f32 bits as unsigned
+    integers and the lowest index among the lanes that hold it, and the
+    warps' candidates are folded the same way.  The distances are
+    ``(dx*dx + dy*dy) + dz*dz`` with a running minimum from 1e10, as in
+    ``ops.geometry.farthest_point_sample``.
+
+    xyz (B, N, 3) float32 -> (B, npoint) int32."""
+    B, N, _ = xyz.shape
+    ppt = -(-N // threads)
+    slots = ppt * threads
+    pad = torch.zeros(B, slots - N, 3, dtype=xyz.dtype)
+    pts = torch.cat([xyz, pad], dim=1)
+    dist = torch.cat([torch.full((B, N), 1e10, dtype=torch.float32),
+                      torch.zeros(B, slots - N)], dim=1)
+    index = torch.arange(slots).reshape(ppt, threads)            # [i, thread]
+    far = torch.zeros(B, dtype=torch.long)
+    out = torch.empty(B, npoint, dtype=torch.int32)
+    big = torch.iinfo(torch.int64).max
+    for it in range(npoint):
+        out[:, it] = far.int()
+        c = pts[torch.arange(B), far][:, None, :]
+        dx, dy, dz = (pts - c).unbind(-1)
+        dist = torch.minimum(dist, (dx * dx + dy * dy) + dz * dz)
+        # distances are >= 0: their bits order as (unsigned) integers
+        bits = dist.view(torch.int32).long().reshape(B, ppt, threads)
+        # a thread: strict > in ascending i keeps the first maximum
+        tbits = bits.max(dim=1).values                           # (B, threads)
+        first = (bits == tbits[:, None]).int().argmax(dim=1)
+        tidx = index[first, torch.arange(threads)]
+        # a warp: max of the bits, lowest index among the lanes that hold it
+        wb = tbits.reshape(B, -1, 32)
+        wi = tidx.reshape(B, -1, 32)
+        wmax = wb.max(dim=2).values
+        wmin = torch.where(wb == wmax[..., None], wi, big).min(dim=2).values
+        # every thread folds the warps' candidates the same way
+        bmax = wmax.max(dim=1).values
+        far = torch.where(wmax == bmax[:, None], wmin, big).min(dim=1).values
+    return out
 
 
 def square_distance_chain(query: torch.Tensor, db: torch.Tensor) -> torch.Tensor:

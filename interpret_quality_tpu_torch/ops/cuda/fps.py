@@ -5,6 +5,12 @@
 / ``_fps_kernel``.  It takes its plain version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.  Each launch adds one to
 ``LAUNCHES["fps"]``.
+
+The kernel keeps a cloud of up to ``REGISTER_ROUTE_MAX_N`` points in
+registers (a block of 128 threads per cloud, 1, 2, 4 or 8 points a thread,
+one barrier a step); a larger cloud takes the generic kernel, which keeps it
+in shared memory (up to ``MAX_N`` points).  Both are bit-equal to
+``fps_plain``.
 """
 from __future__ import annotations
 
@@ -20,6 +26,9 @@ from .launch import I, P, check, on_cpu, raise_on, stream
 # launches since the last reset_launches()
 LAUNCHES = {"fps": 0}
 
+REGISTER_ROUTE_MAX_N = 1024   # 128 threads x 8 points (kRegThreads * kMaxPpt)
+MAX_N = 14528                 # the generic route: 4 N floats of shared memory
+
 
 def reset_launches() -> None:
     LAUNCHES["fps"] = 0
@@ -30,6 +39,8 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("fps")
     lib.iq_fps.argtypes = [P, P, I, I, I, P]
     lib.iq_fps.restype = ctypes.c_int
+    lib.iq_fps_occupancy.argtypes = [I, P]
+    lib.iq_fps_occupancy.restype = ctypes.c_int
     return lib
 
 
@@ -52,12 +63,25 @@ def fps(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
         return fps_plain(xyz, npoint)
     check(xyz, "xyz", torch.float32, 3)
     B, N, C = xyz.shape
-    if C != 3 or npoint < 1:
-        raise ValueError(f"xyz {tuple(xyz.shape)} must be (B, N, 3) and "
-                         f"npoint={npoint} positive")
+    if C != 3 or npoint < 1 or not 1 <= N <= MAX_N:
+        raise ValueError(f"xyz {tuple(xyz.shape)} must be (B, N, 3) with N in "
+                         f"[1, {MAX_N}] and npoint={npoint} positive")
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
     rc = _lib().iq_fps(xyz.data_ptr(), out.data_ptr(), B, N, npoint,
                        stream(xyz))
     raise_on(rc, "iq_fps")
     LAUNCHES["fps"] += 1
     return out
+
+
+def fps_occupancy(N: int) -> dict:
+    """Which route the kernel takes for clouds of N points and how many of
+    its blocks (one per cloud) the current card holds at once: what
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` says of the built
+    kernel.  Launches nothing."""
+    info = (ctypes.c_int * 4)()
+    raise_on(_lib().iq_fps_occupancy(N, info), "iq_fps_occupancy")
+    ppt, threads, blocks, sms = info
+    return {"route": "registers" if ppt else "shared memory",
+            "points_per_thread": ppt, "threads": threads,
+            "blocks_per_sm": blocks, "resident_clouds": blocks * sms}

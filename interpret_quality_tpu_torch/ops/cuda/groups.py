@@ -17,8 +17,10 @@ wrapper                     replaces (interpret_quality_tpu/ops/pallas/)
 
 Signatures and layouts are the JAX functions' (without their TPU knobs
 ``parts``, ``select``, ``block_q`` and ``interpret``): gathers are exact f32
-and kNN ties go to the lowest index.  ``fused_ball_mlp3``'s kernel runs its
-layers 2-3 on the tensor cores (three TF32 products, f32 accuracy).  As in the JAX package, the work around
+and kNN ties go to the lowest index.  The kernels of ``fused_ball_mlp3`` and
+``fused_pointconv_sa`` run their layers 2-3 (and the latter its contraction)
+on the tensor cores as three TF32 products that keep f32 accuracy, through
+one piece of code.  As in the JAX package, the work around
 each kernel stays plain PyTorch: the hoisted layer-1 rows the callers pass
 in, and the DensityNet scale (``density_scale``).
 
@@ -45,10 +47,11 @@ LAUNCHES = {"fused_ball_mlp3": 0, "knn_with_density": 0,
 
 MAX_DENSITY_K = 64   # largest k of knn_with_density (kMaxDensityK)
 MAX_BALL_K = 1024    # largest k of fused_ball_mlp3 (kMaxBatchRows)
-# (C2 / 32, C3 / 32) that fused_ball_mlp3's kernel is instantiated for: each
-# warp owns a quarter of a layer's columns in tiles of 8
+# (C2 / 32, C3 / 32) that the kernels of fused_ball_mlp3 and
+# fused_pointconv_sa are instantiated for: each warp owns a quarter of a
+# layer's columns in tiles of 8
 BALL_TILES = ((1, 2), (2, 4), (3, 4), (4, 8))
-MAX_PCONV_K = 64     # largest k of fused_pointconv_sa (kRows)
+MAX_PCONV_K = 64     # largest k of fused_pointconv_sa (kMaxPconvK)
 WNET_WIDTHS = ((3, 8), (8, 8), (8, 16))    # WeightNet (in, out) per layer
 
 Affine = Tuple[torch.Tensor, torch.Tensor]
@@ -64,7 +67,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("groups")
     lib.iq_ball_mlp3.argtypes = [P] * 11 + [I] * 7 + [F, P]
     lib.iq_knn_density.argtypes = [P] * 6 + [I] * 5 + [P]
-    lib.iq_pointconv_sa.argtypes = [P] * 12 + [I] * 7 + [P]
+    lib.iq_pointconv_sa.argtypes = [P] * 13 + [I] * 7 + [P]
     lib.iq_gather_rows.argtypes = [P] * 3 + [I] * 4 + [P]
     for fn in (lib.iq_ball_mlp3, lib.iq_knn_density, lib.iq_pointconv_sa,
                lib.iq_gather_rows):
@@ -259,6 +262,16 @@ def fused_pointconv_sa(idx, den, dmax, new_xyz, u, xyz, csw, a2, b2, a3, b3,
     Returns:
       (B, S, C3*16) float32, the reference's C-major flattened
       einsum("bskc,bskw->bscw").
+
+    On a CUDA tensor layers 2 and 3 and the contraction run on the tensor
+    cores as three TF32 products that keep f32 accuracy
+    (``ops/cuda/emulation.py`` repeats the arithmetic), so the result is
+    within rtol 1e-4 / atol 1e-5 of the plain version, not bit-equal.  The
+    kernel takes C1 a power of two in [8, 256], (C2, C3) in ``BALL_TILES``
+    times 32 with C3 <= C1 + C2 (the model's (64, 64, 128) and
+    (128, 128, 256) among them) and any k in [1, ``MAX_PCONV_K``] (the
+    model's 32 and 64; 128 // k whole centres make a tile); anything else
+    raises ``ValueError``.
     """
     if on_cpu(idx, den, dmax, new_xyz, u, xyz, csw):
         return fused_pointconv_sa_plain(idx, den, dmax, new_xyz, u, xyz, csw,
@@ -277,8 +290,12 @@ def fused_pointconv_sa(idx, den, dmax, new_xyz, u, xyz, csw, a2, b2, a3, b3,
         raise ValueError(f"k={k} (at most {MAX_PCONV_K}) and the shapes of "
                          f"idx {tuple(idx.shape)}, u {tuple(u.shape)}, xyz "
                          f"{tuple(xyz.shape)}, csw {tuple(csw.shape)} disagree")
-    if C2 % 4 or C3 % 4:
-        raise ValueError(f"layer widths C2={C2}, C3={C3} must be multiples of 4")
+    if (C1 not in (8, 16, 32, 64, 128, 256) or C2 % 32 or C3 % 32
+            or (C2 // 32, C3 // 32) not in BALL_TILES or C1 + C2 < C3):
+        raise ValueError(
+            f"layer widths ({C1}, {C2}, {C3}): C1 must be a power of two in "
+            f"[8, 256] with C1 + C2 >= C3, and "
+            f"(C2, C3) one of {[(32 * a, 32 * b) for a, b in BALL_TILES]}")
     w = [_weight(a2, "a2", (C1, C2)), _weight(b2, "b2", (C2,)),
          _weight(a3, "a3", (C2, C3)), _weight(b3, "b3", (C3,))]
     packed = []
@@ -287,13 +304,20 @@ def fused_pointconv_sa(idx, den, dmax, new_xyz, u, xyz, csw, a2, b2, a3, b3,
                    _weight(b, "wnet bias", (cout,))]
     packed = torch.cat(packed)
     ds = density_scale(den, dmax, dnet).contiguous()
+    if u.data_ptr() % 16:                   # the kernel reads rows as float4s
+        u = u.clone()
+    if csw.data_ptr() % 16:
+        csw = csw.clone()
     out = torch.empty((B, S, C3 * 16), dtype=torch.float32, device=u.device)
+    # both layers' weights in the order the kernel's fragments read them
+    scratch = torch.empty(C1 * C2 + C2 * C3, dtype=torch.float32,
+                          device=u.device)
     rc = _lib().iq_pointconv_sa(idx.data_ptr(), ds.data_ptr(),
                                 new_xyz.data_ptr(), u.data_ptr(),
                                 xyz.data_ptr(), csw.data_ptr(),
                                 *[t.data_ptr() for t in w], packed.data_ptr(),
-                                out.data_ptr(), B, S, N, K, C1, C2, C3,
-                                stream(u))
+                                out.data_ptr(), scratch.data_ptr(), B, S, N, K,
+                                C1, C2, C3, stream(u))
     raise_on(rc, "iq_pointconv_sa")
     LAUNCHES["fused_pointconv_sa"] += 1
     return out

@@ -1,9 +1,16 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's selection and ball-MLP kernels on one NVIDIA GPU
-at the main path's shapes, for one or more variants of the CUDA sources.
+"""Time the PyTorch port's selection, FPS, ball-MLP and PointConv SA kernels
+on one NVIDIA GPU at the main path's shapes, for one or more variants of the
+CUDA sources.
 
     python3 scripts/time_torch_kernels.py [--csrc DIR ...] [--reps 3]
-                                          [--only knn,fused,density,ball]
+                                  [--only knn,fused,density,ball,pconv,fps]
+
+``--only`` names: ``knn`` (iq_knn), ``fused`` (iq_knn_gather_extrema, DGCNN's
+four layers), ``density`` (iq_knn_density, PointConv's two levels), ``ball``
+(iq_ball_mlp3, PointNet++'s six branches), ``pconv`` (iq_pointconv_sa,
+PointConv's two levels, on the kernel-6 indices) and ``fps`` (iq_fps, 1024 ->
+512 -> 128, with the blocks one SM holds).
 
 Each ``--csrc DIR`` is a directory holding ``neighbors.cu``, ``fps.cu``,
 ``groups.cu`` and ``knn_select.cuh`` (default: the package's own ``csrc/``).
@@ -46,8 +53,12 @@ def registers(report: str):
             spills = tuple(int(x) for x in m.groups())
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            short = subprocess.run(["c++filt", name], capture_output=True,
-                                   text=True).stdout.strip().split("(")[0]
+            # "void (anonymous namespace)::kernel<8>(float const*, ...)"
+            # -> "kernel<8>"
+            full = subprocess.run(["c++filt", name], capture_output=True,
+                                  text=True).stdout.strip()
+            short = full.replace("(anonymous namespace)::", "").split("(")[0]
+            short = short.split(" ")[-1]
             out[short or name] = (int(m.group(1)), *spills)
     return out
 
@@ -56,7 +67,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--csrc", action="append", default=None)
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--only", default="knn,fused,density,ball")
+    ap.add_argument("--only", default="knn,fused,density,ball,pconv,fps")
     ap.add_argument("--unmasked", action="store_true",
                     help="time on a batch without collapsed regions (the "
                          "eval cloud at 1650 scales): no row is a copy of "
@@ -116,13 +127,27 @@ def main() -> int:
                     for sl in cs.chunks(xyz.shape[0], 66)))
                 outs.append(gr.fused_ball_mlp3(*call, radius=radius, k=k))
             xyz, points = new_xyz, torch.cat(outs, dim=-1)
-        # the two PointConv kNN levels
+        # the two PointConv levels: kernel 6's inputs, kernel 7's on its indices
         pconv = cs.seeded_model("pointconv", device)
-        dens, xyz = [], masked
+        dens, pconvs, fps_levels, xyz, points = [], [], [], masked, None
         for sa in (pconv.sa1, pconv.sa2):
             inv = 1.0 / compute_density(xyz, sa.bandwidth)
+            fps_levels.append((xyz, sa.npoint))
             new_xyz = index_points(xyz, fp.fps(xyz, sa.npoint))
             dens.append((new_xyz, xyz, inv, sa.nsample))
+            if "pconv" in only:
+                idx, den, dmax = gr.knn_with_density(*dens[-1])
+                (a1, b1), (a2, b2), (a3, b3) = fold_stack(sa.mlp_convs,
+                                                          sa.mlp_bns)
+                src = xyz if points is None else torch.cat([xyz, points], -1)
+                call = (idx, den, dmax, new_xyz, torch.matmul(src, a1) + b1,
+                        xyz, torch.matmul(new_xyz, a1[:3]), a2, b2, a3, b3,
+                        fold_stack(sa.densitynet.mlp_convs,
+                                   sa.densitynet.mlp_bns),
+                        fold_stack(sa.weightnet.mlp_convs,
+                                   sa.weightnet.mlp_bns))
+                pconvs.append((call, sa.nsample))
+                points = sa._head(gr.fused_pointconv_sa(*call, k=sa.nsample))
             xyz = new_xyz
         del model, pconv, outs, points
         torch.cuda.empty_cache()
@@ -156,6 +181,21 @@ def main() -> int:
                     rec["fused_ball_mlp3_ms"] = [
                         cs.cuda_ms(lambda: gr.fused_ball_mlp3(*call, **kw),
                                    args.reps) for call, kw in branches]
+                if "pconv" in only:
+                    # the wrapper's DensityNet (plain PyTorch) is timed apart
+                    rec["density_scale_ms"] = [
+                        cs.cuda_ms(lambda: gr.density_scale(
+                            call[1], call[2], call[11]), args.reps)
+                        for call, _ in pconvs]
+                    rec["fused_pointconv_sa_ms"] = [
+                        cs.cuda_ms(lambda: gr.fused_pointconv_sa(*call, k=k),
+                                   args.reps) for call, k in pconvs]
+                if "fps" in only:
+                    rec["fps_ms"] = [
+                        cs.cuda_ms(lambda: fp.fps(x, npoint), args.reps)
+                        for x, npoint in fps_levels]
+                    rec["fps_occupancy"] = [fp.fps_occupancy(x.shape[1])
+                                            for x, _ in fps_levels]
                 print(json.dumps(rec), flush=True)
     return 0
 

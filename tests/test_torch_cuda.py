@@ -84,13 +84,41 @@ def _cloud(cuda, B, N, seed, collapse=True):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,npoint", [(1024, 512), (512, 128), (256, 512),
-                                      (100, 7)])
+                                      (100, 7), (300, 64), (1000, 200),
+                                      (1500, 64), (2048, 33)])
 def test_fps_bit_equal_to_plain(cuda, N, npoint):
+    """Both routes of the kernel: the cloud in registers up to 1024 points
+    (N = 100, 300 and 1000 fill no block evenly; npoint > N keeps going), in
+    shared memory beyond (1500, 2048); half of every cloud sits on one point."""
     xyz = _cloud(cuda, 5, N, N)
     fp.reset_launches()
     got = fp.fps(xyz, npoint)
     assert torch.equal(got, fp.fps_plain(xyz, npoint))
     assert (got[:, 0] == 0).all() and fp.LAUNCHES == {"fps": 1}
+    route = fp.fps_occupancy(N)
+    assert route["route"] == ("registers" if N <= fp.REGISTER_ROUTE_MAX_N
+                              else "shared memory")
+    assert route["blocks_per_sm"] >= 1 and fp.LAUNCHES == {"fps": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [64, 512, 1024, 1300])
+def test_fps_all_points_coincide(cuda, N):
+    """Every distance is 0 at every step: the lowest index wins, so the
+    result is all zeros, as fps_plain's; 200 clouds are more than one SM's
+    share of a small card and fewer than two of a large one."""
+    xyz = torch.full((200, N, 3), 0.125, device=cuda)
+    got = fp.fps(xyz, 20)
+    assert torch.equal(got, fp.fps_plain(xyz, 20))
+    assert int(got.abs().max()) == 0
+
+
+@pytest.mark.cuda
+def test_fps_refuses_what_the_kernel_does_not_take(cuda):
+    with pytest.raises(ValueError):
+        fp.fps(torch.zeros(1, fp.MAX_N + 1, 3, device=cuda), 4)
+    with pytest.raises(ValueError):
+        fp.fps(torch.zeros(2, 16, 2, device=cuda), 4)
 
 
 @pytest.mark.cuda
@@ -222,34 +250,68 @@ def test_selection_on_ragged_clouds(cuda, C, k):
         assert torch.equal(got, want)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("widths,k,D", [((64, 64, 128), 32, 0),
-                                        ((128, 128, 256), 64, 128),
-                                        ((32, 32, 64), 20, 8)])
-def test_pointconv_sa_matches_plain(cuda, widths, k, D):
-    g = torch.Generator().manual_seed(k)
-    xyz = _cloud(cuda, 2, 256, k)
-    new_xyz = xyz[:, ::4].contiguous()
-    inv = torch.rand(2, 256, generator=g).to(cuda) + 0.5
+def _pconv_args(cuda, widths, k, D, B, S, N=256):
+    """Inputs of fused_pointconv_sa as PointConvDensitySA.forward builds
+    them, on clouds with a collapsed half, from the kNN kernel's indices."""
+    g = torch.Generator().manual_seed(k + S)
+    xyz = _cloud(cuda, B, N, k)
+    new_xyz = xyz[:, torch.linspace(0, N - 1, S).long()].contiguous()
+    inv = torch.rand(B, N, generator=g).to(cuda) + 0.5
     idx, den, dmax = gr.knn_with_density(new_xyz, xyz, inv, k)
     C1, C2, C3 = widths
     (a1, b1), (a2, b2), (a3, b3) = (_affine(g, 3 + D, C1, cuda),
                                     _affine(g, C1, C2, cuda),
                                     _affine(g, C2, C3, cuda))
-    src = torch.cat([xyz, torch.randn(2, 256, D, generator=g).to(cuda)], -1)
+    src = torch.cat([xyz, torch.randn(B, N, D, generator=g).to(cuda)], -1)
     u = src @ a1 + b1
     csw = new_xyz @ a1[:3]
+    # a positive last DensityNet layer: a scale that ReLU does not leave at 0
     dnet = [_affine(g, 1, 16, cuda), _affine(g, 16, 8, cuda),
-            _affine(g, 8, 1, cuda)]
+            tuple(t.abs() for t in _affine(g, 8, 1, cuda))]
     wnet = [_affine(g, 3, 8, cuda), _affine(g, 8, 8, cuda),
             _affine(g, 8, 16, cuda)]
+    return (idx, den, dmax, new_xyz, u, xyz, csw, a2, b2, a3, b3, dnet, wnet)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths,k,D,B,S", [
+    ((64, 64, 128), 32, 0, 2, 64), ((128, 128, 256), 64, 128, 2, 64),
+    ((32, 32, 64), 20, 8, 2, 64),
+    ((64, 64, 128), 16, 0, 3, 61),        # K = 16: 8 centres a tile, S ragged
+    ((64, 64, 128), 32, 0, 40, 63),       # more tiles than SMs, S % 4 != 0
+    ((128, 128, 256), 64, 128, 70, 33),   # streamed weights, S odd
+    ((64, 96, 128), 24, 5, 2, 50),        # 5 centres of 24 rows: a ragged tile
+    ((32, 32, 64), 7, 2, 1, 9)])          # fewer tiles than SMs, K % 4 != 0
+def test_pointconv_sa_matches_plain(cuda, widths, k, D, B, S):
+    """Both of the model's configurations and the other widths and K the
+    kernel takes, batches smaller and larger than the SM count, and S that
+    is no multiple of the centres of a tile: within rtol 1e-4, atol 1e-5 of
+    the plain version (layers 2-3 and the contraction run as three TF32
+    products on the tensor cores, f32 sums in another order)."""
+    args = _pconv_args(cuda, widths, k, D, B, S)
     gr.reset_launches()
-    args = (idx, den, dmax, new_xyz, u, xyz, csw, a2, b2, a3, b3, dnet, wnet)
     got = gr.fused_pointconv_sa(*args, k=k)
     want = gr.fused_pointconv_sa_plain(*args, k=k)
-    assert got.shape == (2, 64, C3 * 16)
+    assert got.shape == (B, S, widths[2] * 16)
+    assert float((want != 0).float().mean()) > 0.05
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
     assert gr.LAUNCHES["fused_pointconv_sa"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths,k", [((64, 48, 128), 32), ((48, 64, 128), 32),
+                                      ((16, 32, 64), 16), ((64, 64, 128), 65)])
+def test_pointconv_sa_refuses_what_the_kernel_does_not_take(cuda, widths, k):
+    """A width outside the kernel's instantiations, a C3 wider than C1 + C2
+    and a K beyond 64 raise in the wrapper: nothing falls back."""
+    args = list(_pconv_args(cuda, widths, min(k, 64), 0, 2, 16))
+    if k > 64:
+        args[0] = torch.zeros(2, 16, k, dtype=torch.int32, device=cuda)
+        args[1] = torch.ones(2, 16, k, device=cuda)
+    gr.reset_launches()
+    with pytest.raises(ValueError):
+        gr.fused_pointconv_sa(*args, k=k)
+    assert gr.LAUNCHES["fused_pointconv_sa"] == 0
 
 
 @pytest.mark.cuda

@@ -25,6 +25,7 @@ from interpret_quality_tpu.ops.pallas import (fps_pallas, fused_ball_mlp3,
                                               knn_with_density)
 from interpret_quality_tpu_torch.attrib.coalitions import (
     keep_matrix_from_orders, masked_coalitions)
+from interpret_quality_tpu_torch.ops.cuda import emulation as em
 from interpret_quality_tpu_torch.ops.cuda import fps as fp
 from interpret_quality_tpu_torch.ops.cuda import groups as gr
 
@@ -135,6 +136,40 @@ def test_fused_pointconv_sa_plain_equals_pallas(kind, D, widths, k):
     want = np.asarray(fused_pointconv_sa(*jj, jd, jw, k=k, parts=2,
                                          interpret=True))
     assert got.shape == (2, 32, widths[-1] * 16)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_fps_register_route_argmax_equals_pallas(kind):
+    """The argmax rule of the CUDA kernel's register route (emulated in
+    plain PyTorch) against the Pallas kernel: exactly equal indices."""
+    xyz = _clouds(kind)
+    got = em.fps_register_route(torch.from_numpy(xyz), 48).numpy()
+    want = np.asarray(fps_pallas(jnp.asarray(xyz), 48, interpret=True))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_pointconv_sa_kernel_arithmetic_close_to_pallas(kind):
+    """The CUDA kernel's arithmetic (three TF32 products in layers 2-3 and
+    in the contraction, emulated in plain PyTorch) against the Pallas
+    kernel at SA1's widths: the tolerance of the plain version."""
+    rng = np.random.RandomState(11)
+    xyz = _clouds(kind)
+    new_xyz, k = xyz[:, ::4], 16
+    inv = (rng.rand(2, 128) + 0.5).astype(np.float32)
+    idx, den, dmax = gr.knn_with_density_plain(
+        torch.from_numpy(new_xyz), torch.from_numpy(xyz),
+        torch.from_numpy(inv), k)
+    (a1, b1), (a2, b2), (a3, b3) = _affines(rng, (3, 64, 64, 128))
+    arrays = [idx.numpy(), den.numpy(), dmax.numpy(), new_xyz, xyz @ a1 + b1,
+              xyz, new_xyz @ a1, a2, b2, a3, b3]
+    tt, jj = _t([np.ascontiguousarray(a) for a in arrays])
+    (td, jd), (tw, jw) = _t(_affines(rng, (1, 16, 8, 1))), _t(
+        _affines(rng, (3, 8, 8, 16)))
+    got = em.pointconv_sa_3xtf32(*tt, td, tw, k=k).numpy()
+    want = np.asarray(fused_pointconv_sa(*jj, jd, jw, k=k, parts=2,
+                                         interpret=True))
     np.testing.assert_allclose(got, want, **TOL)
 
 

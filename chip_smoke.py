@@ -15,7 +15,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
              its plain version, with times and bounds:
                knn, gather_extrema, knn_gather_extrema (DGCNN/GCNN, k=20):
                  kNN selections held to the plain version's up to near ties
-                 at f32 noise, gathers bit-equal;
+                 at f32 noise, gathers bit-equal (gather_extrema on the
+                 route its shape takes and on the row route forced);
                fps (1024 -> 512 -> 128): bit-equal, with the route each N
                  takes and the clouds the card holds at once;
                knn_with_density (PointConv SA1 k=32, SA2 k=64): selections
@@ -47,14 +48,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
              and PointNet; trans enumeration on the plan path for DGCNN,
              PointNet++ and PointConv; gen_pair -> interaction_logits ->
              cal_interactions for DGCNN and PointNet++; smoothness_enum
-             (linearity, both objectives) for DGCNN.  Every kernel on the
-             path must launch there (OFF_PATH names the one no path
-             reaches), every artifact must be finite and of its shape, every
-             family's per-order estimates must sum to v(N) - v(empty), every
-             pair's v(whole cloud) - v(all-centre cloud) must equal the
-             norm factor, and the smoothness run must keep its bounds,
-             never move a region against its objective, and give Shapley
-             values that sum to v(N) - v(empty) of their own logits.
+             (linearity, both objectives) for DGCNN; then the results
+             stage, cli.result (sensitivity, correlation, smoothness) for
+             DGCNN, PointNet++ and PointConv on the tree they wrote.  Every
+             kernel on the path must launch there (OFF_PATH names the one
+             no path reaches), every artifact must be finite and of its
+             shape, every family's per-order estimates must sum to
+             v(N) - v(empty), every pair's v(whole cloud) - v(all-centre
+             cloud) must equal the norm factor, the smoothness run must
+             keep its bounds, never move a region against its objective,
+             and give Shapley values that sum to v(N) - v(empty) of their
+             own logits, and every number the tables print must be finite.
+  6. real_data  fixture ModelNet10 and ShapeNet trees for the port's own
+             sample lists and seeded GCNN / adv-GCNN .t7 checkpoints at the
+             default paths (adv-GCNN's as model_best.t7 only): save_fps and
+             Shapley init on the card through --data_root, without
+             --synthetic or --allow_random_init.  The eval clouds must be
+             the fixture's, adv-GCNN must take the model_best fallback, the
+             artifacts must be finite and efficient.
+
+Plots (matplotlib) and flax .msgpack checkpoints (msgpack) are held by the
+CPU tests only (tests/test_torch_results.py, tests/test_torch_checkpoint.py):
+this script imports neither, so it needs neither on the card's machine.
 
 Every line on stdout is one JSON object.  The first ("device") carries the
 card's name and power limit as nvidia-smi prints them; the "kernels" line
@@ -65,8 +80,10 @@ Artifacts go to build/chip_smoke/ in the checkout.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -101,7 +118,18 @@ INTER_PAIRS = 20
 INTER_RATIOS = ("0", "0.1", "0.5", "1")
 SMOOTH_EPOCHS = 2
 SMOOTH_MIN_POINTS = 4   # fewer points: a variance that is 0 exactly, f32 noise here
-MAIN_PATH_CUTS = ("one eval cloud of 30; Shapley init 100 orders of 1000 "
+RESULT_SAMPLES = "0,1"  # clouds of the enumerated families, read by cli.result
+RESULT_MODES = ("sensitivity", "correlation", "smoothness")
+TABLE_NUMBER = re.compile(r"[-+]?(?:\d+\.\d+|nan|inf)")
+# The real_data phase: fixture trees of the two eval sets under the port's
+# own sample lists, seeded .t7 checkpoints at the default paths (adv-GCNN's
+# as model_best.t7 only), and save_fps -> Shapley init on the card.
+REAL_ROWS = 2048                  # rows of a fixture cloud (the eval set takes 1024)
+REAL_ORDERS = 50
+REAL_MODELS = ("gcnn", "gcnn_adv")
+MAIN_PATH_CUTS = ("one eval cloud of 30 (two for the families enumerated, "
+                  "whose tables the results stage reads); Shapley init 100 "
+                  "orders of 1000 "
                   "(GCNN 50); trans enumeration on the plan path: the first "
                   "4 poses of 216 at 100 orders; interactions (trans) on "
                   "those 4 poses: 20 random pairs of 300, ratios 0, 0.1, 0.5 "
@@ -310,29 +338,42 @@ def check_knn(nb, masked, device):
 
 
 def check_gather(nb, layers, idx):
+    """Kernel 2 at each GCNN layer: the route its shape takes (the slice
+    route at these shapes) and the row route forced, each bit-equal to the
+    plain version on every chunk.  The bound counts device-memory bytes
+    (``a`` and the indices read once, both outputs written once); beside it
+    stand the L2 bytes the row route moves (every row read k times)."""
     import torch
-    ms = plain = bound = 0.0
+    ms = plain = 0.0
     ops = nbytes = 0.0
     max_abs, details = 0.0, []
     for _, a in layers:
-        kmax, kmin = nb.gather_extrema(idx, a)
-        torch.cuda.synchronize()
-        for sl in chunks(a.shape[0]):
-            pmax, pmin = nb.gather_extrema_plain(idx[sl], a[sl])
-            if not (torch.equal(kmax[sl], pmax) and torch.equal(kmin[sl], pmin)):
-                raise AssertionError("gather_extrema: kernel differs from "
-                                     "its plain version")
-            max_abs = max(max_abs, float((kmax[sl] - pmax).abs().max()),
-                          float((kmin[sl] - pmin).abs().max()))
-        t_k = cuda_ms(lambda: nb.gather_extrema(idx, a))
-        t_p = cuda_ms(lambda: [nb.gather_extrema_plain(idx[sl], a[sl])
-                               for sl in chunks(a.shape[0])], reps=1)
         B, F = a.shape[0], a.shape[2]
+        outs = {route: nb._gather_extrema(idx, a, nb.ROUTES[route])
+                for route in ("shape", "rows")}
+        torch.cuda.synchronize()
+        for sl in chunks(B):
+            pmax, pmin = nb.gather_extrema_plain(idx[sl], a[sl])
+            for route, (kmax, kmin) in outs.items():
+                if not (torch.equal(kmax[sl], pmax) and torch.equal(kmin[sl], pmin)):
+                    raise AssertionError(f"gather_extrema ({route} route) at "
+                                         f"F={F}: kernel differs from its "
+                                         "plain version")
+                max_abs = max(max_abs, float((kmax[sl] - pmax).abs().max()),
+                              float((kmin[sl] - pmin).abs().max()))
+        del outs
+        t_k = cuda_ms(lambda: nb.gather_extrema(idx, a))
+        t_rows = cuda_ms(lambda: nb._gather_extrema(idx, a, nb.ROUTES["rows"]))
+        t_p = cuda_ms(lambda: [nb.gather_extrema_plain(idx[sl], a[sl])
+                               for sl in chunks(B)], reps=1)
         b_ = B * N * K * 4 + B * N * F * 4 + 2 * B * N * F * 4
         o_ = 2 * B * N * K * F
         details.append({"kernel": "gather_extrema", "B": B, "N": N, "F": F,
-                        "k": K, "ms": t_k, "plain_ms": t_p,
-                        "bound_ms": bound_ms(b_, o_)[0]})
+                        "k": K, **nb.gather_extrema_route(N, F, K),
+                        "bit_equal_both_routes": True, "ms": t_k,
+                        "rows_route_ms": t_rows, "plain_ms": t_p,
+                        "bound_ms": bound_ms(b_, o_)[0],
+                        "rows_route_l2_gather_gb": B * N * K * F * 4 / 1e9})
         ms, plain, nbytes, ops = ms + t_k, plain + t_p, nbytes + b_, ops + o_
     bound, by = bound_ms(nbytes, ops)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain, bound_ms=bound,
@@ -1043,17 +1084,22 @@ def stage_rate(log_path: str, prefix: str):
 
 
 def main_path():
-    """(stage, CLI, argv) of the main path, in order."""
-    spec = [("save_fps", "save_fps", ["--model", "dgcnn"])]
+    """(stage, CLI, argv) of the main path, in order.  The enumerated
+    families run two clouds, so that the tables' spread over samples is
+    defined; the results stage reads what they wrote."""
+    one, two = ["--samples", "0"], ["--samples", RESULT_SAMPLES]
+    spec = [("save_fps", "save_fps", ["--model", "dgcnn", *one])]
     for model, orders in INIT_ORDERS.items():
+        samples = two if model in ENUM_MODELS else one
         spec.append((f"shapley_init_{model}", "shapley_value",
-                     ["--model", model, "--num_samples_save", str(orders)]))
+                     ["--model", model, "--num_samples_save", str(orders),
+                      *samples]))
         if model in ENUM_MODELS:
             spec.append((f"enum_trans_{model}", "enum", [
                 "--model", model, "--mode", "trans", "--num_samples_save",
                 str(orders), "--num_samples", str(orders), "--max_poses",
-                str(POSES)]))
-    inter = ["--mode", "trans", "--ratio", *INTER_RATIOS]
+                str(POSES), *samples]))
+    inter = ["--mode", "trans", "--ratio", *INTER_RATIOS, *one]
     for model in INTERACTION_MODELS:
         spec += [(f"gen_pair_{model}", "gen_pair", [
                      "--model", model, *inter, "--num_pairs_random",
@@ -1064,8 +1110,25 @@ def main_path():
                   ["--model", model, *inter])]
     spec.append(("smoothness_enum_dgcnn", "smoothness_enum", [
         "--model", "dgcnn", "--modes", "linearity", "--max_epochs",
-        str(SMOOTH_EPOCHS), "--num_samples", str(INIT_ORDERS["dgcnn"])]))
+        str(SMOOTH_EPOCHS), "--num_samples", str(INIT_ORDERS["dgcnn"]), *one]))
+    for model in ENUM_MODELS:
+        for mode in RESULT_MODES:
+            spec.append((f"result_{mode}_{model}", "result",
+                         ["--model", model, "--result_mode", mode, *two]))
     return spec
+
+
+def table_numbers(text: str):
+    """The lines cli.result printed and the numbers in them (after the
+    dash: mean and spread over the samples); raises unless there is at
+    least one line and every number is finite."""
+    lines = [line for line in text.splitlines() if line.startswith("model: ")]
+    values = [float(v) for line in lines
+              for v in TABLE_NUMBER.findall(line.split("\u2014", 1)[-1])]
+    if not lines or len(values) != 2 * len(lines) or \
+            not np.isfinite(values).all():
+        raise AssertionError(f"result printed {text!r}")
+    return {"lines": lines, "values": values}
 
 
 def run_main_path(workdir):
@@ -1077,7 +1140,7 @@ def run_main_path(workdir):
     import torch
     from interpret_quality_tpu_torch.config import ExperimentConfig
     common = ["--synthetic", "--allow_random_init", "--device", "cuda",
-              "--samples", "0", "--checkpoints_root", workdir + "/ck",
+              "--checkpoints_root", workdir + "/ck",
               "--num_points", str(N), "--num_regions", str(R)]
     spec = main_path()
     from interpret_quality_tpu_torch.ops.cuda import fps, groups, neighbors
@@ -1087,16 +1150,21 @@ def run_main_path(workdir):
 
     def launches():
         return {k: v for c in counters for k, v in c.LAUNCHES.items()}
-    stages, prev = {}, launches()
+    stages, tables, prev = {}, {}, launches()
     for stage, cli, argv in spec:
         t0 = time.perf_counter()
-        importlib.import_module(
-            f"interpret_quality_tpu_torch.cli.{cli}").main(argv + common)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            importlib.import_module(
+                f"interpret_quality_tpu_torch.cli.{cli}").main(argv + common)
         torch.cuda.synchronize()
         now = launches()
         stages[stage] = {"seconds": time.perf_counter() - t0,
                          "launches": {k: now[k] - prev[k] for k in now}}
         prev = now
+        sys.stderr.write(out.getvalue())
+        if cli == "result":
+            tables[stage] = table_numbers(out.getvalue())
     total = launches()
     missing = [k for k, v in total.items() if v == 0 and k not in OFF_PATH]
     if missing:
@@ -1159,7 +1227,8 @@ def run_main_path(workdir):
             rates[name] = {"forwards": items, "seconds": seconds,
                            "forwards_per_s": rate}
     checks = {"interactions": check_interactions(folder),
-              "smoothness": check_smoothness(folder("dgcnn"))}
+              "smoothness": check_smoothness(folder("dgcnn")),
+              "results": tables}
     return total, stages, rates, efficiency, checks
 
 
@@ -1181,8 +1250,6 @@ def check_interactions(folder):
     all-centre cloud) equal to norm_factor.npy within rtol 1e-3 (atol
     1e-4): the two forwards differ from init's in batch, and DGCNN's
     feature-space near ties move a logit by up to ~1e-3."""
-    import re
-
     import torch
     from scipy.special import comb
     out = {}
@@ -1288,6 +1355,122 @@ def check_smoothness(base):
     return out
 
 
+def write_real_trees(root: str) -> None:
+    """Fixture trees of the two eval sets, for the names in the port's own
+    sample lists: seeded ModelNet10 .npy clouds of REAL_ROWS x 6 (xyz and
+    normals) and ShapeNet .pts clouds of REAL_ROWS x 3."""
+    from interpret_quality_tpu_torch.data.datasets import (
+        _read_modelnet_names, _read_shapenet_selected)
+    rng = np.random.RandomState(3)
+    for name in _read_modelnet_names():
+        d = os.path.join(root, "modelnet10_numpy", name[:-5])
+        os.makedirs(d, exist_ok=True)
+        np.save(os.path.join(d, name + ".npy"),
+                rng.randn(REAL_ROWS, 6).astype(np.float32))
+    base = os.path.join(root, "shapenetcore_partanno_segmentation_benchmark_v0")
+    for cat, uuid in _read_shapenet_selected():
+        d = os.path.join(base, cat, "points")
+        os.makedirs(d, exist_ok=True)
+        np.savetxt(os.path.join(d, uuid + ".pts"),
+                   rng.randn(REAL_ROWS, 3) * [1.0, 0.5, 2.0], fmt="%.6f")
+
+
+def run_real_data(workdir):
+    """save_fps and Shapley init on the card from fixture trees of both eval
+    sets (--data_root, neither --synthetic nor --allow_random_init), with
+    seeded GCNN and adv-GCNN .t7 checkpoints at the default paths; the
+    adv-GCNN one is saved as model_best.t7 only, so the loader must take
+    its fallback.  Checks: the eval clouds are the fixture's (ModelNet10:
+    its first N rows; ShapeNet: centred, unit-sphere scaled and FPS
+    resampled, recomputed here from np.loadtxt), the FPS indices and the
+    init artifacts are finite and of their shapes, every order's estimate
+    sums to v(N) - v(empty), and adv-GCNN printed the substitution."""
+    import importlib
+
+    import torch
+    from interpret_quality_tpu_torch.config import ExperimentConfig
+    from interpret_quality_tpu_torch.data.datasets import (
+        farthest_point_sample_np)
+    from interpret_quality_tpu_torch.ops.cuda import fps, groups, neighbors
+    from interpret_quality_tpu_torch.pipeline import resolve_dataset
+    root, ck = os.path.join(workdir, "data"), os.path.join(workdir, "ck")
+    write_real_trees(root)
+    out, counters = {}, (neighbors, fps, groups)
+    for c in counters:
+        c.reset_launches()
+    for dataset in ("modelnet10", "shapenet"):
+        def cfg(model):
+            return ExperimentConfig(model=model, dataset=dataset, data_root=root,
+                                    checkpoints_root=ck, num_points=N,
+                                    num_regions=R)
+        for i, model in enumerate(REAL_MODELS):
+            path = cfg(model).default_model_path()
+            if model == "gcnn_adv":
+                path = path.replace("model_399.t7", "model_best.t7")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            torch.save(seeded_model(model, "cpu", seed=i).state_dict(), path)
+        ds, names = resolve_dataset(cfg("gcnn"))
+        cloud = ds[0][0]
+        if dataset == "modelnet10":
+            want = np.load(ds.items[0][0])[:N, :3]
+            diff = float(np.abs(cloud - want).max())
+            exact = bool(np.array_equal(cloud, want))
+        else:
+            raw = np.loadtxt(ds.items[0][0]).astype(np.float32)
+            raw = raw - raw.mean(axis=0, keepdims=True)
+            raw = raw / np.max(np.sqrt((raw ** 2).sum(1)))
+            want = raw[farthest_point_sample_np(raw, N)]
+            diff = float(np.abs(cloud - want).max())
+            exact = diff <= 1e-6
+        if cloud.shape != (N, 3) or not exact or len(names) != 30:
+            raise AssertionError(f"{dataset}: eval cloud {cloud.shape} differs "
+                                 f"from the fixture's by {diff}")
+        common = ["--dataset", dataset, "--data_root", root, "--device", "cuda",
+                  "--samples", "0", "--checkpoints_root", ck,
+                  "--num_points", str(N), "--num_regions", str(R)]
+        spec = [("save_fps", "save_fps", ["--model", "gcnn"])] + [
+            (f"shapley_init_{model}", "shapley_value",
+             ["--model", model, "--num_samples_save", str(REAL_ORDERS)])
+            for model in REAL_MODELS]
+        for stage, cli, argv in spec:
+            text = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                importlib.import_module(
+                    f"interpret_quality_tpu_torch.cli.{cli}").main(argv + common)
+            torch.cuda.synchronize()
+            sys.stderr.write(text.getvalue())
+            rec = {"seconds": time.perf_counter() - t0}
+            if stage == "shapley_init_gcnn_adv":
+                rec["model_best_fallback"] = \
+                    "substituting best checkpoint" in text.getvalue()
+                if not rec["model_best_fallback"]:
+                    raise AssertionError(f"{dataset}: adv-GCNN did not take "
+                                         "the model_best.t7 fallback")
+            out[f"{dataset}/{stage}"] = rec
+        fps_idx = np.load(f"fps_{dataset}_{N}_{R}_index_final30.npy")
+        if fps_idx.shape != (30, R) or not (fps_idx[:, 0] == 0).all():
+            raise AssertionError(f"{dataset}: fps indices {fps_idx.shape}")
+        for model in REAL_MODELS:
+            base = cfg(model).exp_folder + names[0] + "/"
+            sv_all = np.load(base + "region_sv_all.npy")
+            nf = float(np.load(base + "norm_factor.npy"))
+            region_id = np.load(base + "region_id.npy")
+            if (sv_all.shape != (REAL_ORDERS, R) or region_id.shape != (N,)
+                    or not np.isfinite(sv_all).all() or not np.isfinite(nf)):
+                raise AssertionError(f"{base}: {sv_all.shape} {region_id.shape}")
+            err = float(np.abs(sv_all.sum(1) - nf).max())
+            if err > 5e-3 * max(1.0, abs(nf)):
+                raise AssertionError(f"{base}: efficiency off by {err}")
+            out[f"{dataset}/shapley_init_{model}"].update(
+                norm_factor=nf, efficiency_err=err)
+        out[f"{dataset}/cloud_max_abs_diff_to_fixture"] = diff
+    out["launches"] = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+    if not (out["launches"]["knn"] and out["launches"]["gather_extrema"]):
+        raise AssertionError(f"GCNN's kernels did not run: {out['launches']}")
+    return out
+
+
 def main() -> int:
     # the run uses one card: show it only that one
     os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get(
@@ -1364,6 +1547,17 @@ def main() -> int:
           "rates": rates, "efficiency_err": efficiency, **checks,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
           "cuts": MAIN_PATH_CUTS})
+
+    real = os.path.join(workdir, "real_data")
+    os.makedirs(real)
+    os.chdir(real)                          # save_fps writes into the cwd
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            real_checks = run_real_data(real)
+    finally:
+        os.chdir(cwd)
+    shutil.rmtree(real, ignore_errors=True)
+    emit({"phase": "real_data", **real_checks})
 
     def src(module):
         return os.path.relpath(build.source_path(module), REPO)

@@ -17,7 +17,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--softmax_type", type=str, default="modified",
                    choices=["normal", "modified"])
     p.add_argument("--model_path", type=str, default=None,
-                   help="reference-layout .t7/.pth/.pt state dict")
+                   help="reference-layout .t7/.pth/.pt state dict, or a "
+                        "flax .msgpack of the JAX package (needs msgpack)")
     p.add_argument("--data_root", type=str, default="./data")
     p.add_argument("--checkpoints_root", type=str, default="./checkpoints")
     p.add_argument("--shapley_batch_size", type=int, default=None)

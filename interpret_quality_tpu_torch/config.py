@@ -5,9 +5,7 @@ constants, knob names and artifact-naming contract (reference
 ``config.py:2-17``, ``tools/final_util.py:15-68``,
 ``final_shapley_value.py:194-195``), so both packages write the same
 artifact tree.  Added: ``device``; left out: the TPU gather-precision knob
-and the pose-chunk knob of the one-dispatch enumeration, and the constants
-of the real datasets not ported yet (their file lists and ShapeNet
-categories), which come with them.
+and the pose-chunk knob of the one-dispatch enumeration.
 """
 from __future__ import annotations
 
@@ -24,9 +22,38 @@ NUM_SAMPLES = 100          # permutations used per pose in enumeration
 K_FOR_DGCNN = 20           # kNN neighbourhood size for DGCNN/GCNN
 BALL_QUERY_COEF = 0.25     # region-neighbourhood ball radius coefficient
 
+# samples used for Shapley evaluation
+DATA_MODELNET_SHAPLEY_TEST = "modelnet10_train_final30.txt"
+DATA_SHAPENET_SHAPLEY_TEST = "shapenet_train_selected.json"
+
 # samples selected for interaction analysis (reference: final_util.py:26-27)
 MODELNET_INTER_SELECTED_SAMPLE = [0, 3, 6, 9, 12, 15, 18, 21, 24, 27]
 SHAPENET_INTER_SELECTED_SAMPLE = [0, 3, 6, 9, 12, 15, 19, 21, 24, 27]
+
+# ShapeNet-Part 10-class subset (reference: final_util.py:30-49)
+SHAPENET_CLASS = [
+    "Bag", "Cap", "Earphone", "Knife", "Laptop",
+    "Motorbike", "Mug", "Pistol", "Rocket", "Skateboard",
+]
+SHAPENET_ID2CAT = {
+    "02691156": "Airplane",
+    "02773838": "Bag",
+    "02954340": "Cap",
+    "02958343": "Car",
+    "03001627": "Chair",
+    "03261776": "Earphone",
+    "03467517": "Guitar",
+    "03624134": "Knife",
+    "03636649": "Lamp",
+    "03642806": "Laptop",
+    "03790512": "Motorbike",
+    "03797390": "Mug",
+    "03948459": "Pistol",
+    "04099429": "Rocket",
+    "04225987": "Skateboard",
+    "04379243": "Table",
+}
+SHAPENET_CAT2ID = {v: k for k, v in SHAPENET_ID2CAT.items()}
 
 MODEL_NAMES = ["pointnet", "pointnet2", "pointconv", "dgcnn", "gcnn", "gcnn_adv"]
 DATASET_NAMES = ["modelnet10", "shapenet"]

@@ -805,13 +805,6 @@ __device__ __forceinline__ void pconv_layers_contract(const float* h1, float* h2
   contract_mma(h3, C3 + 8, wt, out_tile, nc, K, C3);
 }
 
-// cp.async of one 4-byte word (a tile's indices and scales are contiguous,
-// but start on a 16-byte boundary only where K is a multiple of 4)
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-
 __global__ void __launch_bounds__(kThreads, 1)
 pointconv_sa_kernel(const int32_t* __restrict__ idx, const float* __restrict__ ds,
                     const float* __restrict__ new_xyz, const float* __restrict__ u,

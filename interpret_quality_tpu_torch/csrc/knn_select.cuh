@@ -58,6 +58,12 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool fu
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
                : "memory");
 }
+// cp.async of one 4-byte word (index rows are contiguous, but start on a
+// 16-byte boundary only where their length is a multiple of 4)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

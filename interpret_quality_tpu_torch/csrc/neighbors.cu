@@ -14,8 +14,11 @@
 //
 // Selection (select_knn, knn_select.cuh) is shared with groups.cu.  iq_knn
 // and iq_knn_gather_extrema call the same function, so their indices agree
-// bit for bit; the gathers of iq_gather_extrema and iq_knn_gather_extrema
-// share one function too (gather_extrema_rows).
+// bit for bit.  The two gathers are separate functions: iq_knn_gather_extrema
+// gathers with gather_extrema_rows; iq_gather_extrema stages a column slice
+// of the cloud in shared memory (gather_extrema_slice_kernel) and takes
+// gather_extrema_rows only for clouds whose slice does not fit.  Max and min
+// are exact, so every route gives bit-equal results on equal indices.
 //
 // None of the TPU workarounds are carried over: rows of `a` are gathered
 // directly in f32 (no one-hot matmuls, no bf16 hi/lo planes) and the
@@ -24,25 +27,35 @@
 //
 // Launchers run on the caller's stream, allocate nothing and return
 // cudaGetLastError() (0 on success); cudaErrorInvalidValue for arguments the
-// kernels do not take (k > 32).  Indices handed to iq_gather_extrema must lie
-// in [0, N).
+// kernels do not take (k > 32, or a route whose slice does not fit shared
+// memory).  Indices handed to iq_gather_extrema must lie in [0, N).
 
 #include "knn_select.cuh"
 
 namespace {
 
 constexpr int kMaxK = 32;            // largest neighbourhood the kernels take
-constexpr int kGatherThreads = 256;  // threads per block of iq_gather_extrema
-constexpr int kGatherQueries = 32;   // queries per block of iq_gather_extrema
+
+// iq_gather_extrema's routes, chosen by shape (gather_route): the slice
+// route wherever a cloud's column slice and two passes of index rows fit one
+// block's shared memory (N up to 3376 at k = 32), else the row route.
+constexpr int kSliceRoute = 1;
+constexpr int kRowRoute = 2;
+constexpr int kSliceCols = 16;       // columns of `a` one slice block stages (Ft)
+constexpr int kSliceThreads = 256;   // threads per slice block
+constexpr int kPassQueries = 64;     // queries whose index rows one pass stages
+constexpr int kGatherThreads = 256;  // threads per block of the row route
+constexpr int kGatherQueries = 32;   // queries per block of the row route
 
 // Elementwise max and min of rows a[idx[r, j]] over j < k, for the nq query
 // rows whose indices sit in shared memory (row stride idx_stride); query r
 // writes output row out_rows[q0 + r] (nullptr: row q0 + r).
 //
-// What bounds it: bytes.  Threads run over (query, feature) with features
-// innermost, so each of the k row reads is coalesced along F and the index
-// is a shared-memory broadcast.  Max and min are exact, so both kernels that
-// call this give bit-equal results for equal indices.
+// Threads run over (query, feature) with features innermost, so each of the
+// k row reads is coalesced along F and the index is a shared-memory
+// broadcast.  Every read goes through L2 (k times the bytes of `a`: 69 GB
+// per GCNN forward on the main path), which bounds iq_gather_extrema on
+// this route; in kernel 3 the selection dominates.
 __device__ __forceinline__ void gather_extrema_rows(
     const int* idx_s, int idx_stride, int k, const float* __restrict__ a, int F,
     const int* __restrict__ out_rows, int q0, int nq, float* __restrict__ omax,
@@ -106,7 +119,9 @@ knn_gather_extrema_kernel(const float* __restrict__ xs, const float* __restrict_
 }
 
 // Replaces gather_extrema -> _idx_extrema_kernel (ops/pallas/neighbors.py:
-// 371-442).  Bound: bytes; see gather_extrema_rows.
+// 371-442), the row route: gather_extrema_rows over kGatherQueries queries a
+// block, every row read through L2.  Taken for clouds whose column slice
+// does not fit shared memory.
 __global__ void __launch_bounds__(kGatherThreads)
 gather_extrema_kernel(const int32_t* __restrict__ idx, const float* __restrict__ a,
                       float* __restrict__ omax, float* __restrict__ omin,
@@ -120,6 +135,127 @@ gather_extrema_kernel(const int32_t* __restrict__ idx, const float* __restrict__
   __syncthreads();
   gather_extrema_rows(idx_s, k, k, a + (size_t)b * N * F, F, nullptr, q0, nq,
                       omax + (size_t)b * S * F, omin + (size_t)b * S * F);
+}
+
+// ------------------------------------------------ iq_gather_extrema, slice route
+// Columns of a slice: kSliceCols, or F rounded up to 4 where F is narrower.
+__host__ __device__ __forceinline__ int slice_cols(int F) {
+  return round_up4(F) < kSliceCols ? round_up4(F) : kSliceCols;
+}
+
+// Shared memory of a slice block: the slice (N rows of slice_cols(F) floats)
+// and two passes of index rows (kPassQueries rows of k ints each).
+__host__ __device__ __forceinline__ size_t slice_smem_bytes(int N, int F, int k) {
+  return ((size_t)N * slice_cols(F) + (size_t)2 * kPassQueries * k) * sizeof(float);
+}
+
+inline int gather_route(int N, int F, int k) {
+  return slice_smem_bytes(N, F, k) <= (size_t)kMaxSmem ? kSliceRoute : kRowRoute;
+}
+
+__device__ __forceinline__ void stage_index_rows(int* dst, const int32_t* __restrict__ src,
+                                                 int n) {
+  for (int e = threadIdx.x; e < n; e += blockDim.x) cp_async4(dst + e, src + e);
+}
+
+// Replaces gather_extrema -> _idx_extrema_kernel (ops/pallas/neighbors.py:
+// 371-442), the slice route.
+//
+// What bounds it: bytes.  The row route reads every row of `a` k times
+// through L2 (k = 20: 69 GB per GCNN forward, about what L2 delivers in the
+// 12 ms it took); here each row is read from device memory once and its k
+// reuses come from shared memory.  The least device-memory traffic is `a`
+// once, both outputs once and the indices (10.9 GB a forward, 3.26 ms at
+// 3.35 TB/s); the shared-memory reads (the 69 GB) take about 2.3 ms at 128
+// bytes a clock on 132 SMs, and run beside it.
+//
+// One block per (cloud, column slice of Ft = slice_cols(F) columns): the
+// block copies a[b, :, f0:f0+Ft] into shared memory once (16-byte cp.async
+// where rows are 16-byte aligned), then walks the cloud's queries in passes
+// of kPassQueries, the next pass's index rows (contiguous in idx) copied by
+// cp.async while the current one computes.  A thread takes one query and 4
+// columns: k float4 reads from shared memory, max and min, two float4
+// stores.  A cloud's slices are neighbouring blocks, so its index rows,
+// read once per slice, come from L2.  At Ft = 16, k = 20, N = 1024 a block
+// holds 74 KB: three blocks a SM.
+__global__ void __launch_bounds__(kSliceThreads, 3)
+gather_extrema_slice_kernel(const int32_t* __restrict__ idx, const float* __restrict__ a,
+                            float* __restrict__ omax, float* __restrict__ omin, int S,
+                            int N, int F, int k, int nslices, bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int ft = slice_cols(F);
+  float* vals = smem;                                          // [N][ft]
+  int* rows_s = reinterpret_cast<int*>(smem + (size_t)N * ft);  // [2][kPassQueries * k]
+  const int b = blockIdx.x / nslices;
+  const int f0 = (blockIdx.x - b * nslices) * ft;
+  const int fw = min(ft, F - f0);                              // live columns
+  const float* ab = a + (size_t)b * N * F + f0;
+  const int32_t* ib = idx + (size_t)b * S * k;
+
+  if (vec) {             // F % 4 == 0 and `a` 16-byte aligned: whole float4s
+    const int per_row = ft >> 2;
+    for (int e = threadIdx.x; e < N * per_row; e += blockDim.x) {
+      const int n = e / per_row, c = (e - n * per_row) * 4;
+      const bool live = c < fw;
+      cp_async16(vals + (size_t)n * ft + c, live ? ab + (size_t)n * F + c : ab, live);
+    }
+  } else {
+    for (int e = threadIdx.x; e < N * ft; e += blockDim.x) {
+      const int n = e / ft, c = e - n * ft;
+      vals[e] = c < fw ? __ldg(ab + (size_t)n * F + c) : 0.f;
+    }
+  }
+  stage_index_rows(rows_s, ib, min(kPassQueries, S) * k);
+  cp_async_commit();                                           // group 0: slice, pass 0
+
+  const int tpq = ft >> 2;                   // threads a query
+  const int qpr = blockDim.x / tpq;          // queries the block's threads cover at once
+  const int tq = threadIdx.x / tpq, c = (threadIdx.x - tq * tpq) * 4;
+  const bool active = tq < qpr && c < fw;
+  const int npass = (S + kPassQueries - 1) / kPassQueries;
+  for (int p = 0; p < npass; ++p) {
+    const int q0 = p * kPassQueries;
+    if (p + 1 < npass)
+      stage_index_rows(rows_s + ((p + 1) & 1) * kPassQueries * k,
+                       ib + (size_t)(q0 + kPassQueries) * k,
+                       min(kPassQueries, S - q0 - kPassQueries) * k);
+    cp_async_commit();                       // possibly empty: keeps the count
+    cp_async_wait<1>();                      // everything but the newest group
+    __syncthreads();
+    if (active) {
+      const int* rows = rows_s + (p & 1) * kPassQueries * k;
+      const int nq = min(kPassQueries, S - q0);
+      for (int r = tq; r < nq; r += qpr) {
+        const int* row = rows + r * k;
+        float4 mx = make_float4(-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F);
+        float4 mn = make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, CUDART_INF_F);
+#pragma unroll 4
+        for (int j = 0; j < k; ++j) {
+          const float4 v = *reinterpret_cast<const float4*>(vals + (size_t)row[j] * ft + c);
+          mx.x = fmaxf(mx.x, v.x);
+          mx.y = fmaxf(mx.y, v.y);
+          mx.z = fmaxf(mx.z, v.z);
+          mx.w = fmaxf(mx.w, v.w);
+          mn.x = fminf(mn.x, v.x);
+          mn.y = fminf(mn.y, v.y);
+          mn.z = fminf(mn.z, v.z);
+          mn.w = fminf(mn.w, v.w);
+        }
+        const size_t o = ((size_t)b * S + q0 + r) * F + f0 + c;
+        if (vec) {
+          *reinterpret_cast<float4*>(omax + o) = mx;
+          *reinterpret_cast<float4*>(omin + o) = mn;
+        } else {
+          const float xs[4] = {mx.x, mx.y, mx.z, mx.w}, ns[4] = {mn.x, mn.y, mn.z, mn.w};
+          for (int i = 0; i < 4 && c + i < fw; ++i) {
+            omax[o + i] = xs[i];
+            omin[o + i] = ns[i];
+          }
+        }
+      }
+    }
+    __syncthreads();                         // the next copy reuses this buffer
+  }
 }
 
 }  // namespace
@@ -162,15 +298,50 @@ int iq_knn_gather_extrema(const float* xs, const float* a, float* omax, float* o
   return copy_duplicate_rows(d, omax, omin, B, N, F, s);
 }
 
+// route: 0 chooses by shape (gather_route), kSliceRoute or kRowRoute forces
+// one (a forced slice route whose slice does not fit is refused).
 int iq_gather_extrema(const int32_t* idx, const float* a, float* omax, float* omin,
-                      int B, int S, int N, int F, int k, void* stream) {
+                      int B, int S, int N, int F, int k, int route, void* stream) {
   if (B <= 0 || S <= 0) return cudaSuccess;
-  if (k < 1 || k > kMaxK || N < 1 || F < 1) return cudaErrorInvalidValue;
+  if (k < 1 || k > kMaxK || N < 1 || F < 1 || route < 0 || route > kRowRoute)
+    return cudaErrorInvalidValue;
+  if (route == 0) route = gather_route(N, F, k);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == kSliceRoute) {
+    const size_t smem = slice_smem_bytes(N, F, k);
+    cudaError_t err;
+    if ((err = prepare(gather_extrema_slice_kernel, smem)) != cudaSuccess) return err;
+    const int nslices = (F + slice_cols(F) - 1) / slice_cols(F);
+    const bool vec = F % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
+    gather_extrema_slice_kernel<<<(unsigned)B * nslices, kSliceThreads, smem, s>>>(
+        idx, a, omax, omin, S, N, F, k, nslices, vec);
+    return cudaGetLastError();
+  }
   const int nqb = (S + kGatherQueries - 1) / kGatherQueries;
-  gather_extrema_kernel<<<(unsigned)B * nqb, kGatherThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(idx, a, omax, omin, S, N,
-                                                                F, k, nqb);
+  gather_extrema_kernel<<<(unsigned)B * nqb, kGatherThreads, 0, s>>>(idx, a, omax, omin, S, N,
+                                                                     F, k, nqb);
   return cudaGetLastError();
+}
+
+// The route iq_gather_extrema takes for (N, F, k), for the record (it
+// launches nothing): info = {route, slice columns (0 on the row route),
+// threads a block, blocks a SM holds}.
+int iq_gather_extrema_route(int N, int F, int k, int* info) {
+  if (k < 1 || k > kMaxK || N < 1 || F < 1) return cudaErrorInvalidValue;
+  info[0] = gather_route(N, F, k);
+  if (info[0] == kSliceRoute) {
+    const size_t smem = slice_smem_bytes(N, F, k);
+    cudaError_t err;
+    if ((err = prepare(gather_extrema_slice_kernel, smem)) != cudaSuccess) return err;
+    info[1] = slice_cols(F);
+    info[2] = kSliceThreads;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[3], gather_extrema_slice_kernel,
+                                                         kSliceThreads, smem);
+  }
+  info[1] = 0;
+  info[2] = kGatherThreads;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[3], gather_extrema_kernel,
+                                                       kGatherThreads, 0);
 }
 
 }  // extern "C"

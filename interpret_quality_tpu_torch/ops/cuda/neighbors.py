@@ -17,7 +17,10 @@ adds one to ``LAUNCHES[name]``, so a run can show that its main path went
 through the kernels.  ``knn`` and ``knn_gather_extrema`` select for the
 distinct query rows of a cloud only: a row that is a bit-for-bit copy of an
 earlier one (a masked coalition's collapsed regions) takes that row's
-result, which is what it would have selected.
+result, which is what it would have selected.  ``gather_extrema`` has two
+routes, chosen by shape alone (``gather_extrema_route``): a column slice of
+the cloud staged in shared memory, and for clouds whose slice does not fit,
+rows read through the cache.
 """
 from __future__ import annotations
 
@@ -47,9 +50,11 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     lib = build.load("neighbors")
     lib.iq_knn.argtypes = [P, P, P, P, I, I, I, I, I, P]
-    lib.iq_gather_extrema.argtypes = [P, P, P, P, I, I, I, I, I, P]
+    lib.iq_gather_extrema.argtypes = [P, P, P, P, I, I, I, I, I, I, P]
+    lib.iq_gather_extrema_route.argtypes = [I, I, I, P]
     lib.iq_knn_gather_extrema.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
-    for fn in (lib.iq_knn, lib.iq_gather_extrema, lib.iq_knn_gather_extrema):
+    for fn in (lib.iq_knn, lib.iq_gather_extrema, lib.iq_gather_extrema_route,
+               lib.iq_knn_gather_extrema):
         fn.restype = ctypes.c_int
     return lib
 
@@ -102,6 +107,10 @@ def knn(query: torch.Tensor, database: torch.Tensor, k: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------- gather_extrema
+# iq_gather_extrema's route argument: chosen by shape, or one route forced
+ROUTES = {"shape": 0, "slice": 1, "rows": 2}
+
+
 def gather_extrema_plain(idx: torch.Tensor, a: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``gather_extrema``."""
@@ -127,6 +136,14 @@ def gather_extrema(idx: torch.Tensor, a: torch.Tensor
     """
     if on_cpu(idx, a):
         return gather_extrema_plain(idx, a)
+    return _gather_extrema(idx, a, ROUTES["shape"])
+
+
+def _gather_extrema(idx: torch.Tensor, a: torch.Tensor, route: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch iq_gather_extrema on ``route`` (``ROUTES``): by shape, as
+    ``gather_extrema`` does, or one route forced, to hold both routes
+    against the plain version at the same shapes."""
     check(idx, "idx", torch.int32, 3)
     check(a, "a", torch.float32, 3)
     B, S, k = idx.shape
@@ -139,10 +156,23 @@ def gather_extrema(idx: torch.Tensor, a: torch.Tensor
     amin = torch.empty_like(amax)
     rc = _lib().iq_gather_extrema(idx.data_ptr(), a.data_ptr(),
                                   amax.data_ptr(), amin.data_ptr(),
-                                  B, S, N, F, k, stream(a))
+                                  B, S, N, F, k, route, stream(a))
     raise_on(rc, "iq_gather_extrema")
     LAUNCHES["gather_extrema"] += 1
     return amax, amin
+
+
+def gather_extrema_route(N: int, F: int, k: int) -> dict:
+    """The route ``gather_extrema`` takes for clouds of N rows of F values
+    at k neighbours, and how many of its blocks one SM of the current card
+    holds (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).  Launches
+    nothing."""
+    info = (ctypes.c_int * 4)()
+    raise_on(_lib().iq_gather_extrema_route(N, F, k, info),
+             "iq_gather_extrema_route")
+    route, cols, threads, blocks = info
+    return {"route": "slice" if route == ROUTES["slice"] else "rows",
+            "slice_cols": cols, "threads": threads, "blocks_per_sm": blocks}
 
 
 # ------------------------------------------------------ knn_gather_extrema

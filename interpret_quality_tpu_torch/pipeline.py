@@ -8,27 +8,40 @@ import torch
 
 from .attrib.shapley import ShapleyEngine
 from .config import ExperimentConfig
-from .data.datasets import SyntheticClouds
+from .data.datasets import (SyntheticClouds, get_folder_name_list,
+                            make_eval_dataset)
 from .models import build_model, make_forward_fn
+from .models.checkpoint import load_checkpoint
 from .models.common import resolve_device
-from .models.convert import load_reference_state_dict
 
 
 def load_frozen_model(cfg: ExperimentConfig, allow_random_init: bool = False):
     """Build the model on ``cfg.device`` and load its frozen eval weights.
 
-    Reads a reference-layout ``.t7/.pth/.pt`` state dict (``strict=True``).
-    With ``allow_random_init`` a missing checkpoint falls back to a seeded
-    random init with every bias nudged by +0.1 (BatchNorm biases included:
-    the shift survives normalisation), as the JAX package does for smoke
-    runs.  Returns (model, forward_fn, device).
+    Reads a reference-layout ``.t7/.pth/.pt`` state dict or a flax
+    ``.msgpack`` file of the JAX package (``models/checkpoint.py``), loaded
+    with ``strict=True``.  The default adv-GCNN checkpoint is named by its
+    final epoch (``model_399``, reference final_util.py:52-66); where it is
+    absent and no ``model_path`` was given, the same run's ``model_best``
+    stands in, as in the JAX package.  An explicit ``model_path`` that does
+    not exist raises.  With ``allow_random_init`` a missing checkpoint falls
+    back to a seeded random init with every bias nudged by +0.1 (BatchNorm
+    biases included: the shift survives normalisation), as the JAX package
+    does for smoke runs.  Returns (model, forward_fn, device).
     """
     device = resolve_device(cfg.device)
     torch.manual_seed(cfg.seed)
     model = build_model(cfg.model, cfg.num_classes, cfg.k)
     path = cfg.model_path or cfg.default_model_path()
+    if (cfg.model_path is None and not os.path.exists(path)
+            and os.path.basename(path) == "model_399.t7"):
+        best = os.path.join(os.path.dirname(path), "model_best.t7")
+        if os.path.exists(best):
+            print(f"[load_frozen_model] {os.path.basename(path)} absent; "
+                  f"substituting best checkpoint {best}")
+            path = best
     if os.path.exists(path):
-        model.load_state_dict(load_reference_state_dict(path), strict=True)
+        model.load_state_dict(load_checkpoint(cfg.model, path), strict=True)
     elif allow_random_init:
         with torch.no_grad():
             for name, p in model.named_parameters():
@@ -56,7 +69,5 @@ def resolve_dataset(cfg: ExperimentConfig, synthetic: bool = False):
                              num_classes=cfg.num_classes, seed=cfg.seed)
         names = [f"synthetic_{i:02d}" for i in range(len(ds))]
         return ds, names
-    raise NotImplementedError(
-        "the ModelNet10/ShapeNet eval loaders are not ported to this package "
-        "yet (ROADMAP.md, real datasets and the native loader); pass "
-        "--synthetic")
+    ds = make_eval_dataset(cfg.dataset, cfg.data_root, cfg.num_points)
+    return ds, get_folder_name_list(cfg.dataset)

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's selection, FPS, ball-MLP and PointConv SA kernels
+"""Time the PyTorch port's neighbour, FPS, ball-MLP and PointConv SA kernels
 on one NVIDIA GPU at the main path's shapes, for one or more variants of the
 CUDA sources.
 
     python3 scripts/time_torch_kernels.py [--csrc DIR ...] [--reps 3]
-                                  [--only knn,fused,density,ball,pconv,fps]
+                           [--only knn,gather,fused,density,ball,pconv,fps]
 
-``--only`` names: ``knn`` (iq_knn), ``fused`` (iq_knn_gather_extrema, DGCNN's
-four layers), ``density`` (iq_knn_density, PointConv's two levels), ``ball``
+``--only`` names: ``knn`` (iq_knn), ``gather`` (iq_gather_extrema, GCNN's four
+layers on their kNN indices, on the route each shape takes and on the row
+route forced, with the route and the blocks one SM holds), ``fused``
+(iq_knn_gather_extrema, DGCNN's four layers), ``density`` (iq_knn_density, PointConv's two levels), ``ball``
 (iq_ball_mlp3, PointNet++'s six branches), ``pconv`` (iq_pointconv_sa,
 PointConv's two levels, on the kernel-6 indices) and ``fps`` (iq_fps, 1024 ->
 512 -> 128, with the blocks one SM holds).
@@ -67,7 +69,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--csrc", action="append", default=None)
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--only", default="knn,fused,density,ball,pconv,fps")
+    ap.add_argument("--only", default="knn,gather,fused,density,ball,pconv,fps")
     ap.add_argument("--unmasked", action="store_true",
                     help="time on a batch without collapsed regions (the "
                          "eval cloud at 1650 scales): no row is a copy of "
@@ -107,49 +109,55 @@ def main() -> int:
         scales = 1 + 0.1 * torch.linspace(-1, 1, masked.shape[0], device=device)
         masked = (x[None] * scales[:, None, None]).contiguous()
     with torch.inference_mode():
-        layers = cs.layer_inputs(masked, device)["dgcnn"][0]
-        # the six PointNet++ branches, on the inputs a forward gives them
-        model = cs.seeded_model("pointnet2", device)
-        branches, ball_rows, xyz, points = [], [], masked, None
-        for sa in (model.sa1, model.sa2):
-            new_xyz = index_points(xyz, fp.fps(xyz, sa.npoint))
-            D = 0 if points is None else points.shape[-1]
-            outs = []
-            for convs, bns, radius, k in zip(sa.conv_blocks, sa.bn_blocks,
-                                             sa.radius_list, sa.nsample_list):
-                (a1, b1), (a2, b2), (a3, b3) = fold_stack(convs, bns)
-                uf = None if points is None else torch.matmul(points, a1[:D])
-                call = (new_xyz, xyz, uf, b1, a1[D:], a2, b2, a3, b3)
-                branches.append((call, dict(radius=radius, k=k)))
-                ball_rows.append(sum(int(torch.clamp(
-                    (((xyz[sl][:, None] - new_xyz[sl][:, :, None]) ** 2).sum(-1)
-                     <= radius ** 2).sum(-1), 1, k).sum())
-                    for sl in cs.chunks(xyz.shape[0], 66)))
-                outs.append(gr.fused_ball_mlp3(*call, radius=radius, k=k))
-            xyz, points = new_xyz, torch.cat(outs, dim=-1)
-        # the two PointConv levels: kernel 6's inputs, kernel 7's on its indices
-        pconv = cs.seeded_model("pointconv", device)
-        dens, pconvs, fps_levels, xyz, points = [], [], [], masked, None
-        for sa in (pconv.sa1, pconv.sa2):
-            inv = 1.0 / compute_density(xyz, sa.bandwidth)
-            fps_levels.append((xyz, sa.npoint))
-            new_xyz = index_points(xyz, fp.fps(xyz, sa.npoint))
-            dens.append((new_xyz, xyz, inv, sa.nsample))
-            if "pconv" in only:
-                idx, den, dmax = gr.knn_with_density(*dens[-1])
-                (a1, b1), (a2, b2), (a3, b3) = fold_stack(sa.mlp_convs,
-                                                          sa.mlp_bns)
-                src = xyz if points is None else torch.cat([xyz, points], -1)
-                call = (idx, den, dmax, new_xyz, torch.matmul(src, a1) + b1,
-                        xyz, torch.matmul(new_xyz, a1[:3]), a2, b2, a3, b3,
-                        fold_stack(sa.densitynet.mlp_convs,
-                                   sa.densitynet.mlp_bns),
-                        fold_stack(sa.weightnet.mlp_convs,
-                                   sa.weightnet.mlp_bns))
-                pconvs.append((call, sa.nsample))
-                points = sa._head(gr.fused_pointconv_sa(*call, k=sa.nsample))
-            xyz = new_xyz
-        del model, pconv, outs, points
+        inputs = cs.layer_inputs(masked, device)
+        layers = inputs["dgcnn"][0]
+        gcnn_values = [a for _, a in inputs["gcnn"][0]]
+        gcnn_idx = inputs["gcnn"][1]
+        del inputs
+        branches, ball_rows, dens, pconvs, fps_levels = [], [], [], [], []
+        if "ball" in only:
+            # the six PointNet++ branches, on the inputs a forward gives them
+            model = cs.seeded_model("pointnet2", device)
+            xyz, points = masked, None
+            for sa in (model.sa1, model.sa2):
+                new_xyz = index_points(xyz, fp.fps(xyz, sa.npoint))
+                D = 0 if points is None else points.shape[-1]
+                outs = []
+                for convs, bns, radius, k in zip(sa.conv_blocks, sa.bn_blocks,
+                                                 sa.radius_list, sa.nsample_list):
+                    (a1, b1), (a2, b2), (a3, b3) = fold_stack(convs, bns)
+                    uf = None if points is None else torch.matmul(points, a1[:D])
+                    call = (new_xyz, xyz, uf, b1, a1[D:], a2, b2, a3, b3)
+                    branches.append((call, dict(radius=radius, k=k)))
+                    ball_rows.append(sum(int(torch.clamp(
+                        (((xyz[sl][:, None] - new_xyz[sl][:, :, None]) ** 2).sum(-1)
+                         <= radius ** 2).sum(-1), 1, k).sum())
+                        for sl in cs.chunks(xyz.shape[0], 66)))
+                    outs.append(gr.fused_ball_mlp3(*call, radius=radius, k=k))
+                xyz, points = new_xyz, torch.cat(outs, dim=-1)
+        if only & {"density", "pconv", "fps"}:
+            # the two PointConv levels: kernel 6's inputs, kernel 7's on its indices
+            pconv = cs.seeded_model("pointconv", device)
+            xyz, points = masked, None
+            for sa in (pconv.sa1, pconv.sa2):
+                inv = 1.0 / compute_density(xyz, sa.bandwidth)
+                fps_levels.append((xyz, sa.npoint))
+                new_xyz = index_points(xyz, fp.fps(xyz, sa.npoint))
+                dens.append((new_xyz, xyz, inv, sa.nsample))
+                if "pconv" in only:
+                    idx, den, dmax = gr.knn_with_density(*dens[-1])
+                    (a1, b1), (a2, b2), (a3, b3) = fold_stack(sa.mlp_convs,
+                                                              sa.mlp_bns)
+                    src = xyz if points is None else torch.cat([xyz, points], -1)
+                    call = (idx, den, dmax, new_xyz, torch.matmul(src, a1) + b1,
+                            xyz, torch.matmul(new_xyz, a1[:3]), a2, b2, a3, b3,
+                            fold_stack(sa.densitynet.mlp_convs,
+                                       sa.densitynet.mlp_bns),
+                            fold_stack(sa.weightnet.mlp_convs,
+                                       sa.weightnet.mlp_bns))
+                    pconvs.append((call, sa.nsample))
+                    points = sa._head(gr.fused_pointconv_sa(*call, k=sa.nsample))
+                xyz = new_xyz
         torch.cuda.empty_cache()
 
         for rnd in range(2 if len(variants) > 1 else 1):
@@ -168,6 +176,23 @@ def main() -> int:
                             nb.knn(dup, dup, cs.K), nb.knn_plain(dup, dup, cs.K))
                     rec["knn_ms"] = cs.cuda_ms(
                         lambda: nb.knn(masked, masked, cs.K), args.reps)
+                if "gather" in only:
+                    # bit-equal to the plain version on the first chunk
+                    sl = next(cs.chunks(masked.shape[0]))
+                    rec["gather_extrema_bit_equal"] = [all(
+                        torch.equal(got[sl], want) for got, want in zip(
+                            nb.gather_extrema(gcnn_idx, a),
+                            nb.gather_extrema_plain(gcnn_idx[sl], a[sl])))
+                        for a in gcnn_values]
+                    rec["gather_extrema_route"] = [nb.gather_extrema_route(
+                        a.shape[1], a.shape[2], cs.K) for a in gcnn_values]
+                    rec["gather_extrema_ms"] = [
+                        cs.cuda_ms(lambda: nb.gather_extrema(gcnn_idx, a),
+                                   args.reps) for a in gcnn_values]
+                    rec["gather_extrema_rows_route_ms"] = [
+                        cs.cuda_ms(lambda: nb._gather_extrema(
+                            gcnn_idx, a, nb.ROUTES["rows"]), args.reps)
+                        for a in gcnn_values]
                 if "fused" in only:
                     rec["knn_gather_extrema_ms"] = [
                         cs.cuda_ms(lambda: nb.knn_gather_extrema(xs, a, cs.K),

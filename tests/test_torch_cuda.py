@@ -330,3 +330,58 @@ def test_gather_rows_bit_equal_to_plain(cuda, F, offset):
     assert got.shape == (3, 256, 20, F)
     assert torch.equal(got, gr.gather_rows_plain(values, idx))
     assert gr.LAUNCHES["gather_rows"] == 1
+
+
+def _gather_case(cuda, B, S, N, F, k, seed, offset=0):
+    """Index rows of which the second half copy row 0 (as a masked
+    coalition's collapsed regions do), and value rows that start ``offset``
+    floats past an allocation (off a 16-byte boundary where it is odd)."""
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.randint(0, N, (B, S, k), generator=g, dtype=torch.int32)
+    idx[:, S // 2:] = idx[:, :1]
+    buf = torch.randn(offset + B * N * F, generator=g)
+    return idx.to(cuda), buf.to(cuda)[offset:].view(B, N, F)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [4, 64, 256])
+@pytest.mark.parametrize("N", [64, 1024, 16384])
+def test_gather_extrema_routes_bit_equal_to_plain(cuda, N, F):
+    """Kernel 2 bit-equal to its plain version on the route its shape takes
+    and on each route forced: the slice route up to the clouds whose slice
+    fits shared memory, the row route beyond (N = 16384: even a 4-column
+    slice takes 256 KB)."""
+    idx, a = _gather_case(cuda, 3, min(N, 1024), N, F, 20, seed=N + F)
+    want = nb.gather_extrema_plain(idx, a)
+    info = nb.gather_extrema_route(N, F, 20)
+    assert info["route"] == ("rows" if N == 16384 else "slice")
+    assert info["blocks_per_sm"] >= 1
+    for route in ("shape", "slice", "rows"):
+        if route == "slice" and info["route"] == "rows":
+            with pytest.raises(RuntimeError):      # the slice does not fit
+                nb._gather_extrema(idx, a, nb.ROUTES[route])
+            continue
+        got = nb._gather_extrema(idx, a, nb.ROUTES[route])
+        torch.cuda.synchronize()
+        for g_, w_ in zip(got, want):
+            assert torch.equal(g_, w_), route
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,N,F,k,offset", [(77, 100, 20, 7, 0),
+                                            (77, 100, 20, 7, 1),
+                                            (130, 64, 9, 32, 0),
+                                            (1, 3000, 36, 1, 0)])
+def test_gather_extrema_ragged_slices(cuda, S, N, F, k, offset):
+    """Query counts apart from N and from a pass, a last column slice
+    narrower than the rest (F = 20: 16 + 4; F = 36: 16 + 16 + 4), F not a
+    multiple of 4 and values off a 16-byte boundary (scalar copies and
+    stores), k = 1 and 32, and a cloud near the slice route's limit."""
+    idx, a = _gather_case(cuda, 2, S, N, F, k, seed=S + k, offset=offset)
+    nb.reset_launches()
+    got = nb.gather_extrema(idx, a)
+    torch.cuda.synchronize()
+    assert nb.gather_extrema_route(N, F, k)["route"] == "slice"
+    for g_, w_ in zip(got, nb.gather_extrema_plain(idx, a)):
+        assert torch.equal(g_, w_)
+    assert nb.LAUNCHES["gather_extrema"] == 1

@@ -66,6 +66,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
              --synthetic or --allow_random_init.  The eval clouds must be
              the fixture's, adv-GCNN must take the model_best fallback, the
              artifacts must be finite and efficient.
+  7. train  per family (DGCNN, GCNN, PointNet++, PointConv, PointNet):
+             cli.train at full width for two short epochs (TRAIN_CUTS),
+             then cli.shapley_value on its model_best.t7 by the default
+             path without --allow_random_init (run.log finite, the .backup
+             files written, the checkpoint loads strict=True, estimates
+             efficient); ten train steps on one fixed batch of 32 clouds
+             (losses finite, the last below the first; clouds/s over steps
+             2-10, CUDA-synchronised); one train step card against CPU, the
+             dropouts off (loss, logits, every gradient, every running
+             statistic; STEP_* tolerances).  The kNN kernel must launch in
+             the edge-conv family's train steps, FPS in PointNet++'s and
+             PointConv's, no kernel that folds BatchNorm in any train step,
+             and every kernel of the family in fit's eval passes.
 
 Plots (matplotlib) and flax .msgpack checkpoints (msgpack) are held by the
 CPU tests only (tests/test_torch_results.py, tests/test_torch_checkpoint.py):
@@ -73,8 +86,9 @@ this script imports neither, so it needs neither on the card's machine.
 
 Every line on stdout is one JSON object.  The first ("device") carries the
 card's name and power limit as nvidia-smi prints them; the "kernels" line
-comes just before the last, which is {"ok": true, "device": {...}}.  The
-run uses one card: the first that CUDA_VISIBLE_DEVICES names, else card 0.
+comes just before the last, which is {"ok": true, "device": {...}}; its
+rows carry each kernel's launches on the main path and in the train phase.
+The run uses one card: the first that CUDA_VISIBLE_DEVICES names, else card 0.
 Artifacts go to build/chip_smoke/ in the checkout.
 """
 from __future__ import annotations
@@ -135,6 +149,49 @@ MAIN_PATH_CUTS = ("one eval cloud of 30 (two for the families enumerated, "
                   "those 4 poses: 20 random pairs of 300, ratios 0, 0.1, 0.5 "
                   "and 1 of 13; smoothness: linearity of 3 modes, 2 epochs "
                   "of 50 at 100 orders; random weights from a seed")
+# The train phase: cli.train of every family at full width for two short
+# epochs, each run's model_best.t7 read back by Shapley init; ten steps of
+# each family on one fixed batch; one step card against CPU.
+TRAIN_MODELS = ("dgcnn", "gcnn", "pointnet2", "pointconv", "pointnet")
+TRAIN_EPOCHS, TRAIN_SAMPLES, TRAIN_TEST_SAMPLES = 2, 256, 64
+TRAIN_BATCH, TRAIN_STEPS = 32, 10
+TRAIN_ORDERS = 50
+# the kernels of each family's eval forward (fit's eval pass), and those a
+# train step launches: the index kernels only, never one that folds BN
+FAMILY_KERNELS = {"dgcnn": ("knn_gather_extrema",),
+                  "gcnn": ("knn", "gather_extrema"),
+                  "pointnet2": ("fps", "fused_ball_mlp3"),
+                  "pointconv": ("fps", "knn_with_density", "fused_pointconv_sa"),
+                  "pointnet": ()}
+TRAIN_STEP_KERNELS = {"dgcnn": ("knn",), "gcnn": ("knn",),
+                      "pointnet2": ("fps",), "pointconv": ("fps",),
+                      "pointnet": ()}
+# One train step card against CPU: STEP_BATCH synthetic clouds on a 1/64
+# grid (every xyz distance exact in f32, so FPS, kNN and ball queries agree
+# exactly; a squared distance, a multiple of 2^-12, lies at least 9.7e-6
+# from every radius^2 of PointNet++); DGCNN at STEP_DGCNN_POINTS points, on
+# the first seed whose feature-space selections keep every k-th and
+# (k+1)-th distance at least STEP_TIE_MARGIN apart (relative to the cloud's
+# largest |x|^2), where two f32 arithmetic orders cannot swap a neighbour.
+STEP_BATCH, STEP_VALID, STEP_DGCNN_POINTS, STEP_TIE_MARGIN = 8, 7, 128, 1e-6
+# f32 on both sides, sums in other orders, amplified by train-mode
+# BatchNorm over a batch of 8 (on the CPU, f32 against f64 of the same
+# step: loss and logits 2e-5 apart, gradients up to 1.7e-2 of their norm,
+# running statistics up to 2.3e-4 of their largest value; on the card
+# against the CPU: 2.6e-5, 6.3e-3 and 3.1e-6; at a batch of 4 PointNet's
+# logits moved 3e-4 apart): loss and logits
+# within rtol/atol STEP_LOGIT_TOL; each gradient within STEP_GRAD_REL of its
+# norm plus STEP_GRAD_FLOOR of the largest gradient norm (the gradient of a
+# bias that feeds a BatchNorm is 0 up to rounding); each running statistic
+# within STEP_STAT_TOL of its buffer's largest value.
+STEP_LOGIT_TOL = 2e-4
+STEP_GRAD_REL, STEP_GRAD_FLOOR = 2e-2, 1e-3
+STEP_STAT_TOL = 1e-4
+TRAIN_CUTS = ("two epochs of the family's 200-400 (the schedules run over "
+              "two) on 256 synthetic training clouds and 64 test clouds, at "
+              "1024 points and full width; "
+              "Shapley init on the trained model at 50 orders of 1000, one "
+              "cloud; random initial weights from a seed")
 # Kernels that no entry point reaches, so the main path cannot launch them:
 # they are held in the kernel phase alone.
 OFF_PATH = {"gather_rows": "no entry point of the JAX package calls "
@@ -1471,6 +1528,349 @@ def run_real_data(workdir):
     return out
 
 
+# ------------------------------------------------------------------- train
+def all_launches():
+    from interpret_quality_tpu_torch.ops.cuda import fps, groups, neighbors
+    return {k: v for c in (neighbors, fps, groups) for k, v in c.LAUNCHES.items()}
+
+
+def launches_since(before):
+    now = all_launches()
+    return {k: now[k] - before[k] for k in now}
+
+
+@contextlib.contextmanager
+def eval_pass_launches(counter):
+    """Counts into ``counter`` the launches made inside fit's eval passes
+    (``trainer.evaluate``), and their seconds under "seconds"; the rest of
+    a cli.train run is train steps and set-up."""
+    import torch
+    from interpret_quality_tpu_torch.train import trainer
+    original = trainer.evaluate
+
+    def evaluate(*args, **kwargs):
+        before, t0 = all_launches(), time.perf_counter()
+        out = original(*args, **kwargs)
+        torch.cuda.synchronize()
+        counter["seconds"] = counter.get("seconds", 0.0) + (
+            time.perf_counter() - t0)
+        for k, v in launches_since(before).items():
+            counter[k] = counter.get(k, 0) + v
+        return out
+
+    trainer.evaluate = evaluate
+    try:
+        yield
+    finally:
+        trainer.evaluate = original
+
+
+def dropouts_off(model):
+    from interpret_quality_tpu_torch.models.common import Dropout
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.eval()
+    return model
+
+
+def grid_batch(n: int, seed: int):
+    """STEP_BATCH synthetic clouds of n points on a 1/64 grid, and labels."""
+    from interpret_quality_tpu_torch.data.datasets import SyntheticClouds
+    ds = SyntheticClouds(STEP_BATCH, n, 10, seed=seed)
+    x = np.stack([ds[i][0] for i in range(STEP_BATCH)])
+    labels = np.array([ds[i][1] for i in range(STEP_BATCH)], np.int64)
+    return (np.round(x * 64) / 64).astype(np.float32), labels
+
+
+def one_train_step(name, model, x, labels):
+    """Loss, logits and gradients of one train step of ``model`` (as
+    trainer.make_train_step computes them, without the update), the last
+    row masked out of the loss; the model keeps its new running stats."""
+    from interpret_quality_tpu_torch.models import (
+        feature_transform_regularizer, train_forward)
+    from interpret_quality_tpu_torch.train.losses import cal_loss
+    from interpret_quality_tpu_torch.train.trainer import (SMOOTHED,
+                                                           valid_weights)
+    logits, trans_feat = train_forward(model, x)
+    loss = cal_loss(logits, labels, smoothing=name in SMOOTHED,
+                    weights=valid_weights(x.shape[0], STEP_VALID, x.device))
+    if name == "pointnet":
+        loss = loss + feature_transform_regularizer(trans_feat) * 1e-3
+    model.zero_grad(set_to_none=True)
+    loss.backward()
+    return loss.detach(), logits.detach()
+
+
+def feature_knn_margin(name, x):
+    """The smallest gap between a k-th and (k+1)-th distance of DGCNN's
+    feature-space selections (layers 2-4) in the port's own train forward
+    on the CPU, relative to the cloud's largest |x|^2, exact in f64."""
+    import torch
+    from interpret_quality_tpu_torch.models import dgcnn
+    rows, original = [], dgcnn.knn
+
+    def knn(query, database, k):
+        rows.append(query.detach().double())
+        return original(query, database, k)
+    dgcnn.knn = knn
+    try:
+        model = dropouts_off(seeded_model(name, "cpu").train())
+        one_train_step(name, model, torch.from_numpy(x),
+                       torch.zeros(x.shape[0], dtype=torch.long))
+    finally:
+        dgcnn.knn = original
+    worst = np.inf
+    for h in rows[1:]:
+        d = ((h[:, :, None] - h[:, None]) ** 2).sum(-1).sort(-1).values
+        scale = (h ** 2).sum(-1).amax(-1)[:, None]
+        worst = min(worst, float(((d[..., K] - d[..., K - 1]) / scale).min()))
+    return worst
+
+
+def check_train_step(name, device):
+    """One train step on the card against the same step on the CPU (the
+    plain versions), from the same weights, dropout off: loss, logits,
+    every gradient and every running statistic, within the STEP_*
+    tolerances."""
+    import torch
+    seed, margin = 0, None
+    if name == "dgcnn":
+        while True:
+            x, labels = grid_batch(STEP_DGCNN_POINTS, seed)
+            margin = feature_knn_margin(name, x)
+            if margin >= STEP_TIE_MARGIN:
+                break
+            seed += 1
+            if seed == 64:
+                raise AssertionError("no tie-free DGCNN batch in 64 seeds")
+    else:
+        x, labels = grid_batch(N, seed)
+    out = {}
+    for dev in ("cpu", device):
+        model = dropouts_off(seeded_model(name, dev).train())
+        loss, logits = one_train_step(name, model, torch.from_numpy(x).to(dev),
+                                      torch.from_numpy(labels).to(dev))
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        stats = {n: b.cpu() for n, b in model.named_buffers()
+                 if n.endswith(("running_mean", "running_var"))}
+        out[dev] = (loss.cpu(), logits.cpu(), grads, stats)
+    (l_c, lg_c, g_c, s_c), (l_g, lg_g, g_g, s_g) = out["cpu"], out[device]
+    for got, want, what in ((l_g, l_c, "loss"), (lg_g, lg_c, "logits")):
+        if not torch.allclose(got, want, rtol=STEP_LOGIT_TOL,
+                              atol=STEP_LOGIT_TOL):
+            raise AssertionError(f"{name} train step {what}: card {got} vs "
+                                 f"CPU {want}")
+    floor = STEP_GRAD_FLOOR * max(float(g.norm()) for g in g_c.values())
+    grad_err = 0.0
+    for pname, want in g_c.items():
+        err = float((g_g[pname] - want).norm())
+        if not err <= STEP_GRAD_REL * float(want.norm()) + floor:
+            raise AssertionError(f"{name} gradient {pname}: |card - CPU| "
+                                 f"{err} against |CPU| {float(want.norm())}")
+        grad_err = max(grad_err, err / (float(want.norm()) + floor))
+    stat_err = 0.0
+    for bname, want in s_c.items():
+        err = float((s_g[bname] - want).abs().max() / want.abs().max())
+        if not err <= STEP_STAT_TOL:
+            raise AssertionError(f"{name} {bname}: card vs CPU differ by "
+                                 f"{err} of the largest value")
+        stat_err = max(stat_err, err)
+    rec = {"points": int(x.shape[1]), "batch_seed": seed,
+           "loss_abs_diff": float((l_g - l_c).abs()),
+           "logits_max_abs_diff": float((lg_g - lg_c).abs().max()),
+           "grad_max_rel_norm_err": grad_err, "stats_max_rel_err": stat_err,
+           "gradients": len(g_c), "statistics": len(s_c)}
+    if margin is not None:
+        rec["feature_knn_margin"] = margin
+    return rec
+
+
+def train_step_rate(name, device):
+    """TRAIN_STEPS train steps (dropout on, the family's optimiser) on one
+    fixed batch of TRAIN_BATCH full-width synthetic clouds: every loss
+    finite and the last below the first; clouds/s over steps 2..n, timed
+    with a CUDA synchronise at both ends; the launches of the steps."""
+    import torch
+    from interpret_quality_tpu_torch.data.datasets import SyntheticClouds
+    from interpret_quality_tpu_torch.train.trainer import (make_optimizer,
+                                                           make_train_step)
+    ds = SyntheticClouds(TRAIN_BATCH, N, 10, seed=7)
+    x = torch.from_numpy(np.stack([ds[i][0] for i in range(TRAIN_BATCH)]))
+    labels = torch.tensor([ds[i][1] for i in range(TRAIN_BATCH)])
+    x, labels = x.to(device), labels.to(device)
+    torch.manual_seed(0)
+    from interpret_quality_tpu_torch.models import build_model
+    model = build_model(name, 10, K).to(device).train()
+    optimizer, scheduler, _ = make_optimizer(model, name, TRAIN_STEPS, 1)
+    step = make_train_step(model, optimizer, scheduler, name,
+                           torch.Generator(device=device).manual_seed(0))
+    before = all_launches()
+    losses = []
+    t_first = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        losses.append(step(x, labels, TRAIN_BATCH)[0])
+        if i == 0:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            first_s = t0 - t_first
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = launches_since(before)
+    losses = [float(v) for v in losses]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{name}: train losses {losses}")
+    ms_per_step = seconds / (TRAIN_STEPS - 1) * 1e3
+    return {"losses": losses,
+            "clouds_per_s": (TRAIN_STEPS - 1) * TRAIN_BATCH / seconds,
+            "ms_per_step": ms_per_step, "first_step_s": first_s,
+            "launches": {k: v for k, v in launched.items() if v},
+            "profile": profile_steps(lambda: step(x, labels, TRAIN_BATCH),
+                                     ms_per_step)}, launches_since(before)
+
+
+def profile_steps(run_step, ms_per_step, steps: int = 2):
+    """Device time of a train step by kernel, from torch.profiler over two
+    more steps: the summed kernel time per step, its share of the
+    unprofiled step time (the device's busy share), and the kernels that
+    take most of it.  The profiler is untried on the card's machine, so a
+    failure is reported, not raised."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                run_step()
+            torch.cuda.synchronize()
+        # the kernels themselves: the operators above them carry the same
+        # device time again
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+    except Exception as e:                   # noqa: BLE001 (reported)
+        return {"error": repr(e)}
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:8]
+    return {"device_ms_per_step": device_ms,
+            "busy_share": device_ms / ms_per_step,
+            "launches_per_step": sum(e.count for e in kernels) / steps,
+            "top_ms_per_step": [[e.key[:90], e.self_device_time_total / 1e3
+                                 / steps] for e in top]}
+
+
+def check_cli_train(name, workdir, device):
+    """cli.train for two short epochs, then Shapley init on its
+    model_best.t7 by the default path.  Checks: two finite Train and two
+    finite Test lines in run.log, the four .backup files, the checkpoint
+    loads strict=True, every order's estimate sums to v(N) - v(empty)."""
+    import importlib
+
+    import torch
+    from interpret_quality_tpu_torch.config import ExperimentConfig
+    from interpret_quality_tpu_torch.models import build_model
+    ck = os.path.join(workdir, "ck")
+    argv = ["--model", name, "--synthetic", "--device", str(device),
+            "--epochs", str(TRAIN_EPOCHS), "--train_samples",
+            str(TRAIN_SAMPLES), "--test_samples", str(TRAIN_TEST_SAMPLES),
+            "--best_acc_gate", "0", "--checkpoints_root", ck,
+            "--num_points", str(N)]
+    eval_launches = {}
+    before = all_launches()
+    t0 = time.perf_counter()
+    with eval_pass_launches(eval_launches):
+        importlib.import_module("interpret_quality_tpu_torch.cli.train").main(
+            argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    eval_s = eval_launches.pop("seconds")
+    total = launches_since(before)
+    step_launches = {k: total[k] - eval_launches.get(k, 0) for k in total}
+    cfg = ExperimentConfig(model=name, checkpoints_root=ck, num_points=N,
+                           num_regions=R, num_samples_save=TRAIN_ORDERS)
+    path = cfg.default_model_path()
+    exp = os.path.dirname(os.path.dirname(path))
+    with open(os.path.join(exp, "run.log")) as f:
+        lines = f.read().splitlines()
+    numbers = {kind: [float(line.split("loss: ")[1].split(",")[0])
+                      for line in lines if line.startswith(kind + " ")]
+               for kind in ("Train", "Test")}
+    epochs_s = [float(line.rsplit("(", 1)[1].rstrip("s)"))
+                for line in lines if line.startswith("Train ")]
+    if any(len(v) != TRAIN_EPOCHS or not np.isfinite(v).all()
+           for v in numbers.values()):
+        raise AssertionError(f"{name} run.log: {numbers}")
+    backups = sorted(f for f in os.listdir(exp) if f.endswith(".backup"))
+    if backups != ["config.py.backup", "datasets.py.backup",
+                   "registry.py.backup", "trainer.py.backup"]:
+        raise AssertionError(f"{name}: .backup files {backups}")
+    build_model(name, 10, K).load_state_dict(
+        torch.load(path, map_location="cpu"), strict=True)
+    missing = [k for k in TRAIN_STEP_KERNELS[name] if not step_launches[k]]
+    missing += [k for k in FAMILY_KERNELS[name] if not eval_launches.get(k)]
+    if missing:
+        raise AssertionError(f"{name}: kernels not launched in cli.train: "
+                             f"{missing}")
+
+    t0 = time.perf_counter()
+    importlib.import_module("interpret_quality_tpu_torch.cli.shapley_value"
+                            ).main(["--model", name, "--synthetic", "--device",
+                                    str(device), "--checkpoints_root", ck,
+                                    "--num_points", str(N), "--num_regions",
+                                    str(R), "--num_samples_save",
+                                    str(TRAIN_ORDERS), "--samples", "0"])
+    torch.cuda.synchronize()
+    folder = cfg.exp_folder + "synthetic_00/"
+    sv_all = np.load(folder + "region_sv_all.npy")
+    nf = float(np.load(folder + "norm_factor.npy"))
+    err = float(np.abs(sv_all.sum(1) - nf).max())
+    if sv_all.shape != (TRAIN_ORDERS, R) or not np.isfinite(sv_all).all() \
+            or err > 5e-3 * max(1.0, abs(nf)):
+        raise AssertionError(f"{name}: Shapley init on the trained "
+                             f"checkpoint: {sv_all.shape}, efficiency {err}")
+    return {"train_s": train_s, "train_epochs_s": epochs_s,
+            "eval_passes_s": eval_s, "shapley_s": time.perf_counter() - t0,
+            "losses": numbers, "efficiency_err": err,
+            "step_launches": {k: v for k, v in step_launches.items() if v},
+            "eval_launches": {k: v for k, v in eval_launches.items() if v}
+            }, launches_since(before)
+
+
+def run_train(workdir, device):
+    """The train phase: per family the CLI run (train steps, eval passes,
+    then Shapley init on its checkpoint), the fixed-batch steps and the
+    card-vs-CPU step; its record holds the launches of the whole phase per
+    kernel."""
+    import torch
+    out, phase = {}, dict.fromkeys(all_launches(), 0)
+    t0 = time.perf_counter()
+    # the process's first optimiser pays a one-time set-up in torch.optim;
+    # taken here, it stays out of the first family's numbers
+    torch.optim.SGD([torch.zeros(1, device=device, requires_grad=True)],
+                    lr=1.0)
+    out["first_optimizer_s"] = time.perf_counter() - t0
+    for name in TRAIN_MODELS:
+        rec, launched = check_cli_train(name, workdir, device)
+        rate, step_launched = train_step_rate(name, device)
+        for k in phase:
+            phase[k] += launched[k] + step_launched[k]
+        wrong = [k for k, v in step_launched.items()
+                 if bool(v) != (k in TRAIN_STEP_KERNELS[name])]
+        if wrong:
+            raise AssertionError(f"{name}: train steps launched "
+                                 f"{rate['launches']}")
+        before = all_launches()
+        rec["card_vs_cpu_step"] = check_train_step(name, device)
+        for k, v in launches_since(before).items():
+            phase[k] += v
+        rec["fixed_batch_steps"] = rate
+        out[name] = rec
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = phase
+    return out
+
+
 def main() -> int:
     # the run uses one card: show it only that one
     os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get(
@@ -1559,6 +1959,21 @@ def main() -> int:
     shutil.rmtree(real, ignore_errors=True)
     emit({"phase": "real_data", **real_checks})
 
+    train_dir = os.path.join(workdir, "train")
+    os.makedirs(train_dir)
+    os.chdir(train_dir)                     # Shapley init's FPS file
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            train = run_train(train_dir, device)
+    finally:
+        os.chdir(cwd)
+    shutil.rmtree(train_dir, ignore_errors=True)
+    emit({"phase": "train", **train, "nvidia_smi": smi,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "cuts": TRAIN_CUTS})
+
     def src(module):
         return os.path.relpath(build.source_path(module), REPO)
     pallas = "interpret_quality_tpu/ops/pallas/"
@@ -1573,6 +1988,7 @@ def main() -> int:
     emit({"kernels": [
         {"name": kname, "route": "cuda", "source": src(module),
          "replaces": pallas + where, "launches": launches[kname],
+         "train_launches": train["launches"][kname],
          "library_ms": None, **numbers,
          **({"kernel_phase_launches": k8_launches, "off_path": OFF_PATH[kname]}
             if kname in OFF_PATH else {})}

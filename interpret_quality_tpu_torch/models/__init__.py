@@ -1,11 +1,13 @@
 """The classifiers: PointNet, PointNet++ (MSG), PointConv, DGCNN, GCNN and
-adv-GCNN, eval mode."""
+adv-GCNN, in eval and in training."""
 from .dgcnn import DGCNNCls, GCNNCls
 from .pointconv import PointConvDensityClsSsg
-from .pointnet import PointNetCls
+from .pointnet import PointNetCls, feature_transform_regularizer
 from .pointnet2 import PointNet2ClsMsg
-from .registry import MODEL_REGISTRY, ForwardFn, build_model, make_forward_fn
+from .registry import (MODEL_REGISTRY, ForwardFn, build_model,
+                       make_forward_fn, train_forward)
 
 __all__ = ["DGCNNCls", "GCNNCls", "PointConvDensityClsSsg", "PointNetCls",
            "PointNet2ClsMsg", "MODEL_REGISTRY", "ForwardFn", "build_model",
-           "make_forward_fn"]
+           "feature_transform_regularizer", "make_forward_fn",
+           "train_forward"]

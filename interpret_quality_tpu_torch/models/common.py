@@ -1,23 +1,27 @@
-"""Shared eval-mode building blocks for the classifiers.
+"""Shared building blocks for the classifiers.
 
 Models keep the reference's torch modules (``Conv1d``/``Conv2d`` with kernel
 size 1, ``Linear``, ``BatchNorm``) so reference state dicts load by name,
 but compute on channels-last ``(B, N, C)`` tensors: a 1x1 convolution is a
 matmul with the weight viewed as ``(out, in)``, which never goes through
-cuDNN (and its TF32 default).  BatchNorm is the eval-mode affine map with
-the running statistics, eps 1e-5.  The edge-conv family activates with
-LeakyReLU(0.2), the other families with ReLU.  ``fold_stack`` turns a
-ConvBN stack into the explicit affine maps the set-abstraction kernels take.
+cuDNN (and its TF32 default).  BatchNorm, eps 1e-5, is the eval-mode affine
+map with the running statistics, or in training (``bn.training``) the
+normalisation by the batch statistics of ``batch_norm``, which also updates
+the running statistics as the JAX package does.  The edge-conv family
+activates with LeakyReLU(0.2), the other families with ReLU.  ``fold_stack``
+turns a ConvBN stack into the explicit affine maps the set-abstraction
+kernels take.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1     # torch's; flax's momentum 0.9 is the same update
 LEAKY_SLOPE = 0.2
 
 
@@ -46,6 +50,66 @@ def bn_eval(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tenso
     return (x - bn.running_mean) * mul + bn.bias
 
 
+def batch_norm(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
+               unbiased_update: bool = False) -> torch.Tensor:
+    """Train-mode BatchNorm over the last (channel) axis of x: normalise by
+    the biased batch statistics over every other axis, in flax's order
+    (x - mean) * (rsqrt(var + eps) * scale) + bias, and update the running
+    statistics with momentum 0.1.
+
+    The variance is taken in two passes, mean((x - mean)^2), as the
+    reference's torch takes it; flax takes E[x^2] - E[x]^2, which loses
+    digits where a channel's mean^2 is large against its variance.  The
+    running variance takes the biased batch variance, as flax's ``nn.BatchNorm``
+    stores it, unless ``unbiased_update``: then v * n / (n - 1), as the JAX
+    package's edge convs store it (``models/dgcnn.py:107-110`` there) and
+    torch's BatchNorm always does.
+    """
+    dims = tuple(range(x.dim() - 1))
+    mean = x.mean(dim=dims)
+    xc = x - mean
+    var = xc.square().mean(dim=dims)
+    with torch.no_grad():
+        n = x.numel() // x.shape[-1]
+        update = var * (n / max(n - 1, 1)) if unbiased_update else var
+        bn.running_mean.mul_(1.0 - BN_MOMENTUM).add_(BN_MOMENTUM * mean)
+        bn.running_var.mul_(1.0 - BN_MOMENTUM).add_(BN_MOMENTUM * update)
+        bn.num_batches_tracked.add_(1)
+    return xc * (torch.rsqrt(var + BN_EPS) * bn.weight) + bn.bias
+
+
+def bn_apply(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
+             unbiased_update: bool = False) -> torch.Tensor:
+    """BatchNorm over the last axis in the module's mode: ``batch_norm`` in
+    training, ``bn_eval`` otherwise."""
+    if bn.training:
+        return batch_norm(x, bn, unbiased_update)
+    return bn_eval(x, bn)
+
+
+class Dropout(nn.Module):
+    """Dropout that holds no state and draws its mask from the generator it
+    is given, never from torch's or numpy's global stream: in training each
+    value is kept with probability 1 - p and scaled by 1 / (1 - p); in eval,
+    or at p = 0, the input passes unchanged (the reference's ``nn.Dropout``
+    in both)."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("a Dropout in training needs a torch.Generator "
+                             "(pass generator=...), or call .eval() on it")
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 def conv_bn_stack(c_in: int, widths: Sequence[int]
                   ) -> Tuple[nn.ModuleList, nn.ModuleList]:
     """The reference's (mlp_convs, mlp_bns) pair: 1x1 Conv2d layers of the
@@ -59,12 +123,14 @@ def conv_bn_stack(c_in: int, widths: Sequence[int]
 
 
 def conv_bn_relu(x: torch.Tensor, conv: nn.Module, bn: nn.Module) -> torch.Tensor:
-    """relu(bn(conv(x))) over the channel axis of a channels-last tensor."""
-    return torch.relu(bn_eval(pointwise(x, conv), bn))
+    """relu(bn(conv(x))) over the channel axis of a channels-last tensor,
+    with the BatchNorm in its module's mode (``bn_apply``)."""
+    return torch.relu(bn_apply(pointwise(x, conv), bn))
 
 
 def mlp_stack(x: torch.Tensor, convs, bns) -> torch.Tensor:
-    """A per-point MLP of ConvBN + ReLU layers (the JAX ``MLPStack``)."""
+    """A per-point MLP of ConvBN + ReLU layers (the JAX ``MLPStack``),
+    un-fused, each BatchNorm in its module's mode."""
     for conv, bn in zip(convs, bns):
         x = conv_bn_relu(x, conv, bn)
     return x

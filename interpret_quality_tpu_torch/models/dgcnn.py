@@ -1,4 +1,4 @@
-"""DGCNN and GCNN classifiers, eval mode (counterpart of
+"""DGCNN and GCNN classifiers (counterpart of
 ``interpret_quality_tpu/models/dgcnn.py``).
 
 DGCNN recomputes the kNN graph in feature space before every edge conv
@@ -23,6 +23,15 @@ with ext = max where the BN scale alpha > 0 and min otherwise (BN is a
 per-channel affine map in eval, LeakyReLU is monotone).  The extrema come
 from the neighbour kernels: ``knn_gather_extrema`` (graph from features) or
 ``gather_extrema`` (given indices).
+
+Training, and an eval forward that must be differentiated, take the
+un-fused edge conv (``fused=False``): the edge features [x_j - x_i, x_i]
+gathered by ``index_points``, the 1x1 conv as one matmul, BatchNorm over
+(B, N, k) (in training on the batch statistics, with the n/(n-1) running
+variance of the JAX package's edge convs), LeakyReLU and the max over k
+(``models/dgcnn.py:100-113`` there).  Its graphs still come from the kNN
+kernel (``knn``): an index selection carries no gradient.  ``dp1``/``dp2``
+are the reference's dropouts, with no state.
 """
 from __future__ import annotations
 
@@ -32,7 +41,8 @@ import torch
 from torch import nn
 
 from ..ops.cuda.neighbors import gather_extrema, knn, knn_gather_extrema
-from .common import bn_affine, bn_eval, leaky_relu02, pointwise
+from ..ops.geometry import index_points
+from .common import Dropout, bn_affine, bn_apply, leaky_relu02, pointwise
 
 EDGE_WIDTHS = (64, 64, 128, 256)
 EMB_DIMS = 1024
@@ -60,6 +70,26 @@ def edge_conv(x: torch.Tensor, block: nn.Sequential, k: int,
     return leaky_relu02(alpha * m_ext + beta)
 
 
+def graph_knn(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The k nearest neighbours of each row of x (B, N, C) within its cloud
+    (self included), through the kNN kernel; the selection is not
+    differentiated, so the kernel reads a detached copy."""
+    xs = x.detach().contiguous()
+    return knn(xs, xs, k)
+
+
+def edge_conv_unfused(x: torch.Tensor, block: nn.Sequential,
+                      idx: torch.Tensor) -> torch.Tensor:
+    """The edge convolution as the reference computes it, differentiable:
+    x (B, N, C), neighbours idx (B, N, k) -> (B, N, F)."""
+    conv, bn = block[0], block[1]
+    neigh = index_points(x, idx)                                # (B, N, k, C)
+    centre = x[:, :, None, :].expand_as(neigh)
+    e = torch.cat([neigh - centre, centre], dim=-1)             # (B, N, k, 2C)
+    y = pointwise(e, conv)                                      # (B, N, k, F)
+    return leaky_relu02(bn_apply(y, bn, unbiased_update=True)).amax(dim=2)
+
+
 class _DGCNNBase(nn.Module):
     dynamic_graph = True
 
@@ -81,30 +111,45 @@ class _DGCNNBase(nn.Module):
         self.conv5 = nn.Sequential(
             nn.Conv1d(sum(EDGE_WIDTHS), EMB_DIMS, kernel_size=1, bias=False),
             self.bn5, nn.LeakyReLU(negative_slope=0.2))
-        # the reference's dropouts (dp1, dp2) hold no state and are identity
-        # in eval, so the eval-only port leaves them out
         self.linear1 = nn.Linear(EMB_DIMS * 2, 512, bias=False)
         self.bn6 = nn.BatchNorm1d(512)
+        self.dp1 = Dropout(0.5)
         self.linear2 = nn.Linear(512, 256)
         self.bn7 = nn.BatchNorm1d(256)
+        self.dp2 = Dropout(0.5)
         self.linear3 = nn.Linear(256, num_classes)
 
-    def forward(self, x: torch.Tensor,
-                plan: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Eval logits of clouds x (B, N, 3) -> (B, num_classes).
+    def forward(self, x: torch.Tensor, plan: Optional[torch.Tensor] = None,
+                fused: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Logits of clouds x (B, N, 3) -> (B, num_classes).
 
         ``plan``: precomputed input-space kNN indices (B, N, k) from
         ``models.plans.dgcnn_plan`` — the layer-1 graph for DGCNN, the
         shared fixed graph for GCNN.  It is pose-invariant, so the
         enumeration builds it once per order chunk.
+        ``fused``: the eval edge conv through the fused kernels (True) or
+        the un-fused, differentiable one (False); None means fused in eval
+        and un-fused in training, which cannot be fused.
+        ``generator``: draws the dropout masks in training.
         """
-        if self.training:
-            raise RuntimeError("the port's DGCNN/GCNN forward is eval-only; "
-                               "call .eval() first")
+        if fused is None:
+            fused = not self.training
+        if fused and self.training:
+            raise ValueError("training cannot take the fused edge conv "
+                             "(it folds eval BatchNorm); pass fused=False")
         convs = (self.conv1, self.conv2, self.conv3, self.conv4)
         x = x.contiguous()
         feats = []
-        if self.dynamic_graph:
+        if not fused:
+            fix_idx = plan if plan is not None else graph_knn(x, self.k)
+            h = x
+            for i, block in enumerate(convs):
+                idx = graph_knn(h, self.k) if (
+                    self.dynamic_graph and i > 0) else fix_idx
+                h = edge_conv_unfused(h, block, idx)
+                feats.append(h)
+        elif self.dynamic_graph:
             h = edge_conv(x, convs[0], self.k, idx=plan)
             feats.append(h)
             for block in convs[1:]:
@@ -118,10 +163,12 @@ class _DGCNNBase(nn.Module):
                 feats.append(h)
 
         h = torch.cat(feats, dim=-1)                            # (B, N, 512)
-        h = leaky_relu02(bn_eval(pointwise(h, self.conv5[0]), self.bn5))
+        h = leaky_relu02(bn_apply(pointwise(h, self.conv5[0]), self.bn5))
         h = torch.cat([h.amax(dim=1), h.mean(dim=1)], dim=-1)  # (B, 2048)
-        h = leaky_relu02(bn_eval(pointwise(h, self.linear1), self.bn6))
-        h = leaky_relu02(bn_eval(pointwise(h, self.linear2), self.bn7))
+        h = leaky_relu02(bn_apply(pointwise(h, self.linear1), self.bn6))
+        h = self.dp1(h, generator)
+        h = leaky_relu02(bn_apply(pointwise(h, self.linear2), self.bn7))
+        h = self.dp2(h, generator)
         return pointwise(h, self.linear3)
 
 

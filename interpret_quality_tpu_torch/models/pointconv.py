@@ -1,4 +1,4 @@
-"""PointConv (density-weighted) SSG classifier, eval mode (counterpart of
+"""PointConv (density-weighted) SSG classifier (counterpart of
 ``interpret_quality_tpu/models/pointconv.py``).
 
   * Gaussian-KDE inverse point density, normalised per group by the group
@@ -19,10 +19,19 @@ csw = new_xyz @ A1[:3] subtracted per neighbour).  On CUDA they launch their
 kernels; on the CPU they run their plain versions.  The group-all level is
 plain PyTorch, as it is XLA in the JAX package.
 
+Training, and an eval forward that must be differentiated, take the
+un-fused SA level (``fused=False``, ``models/pointconv.py:150-166`` of the
+JAX package): FPS through the FPS kernel (its indices carry no gradient),
+the KDE density, the k nearest points by ``knn_point`` (the kNN kernel takes
+k <= 32 and SA2 needs 64), the grouped inverse density over its group max,
+the MLP, the DensityNet scale, the WeightNet and the contraction
+``einsum("bskc,bskw->bscw")`` flattened C-major, every BatchNorm in its
+module's mode.
+
 Modules and parameter names are the reference's (``sa1.mlp_convs.{j}``,
 ``sa1.weightnet.mlp_convs.{j}``, ``sa1.densitynet.mlp_bns.{j}``,
 ``sa1.linear``, ``sa1.bn_linear``...), so a reference state dict loads with
-``strict=True``.  Dropouts hold no state and are left out.
+``strict=True``; the dropouts ``drop1``/``drop2`` (0.7) hold no state.
 """
 from __future__ import annotations
 
@@ -33,8 +42,9 @@ from torch import nn
 
 from ..ops.cuda.fps import fps
 from ..ops.cuda.groups import fused_pointconv_sa, knn_with_density
-from ..ops.geometry import compute_density, index_points
-from .common import bn_eval, conv_bn_stack, fold_stack, mlp_stack, pointwise
+from ..ops.geometry import compute_density, index_points, knn_point
+from .common import (Dropout, bn_apply, conv_bn_stack, fold_stack, mlp_stack,
+                     pointwise)
 
 WO = 16     # WeightNet output width
 
@@ -67,19 +77,24 @@ class PointConvDensitySA(nn.Module):
         self.densitynet = DensityNet()
 
     def _head(self, out: torch.Tensor) -> torch.Tensor:
-        return torch.relu(bn_eval(pointwise(out, self.linear), self.bn_linear))
+        return torch.relu(bn_apply(pointwise(out, self.linear), self.bn_linear))
 
     def forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor],
-                plan=None):
+                plan=None, fused: bool = True):
         """xyz (B, N, 3), points (B, N, D) or None.
 
         ``plan`` (``models.plans.pointconv_plan``): (fps_idx, idx, den, dmax)
         for an SA level, the inverse density (B, N) for the group-all level.
+        ``fused``: an SA level through ``knn_with_density`` and
+        ``fused_pointconv_sa`` (eval BatchNorm folded), else un-fused and
+        differentiable; the group-all level is un-fused either way.
         Returns new_xyz (B, S, 3) and new_points (B, S, mlp[-1]); the
         group-all level returns (None, (B, mlp[-1])).
         """
         if self.group_all:
             return None, self._forward_all(xyz, points, plan)
+        if not fused:
+            return self._forward_unfused(xyz, points, plan)
         xyz = xyz.contiguous()
         if plan is not None:
             fps_idx, idx, den, dmax = plan
@@ -100,6 +115,30 @@ class PointConvDensitySA(nn.Module):
         out = fused_pointconv_sa(idx, den, dmax, new_xyz, u, xyz, csw,
                                  a2, b2, a3, b3, dnet, wnet, k=self.nsample)
         return new_xyz, self._head(out)
+
+    def _forward_unfused(self, xyz, points, plan=None):
+        if plan is not None:
+            fps_idx, idx, den, _ = plan
+            grouped_density = den[..., None]                    # (B, S, K, 1)
+        else:
+            inv_density = 1.0 / compute_density(xyz, self.bandwidth)
+            fps_idx = fps(xyz.detach().contiguous(), self.npoint)
+        new_xyz = index_points(xyz, fps_idx)                    # (B, S, 3)
+        if plan is None:
+            idx = knn_point(self.nsample, xyz, new_xyz)         # (B, S, K)
+            grouped_density = index_points(inv_density[..., None], idx)
+        grouped_xyz = index_points(xyz, idx) - new_xyz[:, :, None, :]
+        # input order [xyz offsets, features] (reference pointconv.py:137)
+        grouped = grouped_xyz if points is None else torch.cat(
+            [grouped_xyz, index_points(points, idx)], dim=-1)
+        h = mlp_stack(grouped, self.mlp_convs, self.mlp_bns)    # (B, S, K, C)
+        inv_max = grouped_density.amax(dim=2, keepdim=True)
+        h = h * mlp_stack(grouped_density / inv_max, self.densitynet.mlp_convs,
+                          self.densitynet.mlp_bns)
+        weights = mlp_stack(grouped_xyz, self.weightnet.mlp_convs,
+                            self.weightnet.mlp_bns)             # (B, S, K, 16)
+        out = torch.einsum("bskc,bskw->bscw", h, weights)       # C-major
+        return new_xyz, self._head(out.reshape(*out.shape[:2], -1))
 
     def _forward_all(self, xyz, points, inv_density=None):
         if inv_density is None:
@@ -127,21 +166,32 @@ class PointConvDensityClsSsg(nn.Module):
                                       True)
         self.fc1 = nn.Linear(1024, 512)
         self.bn1 = nn.BatchNorm1d(512)
+        self.drop1 = Dropout(0.7)
         self.fc2 = nn.Linear(512, 256)
         self.bn2 = nn.BatchNorm1d(256)
+        self.drop2 = Dropout(0.7)
         self.fc3 = nn.Linear(256, num_classes)
 
-    def forward(self, x: torch.Tensor, plan=None) -> torch.Tensor:
-        """Eval logits of clouds x (B, N, 3) -> (B, num_classes).  ``plan``:
+    def forward(self, x: torch.Tensor, plan=None, fused: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Logits of clouds x (B, N, 3) -> (B, num_classes).  ``plan``:
         ((SA1 plan, SA2 plan), group-all inverse density) from
-        ``models.plans.pointconv_plan``."""
-        if self.training:
-            raise RuntimeError("the port's PointConv forward is eval-only; "
-                               "call .eval() first")
+        ``models.plans.pointconv_plan``.  ``fused``: the SA levels through
+        their kernels (True) or un-fused (False); None means fused in eval
+        and un-fused in training, which cannot be fused.  ``generator``
+        draws the dropout masks in training."""
+        if fused is None:
+            fused = not self.training
+        if fused and self.training:
+            raise ValueError("training cannot take the fused SA levels (they "
+                             "fold eval BatchNorm); pass fused=False")
         levels, invden3 = plan if plan is not None else ((None, None), None)
-        l1_xyz, l1_points = self.sa1(x, None, plan=levels[0])
-        l2_xyz, l2_points = self.sa2(l1_xyz, l1_points, plan=levels[1])
+        l1_xyz, l1_points = self.sa1(x, None, plan=levels[0], fused=fused)
+        l2_xyz, l2_points = self.sa2(l1_xyz, l1_points, plan=levels[1],
+                                     fused=fused)
         _, h = self.sa3(l2_xyz, l2_points, plan=invden3)
-        h = torch.relu(bn_eval(pointwise(h, self.fc1), self.bn1))
-        h = torch.relu(bn_eval(pointwise(h, self.fc2), self.bn2))
+        h = torch.relu(bn_apply(pointwise(h, self.fc1), self.bn1))
+        h = self.drop1(h, generator)
+        h = torch.relu(bn_apply(pointwise(h, self.fc2), self.bn2))
+        h = self.drop2(h, generator)
         return pointwise(h, self.fc3)

@@ -1,4 +1,4 @@
-"""PointNet classifier with the 3x3 and 64x64 spatial transformers, eval mode
+"""PointNet classifier with the 3x3 and 64x64 spatial transformers
 (counterpart of ``interpret_quality_tpu/models/pointnet.py``; reference
 models/pointnet.py:11-115).
 
@@ -6,15 +6,19 @@ Three shared-MLP stages (the last without activation), a global max pool and
 an FC head; the forward returns ``(logits, trans_feat, crt_points)`` as the
 reference does, and ``ForwardFn`` keeps the logits.  PointNet builds no
 graph, so it has no kernel and no plan.  Modules and parameter names are the
-reference's (``feat.stn.conv1``, ``feat.fstn.bn4``, ``fc1``/``bn1``...);
-the dropout before ``bn2`` holds no state and is identity in eval.
+reference's (``feat.stn.conv1``, ``feat.fstn.bn4``, ``fc1``/``bn1``...).
+Every BatchNorm follows its module's mode (batch statistics in training);
+the dropout (0.3) comes *before* ``bn2``, in the reference's order
+relu(bn2(dropout(fc2(x)))), and holds no state.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
-from .common import bn_eval, conv_bn_relu, pointwise
+from .common import Dropout, bn_apply, conv_bn_relu, pointwise
 
 
 class STNkd(nn.Module):
@@ -67,7 +71,7 @@ class PointNetFeat(nn.Module):
         x = conv_bn_relu(torch.matmul(x, trans), self.conv1, self.bn1)
         trans_feat = self.fstn(x)
         x = conv_bn_relu(torch.matmul(x, trans_feat), self.conv2, self.bn2)
-        x = bn_eval(pointwise(x, self.conv3), self.bn3)        # no activation
+        x = bn_apply(pointwise(x, self.conv3), self.bn3)       # no activation
         return x.amax(dim=1), trans, trans_feat, torch.argmax(x, dim=1)
 
 
@@ -78,16 +82,25 @@ class PointNetCls(nn.Module):
         self.fc1 = nn.Linear(1024, 512)
         self.fc2 = nn.Linear(512, 256)
         self.fc3 = nn.Linear(256, num_classes)
+        self.dropout = Dropout(0.3)
         self.bn1 = nn.BatchNorm1d(512)
         self.bn2 = nn.BatchNorm1d(256)
 
-    def forward(self, x: torch.Tensor):
-        """Eval forward of clouds x (B, N, 3): (logits (B, num_classes),
-        trans_feat, crt_points)."""
-        if self.training:
-            raise RuntimeError("the port's PointNet forward is eval-only; "
-                               "call .eval() first")
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        """Forward of clouds x (B, N, 3): (logits (B, num_classes),
+        trans_feat, crt_points).  ``generator`` draws the dropout mask in
+        training."""
         h, _, trans_feat, crt_points = self.feat(x)
         h = conv_bn_relu(h, self.fc1, self.bn1)
-        h = conv_bn_relu(h, self.fc2, self.bn2)
+        h = self.dropout(pointwise(h, self.fc2), generator)
+        h = torch.relu(bn_apply(h, self.bn2))
         return pointwise(h, self.fc3), trans_feat, crt_points
+
+
+def feature_transform_regularizer(trans: torch.Tensor) -> torch.Tensor:
+    """||T T^t - I||_F, the mean over the batch (reference
+    pointnet.py:119-126)."""
+    eye = torch.eye(trans.shape[-1], dtype=trans.dtype, device=trans.device)
+    diff = torch.matmul(trans, trans.transpose(-1, -2)) - eye
+    return torch.linalg.matrix_norm(diff).mean()

@@ -2,6 +2,8 @@
 ``interpret_quality_tpu/models/registry.py``)."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .dgcnn import DGCNNCls, GCNNCls
@@ -62,3 +64,15 @@ class ForwardFn:
 
 def make_forward_fn(model: torch.nn.Module) -> ForwardFn:
     return ForwardFn(model)
+
+
+def train_forward(model: torch.nn.Module, x: torch.Tensor,
+                  generator: Optional[torch.Generator] = None):
+    """The forward a train step differentiates, in the model's own mode
+    (un-fused in training): (logits (B, num_classes), trans_feat or None).
+    PointNet's feature transform (B, 64, 64) feeds its regulariser; the
+    other families have none."""
+    out = model(x, generator=generator)
+    if isinstance(out, tuple):
+        return out[0], out[1]
+    return out, None

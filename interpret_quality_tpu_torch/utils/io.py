@@ -57,3 +57,21 @@ def save_torch_tensor(path: str, arr):
 def load_torch_tensor(path: str) -> np.ndarray:
     """A ``.pt`` tensor as a numpy array, read on the CPU."""
     return torch.load(path, map_location="cpu").numpy()
+
+
+def snapshot_sources(exp_dir: str, modules) -> list:
+    """Copy the source files of ``modules`` into ``exp_dir`` as
+    ``<name>.py.backup``, so a run can be traced to the code that made it
+    (reference main_cls_seed.py:30-33).  Returns the paths written."""
+    import shutil
+
+    mkdir(exp_dir)
+    written = []
+    for mod in modules:
+        src = getattr(mod, "__file__", None)
+        if not src or not os.path.exists(src):
+            continue
+        dst = os.path.join(exp_dir, os.path.basename(src) + ".backup")
+        shutil.copyfile(src, dst)
+        written.append(dst)
+    return written

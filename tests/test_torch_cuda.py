@@ -385,3 +385,128 @@ def test_gather_extrema_ragged_slices(cuda, S, N, F, k, offset):
     for g_, w_ in zip(got, nb.gather_extrema_plain(idx, a)):
         assert torch.equal(g_, w_)
     assert nb.LAUNCHES["gather_extrema"] == 1
+
+
+# ------------------------------------------------------------- training
+TRAIN_BATCH, TRAIN_VALID = 4, 3
+# f32 on both sides, sums in other orders, amplified by train-mode
+# BatchNorm over a batch of 4: loss and logits rtol/atol 1e-3; each
+# gradient within 2e-2 of its norm plus 1e-3 of the largest gradient norm;
+# each running statistic within 1e-3 of its buffer's largest value.
+TRAIN_LOGIT_TOL, TRAIN_GRAD_REL, TRAIN_GRAD_FLOOR, TRAIN_STAT_TOL = (
+    1e-3, 2e-2, 1e-3, 1e-3)
+
+
+def _grid_clouds(n, seed):
+    """Synthetic clouds on a 1/64 grid (every xyz distance exact in f32,
+    so FPS, kNN and ball queries select alike on both sides) and labels."""
+    from interpret_quality_tpu_torch.data.datasets import SyntheticClouds
+    ds = SyntheticClouds(TRAIN_BATCH, n, 10, seed=seed)
+    x = torch.stack([torch.from_numpy(ds[i][0]) for i in range(TRAIN_BATCH)])
+    labels = torch.tensor([ds[i][1] for i in range(TRAIN_BATCH)])
+    return torch.round(x * 64) / 64, labels
+
+
+def _train_model(name, device):
+    from interpret_quality_tpu_torch.models import build_model
+    from interpret_quality_tpu_torch.models.common import Dropout
+    torch.manual_seed(0)
+    model = build_model(name, 10, 20).to(device).train()
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.eval()
+    return model
+
+
+def _train_step(name, model, x, labels):
+    from interpret_quality_tpu_torch.models import (
+        feature_transform_regularizer, train_forward)
+    from interpret_quality_tpu_torch.train.losses import cal_loss
+    from interpret_quality_tpu_torch.train.trainer import (SMOOTHED,
+                                                           valid_weights)
+    logits, trans_feat = train_forward(model, x)
+    loss = cal_loss(logits, labels, smoothing=name in SMOOTHED,
+                    weights=valid_weights(x.shape[0], TRAIN_VALID, x.device))
+    if name == "pointnet":
+        loss = loss + feature_transform_regularizer(trans_feat) * 1e-3
+    model.zero_grad(set_to_none=True)
+    loss.backward()
+    return loss.detach(), logits.detach()
+
+
+def _feature_knn_margin(x):
+    """DGCNN's smallest gap between a k-th and (k+1)-th feature distance
+    (layers 2-4) in the port's own CPU train forward, relative to the
+    cloud's largest |x|^2, exact in f64."""
+    from interpret_quality_tpu_torch.models import dgcnn
+    rows, original = [], dgcnn.knn
+
+    def knn(query, database, k):
+        rows.append(query.detach().double())
+        return original(query, database, k)
+    dgcnn.knn = knn
+    try:
+        _train_step("dgcnn", _train_model("dgcnn", "cpu"), x,
+                    torch.zeros(x.shape[0], dtype=torch.long))
+    finally:
+        dgcnn.knn = original
+    worst = float("inf")
+    for h in rows[1:]:
+        d = ((h[:, :, None] - h[:, None]) ** 2).sum(-1).sort(-1).values
+        scale = (h ** 2).sum(-1).amax(-1)[:, None]
+        worst = min(worst, float(((d[..., 20] - d[..., 19]) / scale).min()))
+    return worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dgcnn", "gcnn", "pointnet2", "pointconv",
+                                  "pointnet"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, name):
+    """One train step (dropout off) through the kNN and FPS kernels on the
+    card against the plain versions on the CPU, from the same weights:
+    loss, logits, every gradient and every running statistic.  DGCNN runs
+    on the first seed whose feature-space selections keep 1e-6 apart."""
+    n, seed = (64, 0) if name == "dgcnn" else (256, 0)
+    x, labels = _grid_clouds(n, seed)
+    while name == "dgcnn" and _feature_knn_margin(x) < 1e-6:
+        seed += 1
+        assert seed < 64
+        x, labels = _grid_clouds(n, seed)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = _train_model(name, dev)
+        loss, logits = _train_step(name, model, x.to(dev), labels.to(dev))
+        out[str(dev)] = (loss.cpu(), logits.cpu(),
+                         {p: t.grad.cpu() for p, t in model.named_parameters()},
+                         {b: t.cpu() for b, t in model.named_buffers()
+                          if b.endswith(("running_mean", "running_var"))})
+    (l_c, lg_c, g_c, s_c), (l_g, lg_g, g_g, s_g) = out["cpu"], out["cuda"]
+    tol = dict(rtol=TRAIN_LOGIT_TOL, atol=TRAIN_LOGIT_TOL)
+    assert torch.allclose(l_g, l_c, **tol) and torch.allclose(lg_g, lg_c, **tol)
+    floor = TRAIN_GRAD_FLOOR * max(float(g.norm()) for g in g_c.values())
+    for p, want in g_c.items():
+        assert float((g_g[p] - want).norm()) <= \
+            TRAIN_GRAD_REL * float(want.norm()) + floor, p
+    for b, want in s_c.items():
+        assert float((s_g[b] - want).abs().max()) <= \
+            TRAIN_STAT_TOL * float(want.abs().max()), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kernel,per_step", [("dgcnn", "knn", 4),
+                                                  ("gcnn", "knn", 1),
+                                                  ("pointnet2", "fps", 2),
+                                                  ("pointconv", "fps", 2)])
+def test_train_steps_launch_the_index_kernels(cuda, name, kernel, per_step):
+    """A train step on the card takes its graphs from kernel 1 (kNN) and its
+    centres from kernel 4 (FPS), and launches no kernel that folds eval
+    BatchNorm (2, 3, 5, 6, 7)."""
+    x, labels = _grid_clouds(256, 1)
+    model = _train_model(name, cuda)
+    for counter in (nb, fp, gr):
+        counter.reset_launches()
+    _train_step(name, model, x.to(cuda), labels.to(cuda))
+    torch.cuda.synchronize()
+    launched = {**nb.LAUNCHES, **fp.LAUNCHES, **gr.LAUNCHES}
+    assert launched.pop(kernel) == per_step
+    assert all(v == 0 for v in launched.values()), launched

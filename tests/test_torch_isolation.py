@@ -56,7 +56,7 @@ def test_importing_every_port_module_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert len(_port_modules()) >= 52
+    assert len(_port_modules()) >= 56
     assert {f"interpret_quality_tpu_torch.{m}" for m in (
         "ops.cuda.fps", "ops.cuda.groups", "ops.cuda.launch",
         "models.pointnet", "models.pointnet2", "models.pointconv",
@@ -64,7 +64,8 @@ def test_importing_every_port_module_loads_no_jax():
         "cli.gen_pair", "cli.interaction_logits", "cli.cal_interactions",
         "cli.smoothness_enum", "data.native", "data.augment",
         "models.checkpoint", "results.tables", "results.plots",
-        "results.visualization", "cli.result", "cli.plot_interaction")
+        "results.visualization", "cli.result", "cli.plot_interaction",
+        "train", "train.losses", "train.trainer", "cli.train")
     } <= set(_port_modules())
 
 
@@ -92,6 +93,21 @@ def test_stage_clis_ask_for_cuda_and_raise_without_it(cli, tmp_path,
         mod.main(["--model", "dgcnn", "--synthetic", "--allow_random_init",
                   "--checkpoints_root", str(tmp_path / "ck"),
                   "--num_points", "64", "--num_regions", "4", "--samples", "0"])
+    assert not os.listdir(tmp_path)        # nothing ran on the CPU instead
+
+
+def test_cli_train_asks_for_cuda_and_raises_without_it(tmp_path,
+                                                       monkeypatch):
+    """cli.train runs on CUDA unless --device cpu is given, and raises
+    before it writes anything when there is no card."""
+    from interpret_quality_tpu_torch.cli import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--model", "gcnn", "--synthetic", "--num_points", "64",
+                    "--epochs", "1", "--train_samples", "4",
+                    "--test_samples", "4", "--checkpoints_root",
+                    str(tmp_path / "ck")])
     assert not os.listdir(tmp_path)        # nothing ran on the CPU instead
 
 

@@ -79,6 +79,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
              the edge-conv family's train steps, FPS in PointNet++'s and
              PointConv's, no kernel that folds BatchNorm in any train step,
              and every kernel of the family in fit's eval passes.
+  8. adversarial  cli.train_adv resumed from the train phase's GCNN .t7
+             (ADV_CUTS), then cli.shapley_value --model gcnn_adv by the
+             default path (the run's model_best.t7 stands in for
+             model_399.t7): the run.log lines in the JAX package's formats,
+             the .backup files, a strict load, efficient estimates, kNN and
+             gather_extrema launched and no other kernel; ten adversarial
+             steps on one fixed batch of 16 clouds (clean clouds/s over
+             steps 2-10, each step split by CUDA events into the rotation
+             attack, the translation attack and the train passes; 12 kNN
+             launches a step); the attack on 4 clouds card against CPU
+             (ATTACK_* tolerances, sign flips counted) with its invariants
+             on the card (norms kept, |alpha| <= pi/2, |t| <= 1) and the
+             losses before and after it.
+  9. mesh    cli.shapley_value --mesh_devices 1 against no flag (DGCNN,
+             equal artifacts); a virtual split over [cuda, cuda] of
+             DGCNN's and PointNet++'s forward and plan path on the masked
+             batch, equal to the unsplit forward of the same parts and
+             within 1e-3 of the whole batch's (its equal rows reported);
+             one Shapley init with --trace_dir, whose trace must name the
+             kernels' iq_* launch spans; the number of visible devices.
 
 Plots (matplotlib) and flax .msgpack checkpoints (msgpack) are held by the
 CPU tests only (tests/test_torch_results.py, tests/test_torch_checkpoint.py):
@@ -87,13 +107,15 @@ this script imports neither, so it needs neither on the card's machine.
 Every line on stdout is one JSON object.  The first ("device") carries the
 card's name and power limit as nvidia-smi prints them; the "kernels" line
 comes just before the last, which is {"ok": true, "device": {...}}; its
-rows carry each kernel's launches on the main path and in the train phase.
+rows carry each kernel's launches on the main path and in the train and
+adversarial phases.
 The run uses one card: the first that CUDA_VISIBLE_DEVICES names, else card 0.
 Artifacts go to build/chip_smoke/ in the checkout.
 """
 from __future__ import annotations
 
 import contextlib
+import glob
 import io
 import json
 import os
@@ -192,6 +214,34 @@ TRAIN_CUTS = ("two epochs of the family's 200-400 (the schedules run over "
               "1024 points and full width; "
               "Shapley init on the trained model at 50 orders of 1000, one "
               "cloud; random initial weights from a seed")
+# The adversarial phase: cli.train_adv resumed from the train phase's GCNN
+# .t7 on its 64 synthetic clouds, Shapley init on the adv model by its
+# default path; ADV_STEPS adversarial steps on one fixed batch; the attack
+# card against CPU on ATTACK_CLOUDS clouds.  Its train steps and attacks
+# launch kNN (the un-fused GCNN graph), its eval passes gather_extrema too.
+ADV_EPOCHS, ADV_BATCH, ADV_ORDERS, ADV_STEPS = 2, 16, 50, 10
+ADV_KERNELS = ("knn", "gather_extrema")
+ATTACK_CLOUDS = 4
+# The attack card against CPU, both f32 through the same seeded GCNN: the
+# first step's (g_alpha, g_theta, g_phi) within ATTACK_GRAD_REL of the
+# CPU's norm; on the clouds whose g_alpha sign sequences match, the final
+# (theta, phi), the rotated and the translated clouds within ATTACK_*_TOL:
+# ten times the CPU's own f32 run's distance from its f64 run on these
+# clouds, which check_attack reports as "cpu_f32_vs_f64" (7.0e-6, 3.8e-4,
+# 7.7e-5 and 8.2e-3; the translation's direction g/|g| is the least well
+# conditioned); at most ATTACK_MAX_FLIPS clouds may flip a sign (a whole
+# step of pi/10).
+ATTACK_GRAD_REL, ATTACK_MAX_FLIPS = 7e-5, 1
+ATTACK_ANGLE_TOL, ATTACK_ROT_TOL, ATTACK_TRANS_TOL = 4e-3, 8e-4, 9e-2
+ADV_CUTS = ("cli.train_adv: 2 epochs of 400 on the 64 synthetic training "
+            "clouds (16 test clouds) at 1024 points, batch 16; Shapley init "
+            "on its model_best.t7 at 50 orders of 1000, one cloud; weights "
+            "resumed from the train phase's 2-epoch GCNN")
+# The mesh phase: --mesh_devices 1 against no flag (DGCNN init), a virtual
+# split over [cuda, cuda] of these families' forwards and plan paths, and
+# one init with --trace_dir.
+MESH_ORDERS = 50
+MESH_MODELS = ("dgcnn", "pointnet2")
 # Kernels that no entry point reaches, so the main path cannot launch them:
 # they are held in the kernel phase alone.
 OFF_PATH = {"gather_rows": "no entry point of the JAX package calls "
@@ -1871,6 +1921,459 @@ def run_train(workdir, device):
     return out
 
 
+# ------------------------------------------------------------- adversarial
+def gcnn_checkpoint(ck: str) -> str:
+    """The train phase's GCNN checkpoint, which cli.train_adv resumes."""
+    from interpret_quality_tpu_torch.config import ExperimentConfig
+    return ExperimentConfig(model="gcnn", checkpoints_root=ck,
+                            num_points=N).default_model_path()
+
+
+def check_cli_train_adv(workdir, device, resume_path):
+    """cli.train_adv for ADV_EPOCHS epochs from the train phase's GCNN
+    .t7, then Shapley init on adv-GCNN by its default path (model_399.t7
+    absent: the run's model_best.t7).  Checks: per epoch the three run.log
+    lines in the JAX package's formats, finite; the three .backup files;
+    the checkpoint loads strict=True; kNN launched (attacks, train passes)
+    and gather_extrema (the eval passes), no other kernel; every order's
+    estimate sums to v(N) - v(empty)."""
+    import importlib
+
+    import torch
+    from interpret_quality_tpu_torch.config import ExperimentConfig
+    from interpret_quality_tpu_torch.models import build_model
+    ck = os.path.join(workdir, "ck")
+    before = all_launches()
+    t0 = time.perf_counter()
+    importlib.import_module("interpret_quality_tpu_torch.cli.train_adv").main(
+        ["--synthetic", "--device", str(device), "--num_points", str(N),
+         "--epochs", str(ADV_EPOCHS), "--batch_size", str(ADV_BATCH),
+         "--best_acc_gate", "0", "--checkpoints_root", ck,
+         "--train_rot_all_perturbation", "--resume_path", resume_path])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launched = launches_since(before)
+    cfg = ExperimentConfig(model="gcnn_adv", checkpoints_root=ck,
+                           num_points=N, num_regions=R,
+                           num_samples_save=ADV_ORDERS)
+    models = os.path.dirname(cfg.default_model_path())
+    exp = os.path.dirname(models)
+    with open(os.path.join(exp, "run.log")) as f:
+        lines = f.read().splitlines()
+    kinds = (r"Train %d, loss: (\S+), train acc: (\S+) \(\d+\.\ds\)",
+             r"Test %d, loss: (\S+), test acc: (\S+), test avg acc: (\S+)",
+             r"Test adv %d, rot-robust acc: (\S+)")
+    logged = [line for line in lines if line.startswith(("Train", "Test"))]
+    numbers = []
+    for i, line in enumerate(logged):
+        m = re.fullmatch(kinds[i % 3] % (i // 3), line)
+        if m is None:
+            raise AssertionError(f"adv run.log line {line!r}")
+        numbers.append([float(v) for v in m.groups()])
+    if len(logged) != 3 * ADV_EPOCHS or not lines[1].startswith(
+            "resumed from ") or not np.isfinite(sum(numbers, [])).all():
+        raise AssertionError(f"adv run.log: {lines}")
+    backups = sorted(f for f in os.listdir(exp) if f.endswith(".backup"))
+    if backups != ["adversarial.py.backup", "config.py.backup",
+                   "registry.py.backup"]:
+        raise AssertionError(f"adv .backup files {backups}")
+    if os.path.exists(cfg.default_model_path()):
+        raise AssertionError("model_399.t7 written by a 2-epoch run")
+    build_model("gcnn_adv", 10, K).load_state_dict(torch.load(
+        os.path.join(models, "model_best.t7"), map_location="cpu"),
+        strict=True)
+    wrong = {k: v for k, v in launched.items()
+             if bool(v) != (k in ADV_KERNELS)}
+    if wrong:
+        raise AssertionError(f"cli.train_adv launched {launched}")
+
+    t0 = time.perf_counter()
+    importlib.import_module("interpret_quality_tpu_torch.cli.shapley_value"
+                            ).main(["--model", "gcnn_adv", "--synthetic",
+                                    "--device", str(device),
+                                    "--checkpoints_root", ck, "--num_points",
+                                    str(N), "--num_regions", str(R),
+                                    "--num_samples_save", str(ADV_ORDERS),
+                                    "--samples", "0"])
+    torch.cuda.synchronize()
+    folder = cfg.exp_folder + "synthetic_00/"
+    sv_all = np.load(folder + "region_sv_all.npy")
+    nf = float(np.load(folder + "norm_factor.npy"))
+    err = float(np.abs(sv_all.sum(1) - nf).max())
+    if sv_all.shape != (ADV_ORDERS, R) or not np.isfinite(sv_all).all() \
+            or err > 5e-3 * max(1.0, abs(nf)):
+        raise AssertionError(f"adv-GCNN Shapley init: {sv_all.shape}, "
+                             f"efficiency {err}")
+    return {"train_adv_s": train_s, "log": logged,
+            "shapley_s": time.perf_counter() - t0, "efficiency_err": err,
+            "cli_launches": {k: v for k, v in launched.items() if v}}
+
+
+@contextlib.contextmanager
+def attack_events(marks):
+    """CUDA events around each BIM attack of the adversarial module, into
+    ``marks`` as (name, start, end)."""
+    import torch
+    from interpret_quality_tpu_torch.train import adversarial as adv
+    originals = adv.bim_rotation_attack, adv.bim_translation_attack
+
+    def timed(fn, name):
+        def run(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            marks.append((name, start, end))
+            return out
+        return run
+    adv.bim_rotation_attack = timed(originals[0], "rotation_attack")
+    adv.bim_translation_attack = timed(originals[1], "translation_attack")
+    try:
+        yield
+    finally:
+        adv.bim_rotation_attack, adv.bim_translation_attack = originals
+
+
+def adv_step_rate(device):
+    """ADV_STEPS adversarial steps (dropout on, adv-GCNN's SGD) on one fixed
+    batch of ADV_BATCH full-width clouds: losses finite; clean clouds/s over
+    steps 2..n (host clock between CUDA synchronisations); each step split
+    by CUDA events into the rotation attack, the translation attack and the
+    rest (two train forwards and backwards, the update); kNN launched
+    7 + 3 + 2 times a step and no other kernel."""
+    import torch
+    from interpret_quality_tpu_torch.data.datasets import SyntheticClouds
+    from interpret_quality_tpu_torch.models import build_model
+    from interpret_quality_tpu_torch.train import adversarial as adv
+    from interpret_quality_tpu_torch.train.trainer import make_optimizer
+    ds = SyntheticClouds(ADV_BATCH, N, 10, seed=7)
+    x = torch.from_numpy(np.stack([ds[i][0] for i in range(ADV_BATCH)]))
+    labels = torch.tensor([ds[i][1] for i in range(ADV_BATCH)])
+    x, labels = x.to(device), labels.to(device)
+    torch.manual_seed(0)
+    model = build_model("gcnn", 10, K).to(device).train()
+    optimizer, scheduler, _ = make_optimizer(model, "gcnn_adv", ADV_STEPS, 1)
+    step = adv.make_adv_step(model, optimizer, scheduler,
+                             torch.Generator(device=device).manual_seed(0))
+    marks, steps, losses = [], [], []
+    before = all_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with attack_events(marks):
+        for i in range(ADV_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses.append(step(x, labels, ADV_BATCH)[0])
+            end.record()
+            steps.append((start, end))
+            if i == 0:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = launches_since(before)
+    losses = [float(v) for v in losses]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"adv step losses {losses}")
+    per_step = adv.ROT_ADV_ITER + adv.TRANS_ADV_ITER + 2   # a kNN a forward
+    want = {k: per_step * ADV_STEPS if k == "knn" else 0 for k in launched}
+    if launched != want:
+        raise AssertionError(f"adv steps launched {launched}, want {want}")
+    step_ms = [s.elapsed_time(e) for s, e in steps[1:]]
+    part_ms = {}
+    for name, s, e in marks[2:]:             # those of steps 2..n
+        part_ms.setdefault(name, []).append(s.elapsed_time(e))
+    split = {name: float(np.mean(v)) for name, v in part_ms.items()}
+    split["train_passes_and_update"] = float(
+        np.mean(step_ms) - sum(split.values()))
+    return {"losses": losses,
+            "clean_clouds_per_s": (ADV_STEPS - 1) * ADV_BATCH / seconds,
+            "ms_per_step": seconds / (ADV_STEPS - 1) * 1e3,
+            "event_ms_per_step": float(np.mean(step_ms)),
+            "split_ms": split, "launches": {k: v for k, v in launched.items()
+                                            if v},
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+@contextlib.contextmanager
+def recorded_attack(rec):
+    """Records, per rotation step, the gradients of (alpha, theta, phi)
+    into rec["grads"], and the final angles into rec["final"]."""
+    import torch
+    from interpret_quality_tpu_torch.train import adversarial as adv
+    original = adv.rot_angle_axis
+
+    def rot(x, angle, theta, phi):
+        if angle.requires_grad:
+            slot = [None] * 3
+            rec["grads"].append(slot)
+            for j, t in enumerate((angle, theta, phi)):
+                t.register_hook(lambda g, j=j: slot.__setitem__(
+                    j, g.detach().double().cpu()))
+        else:
+            rec["final"] = torch.stack([angle, theta, phi]).double().cpu()
+        return original(x, angle, theta, phi)
+    adv.rot_angle_axis = rot
+    try:
+        yield
+    finally:
+        adv.rot_angle_axis = original
+
+
+def attack_on(device, x, labels, dtype=None):
+    """The BIM variants of one batch through a seeded full-width GCNN in
+    eval on ``device``: (record of recorded_attack, data_rot, data_dis,
+    the smoothed losses of the clean, rotated and translated clouds)."""
+    import torch
+    from interpret_quality_tpu_torch.train import adversarial as adv
+    from interpret_quality_tpu_torch.train.losses import cal_loss
+    model = seeded_model("gcnn", device)
+    x, labels = x.to(device), labels.to(device)
+    if dtype is not None:
+        model, x = model.to(dtype), x.to(dtype)
+    rec = {"grads": []}
+    with recorded_attack(rec):
+        rot, dis = adv.make_adv_batch_fn(model)(x, labels)
+    with torch.no_grad():
+        losses = [float(cal_loss(model(c, fused=False), labels))
+                  for c in (x, rot, dis)]
+    return rec, rot.double().cpu(), dis.double().cpu(), losses
+
+
+def attack_distance(run, ref):
+    """How far one attack_on run lies from another: the first step's
+    gradients relative to the reference's norm, the clouds whose g_alpha
+    sign sequences differ, and on the others whether the alphas are equal
+    and the largest differences of (theta, phi), the rotated and the
+    translated clouds."""
+    import torch
+    (rec, rot, dis, _), (rec_r, rot_r, dis_r, _) = run, ref
+    first, first_r = (torch.stack(r["grads"][0], -1) for r in (rec, rec_r))
+    signs, signs_r = (torch.stack([torch.sign(g[0]) for g in r["grads"]])
+                      for r in (rec, rec_r))
+    same = (signs == signs_r).all(0)                      # (clouds,)
+    fin, fin_r = rec["final"][:, same], rec_r["final"][:, same]
+    out = {"first_step_grad_rel_err": float((first - first_r).norm()
+                                            / first_r.norm()),
+           "sign_flip_clouds": int((~same).sum()),
+           "alphas_equal": bool(torch.equal(fin[0].float(),
+                                            fin_r[0].float()))}
+    for k, (a, b) in {"angles": (fin[1:], fin_r[1:]),
+                      "rotated": (rot[same], rot_r[same]),
+                      "translated": (dis[same], dis_r[same])}.items():
+        out[f"{k}_max_abs_diff"] = float((a - b).abs().max()) \
+            if same.any() else 0.0
+    return out
+
+
+def check_attack(device):
+    """The attack on the card against the CPU from the same weights and
+    ATTACK_CLOUDS clouds: the first step's gradients within
+    ATTACK_GRAD_REL of the CPU's norm; sign sequences of g_alpha compared
+    per cloud (a flip at f32 noise moves a whole step), at most
+    ATTACK_MAX_FLIPS clouds flipped; on the clouds that match, the same
+    alphas, and (theta, phi) and both attacked clouds within ATTACK_*_TOL.
+    The card's output keeps each point's norm within 1e-5 relative,
+    |alpha| <= pi/2 and |t| <= 1 + 1e-6.  The CPU's own f32 run against
+    its f64 run, the yardstick of the tolerances, is reported beside."""
+    import torch
+    from interpret_quality_tpu_torch.data.datasets import SyntheticClouds
+    ds = SyntheticClouds(ATTACK_CLOUDS, N, 10, seed=3)
+    x = torch.from_numpy(np.stack([ds[i][0] for i in range(ATTACK_CLOUDS)]))
+    labels = torch.tensor([ds[i][1] for i in range(ATTACK_CLOUDS)])
+    cpu, card, cpu64 = (attack_on(dev, x, labels, dtype) for dev, dtype in
+                        (("cpu", None), (device, None),
+                         ("cpu", torch.float64)))
+    diff = attack_distance(card, cpu)
+    if diff["first_step_grad_rel_err"] > ATTACK_GRAD_REL or \
+            diff["sign_flip_clouds"] > ATTACK_MAX_FLIPS:
+        raise AssertionError(f"attack card vs CPU: {diff}")
+    tols = {"angles": ATTACK_ANGLE_TOL, "rotated": ATTACK_ROT_TOL,
+            "translated": ATTACK_TRANS_TOL}
+    if not diff["alphas_equal"] or any(
+            diff[f"{k}_max_abs_diff"] > tol for k, tol in tols.items()):
+        raise AssertionError(f"attack card vs CPU on matching clouds: {diff}")
+    rec_g, rot_g, dis_g, loss_g = card
+    x64 = x.double()
+    norm_err = float(((rot_g.norm(dim=-1) - x64.norm(dim=-1)).abs()
+                      / x64.norm(dim=-1).clamp(min=1e-6)).max())
+    alpha_max = float(rec_g["final"][0].abs().max())
+    t = (dis_g - rot_g)[:, 0].norm(dim=-1)
+    # the clip is to pi/2 rounded to f32 (1.2e-8 above pi/2)
+    if norm_err > 1e-5 or alpha_max > float(np.float32(np.pi / 2)) \
+            or float(t.max()) > 1 + 1e-6:
+        raise AssertionError(f"attack invariants: norms {norm_err}, |alpha| "
+                             f"{alpha_max}, |t| {t.tolist()}")
+    return {"clouds": ATTACK_CLOUDS, **diff,
+            "g_alpha_min_abs": float(torch.stack(
+                [g[0].abs() for g in rec_g["grads"]]).min()),
+            "norm_max_rel_err": norm_err, "alpha_max_abs": alpha_max,
+            "translation_norms": t.tolist(),
+            "loss_clean_rot_trans_card": loss_g,
+            "loss_clean_rot_trans_cpu": cpu[3],
+            "cpu_f32_vs_f64": attack_distance(cpu, cpu64)}
+
+
+def run_adversarial(workdir, device, resume_path):
+    """The adversarial phase: cli.train_adv and Shapley init on its
+    checkpoint, the fixed-batch step rate and split, the attack card
+    against CPU.  Returns (record, launches of the whole phase)."""
+    import gc
+
+    import torch
+    before = all_launches()
+    gc.collect()                 # the train phase's cycles (optimisers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    allocated_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    out = check_cli_train_adv(workdir, device, resume_path)
+    # Shapley init's 1650-cloud forward sets it
+    out["cli_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["fixed_batch_steps"] = adv_step_rate(device)
+    out["attack_card_vs_cpu"] = check_attack(device)
+    out["seconds"] = time.perf_counter() - t0
+    out["allocated_at_start_gb"] = allocated_gb
+    launched = launches_since(before)
+    out["launches"] = {k: v for k, v in launched.items() if v}
+    return out, launched
+
+
+# -------------------------------------------------------------------- mesh
+def check_mesh_cli(workdir, device):
+    """cli.shapley_value on DGCNN with --mesh_devices 1 and without: the
+    same artifacts, bit for bit."""
+    import importlib
+    from interpret_quality_tpu_torch.config import ExperimentConfig
+    trees = []
+    for flag in ([], ["--mesh_devices", "1"]):
+        ck = os.path.join(workdir, "ck_mesh%s" % "".join(flag[1:]))
+        importlib.import_module(
+            "interpret_quality_tpu_torch.cli.shapley_value").main(
+            ["--model", "dgcnn", "--synthetic", "--allow_random_init",
+             "--device", str(device), "--checkpoints_root", ck,
+             "--num_points", str(N), "--num_regions", str(R),
+             "--num_samples_save", str(MESH_ORDERS), "--samples", "0", *flag])
+        folder = ExperimentConfig(
+            model="dgcnn", checkpoints_root=ck, num_points=N,
+            num_regions=R).exp_folder + "synthetic_00/"
+        trees.append([np.load(folder + f) for f in (
+            "region_sv_all.npy", "norm_factor.npy", "region_id.npy")])
+    if not all(np.array_equal(a, b) for a, b in zip(*trees)):
+        raise AssertionError("--mesh_devices 1 changed Shapley init")
+    return {"orders": MESH_ORDERS, "equal": True}
+
+
+def check_virtual_split(masked, device):
+    """A split over [device, device] of DGCNN's and PointNet++'s forward
+    on the masked batch, and of their plan path: equal to the unsplit
+    forward of the same two parts, bit for bit (the split adds no
+    arithmetic); against the unsplit forward of the whole batch, the share
+    of equal rows and the largest difference, within rtol / atol 1e-3 (the
+    dense layers' library may sum in another order for another row count,
+    and a feature-space kNN near tie may then flip)."""
+    import torch
+    from interpret_quality_tpu_torch.models import make_forward_fn
+    from interpret_quality_tpu_torch.pipeline import split_forward
+    out = {}
+    for name in MESH_MODELS:
+        forward = make_forward_fn(seeded_model(name, device))
+        split, _ = split_forward(forward, device, [device, device])
+        parts = torch.tensor_split(masked, 2)
+        with torch.inference_mode():
+            whole = forward(masked)
+            plan = split.plan_fn(masked)
+            runs = {"forward": (split(masked), torch.cat(
+                        [forward(p) for p in parts]), whole),
+                    "plan": (split.apply_plan_fn(masked, plan), torch.cat(
+                        [forward.apply_plan_fn(p, q)
+                         for p, q in zip(parts, plan)]),
+                        forward.apply_plan_fn(masked,
+                                              forward.plan_fn(masked)))}
+        rec = {}
+        for path, (got, per_part, unsplit) in runs.items():
+            if not torch.equal(got, per_part):
+                raise AssertionError(f"{name} {path}: the split differs from "
+                                     f"the unsplit forward of its parts")
+            diff = (got - unsplit).abs()
+            if not bool((diff <= 1e-3 + 1e-3 * unsplit.abs()).all()):
+                raise AssertionError(f"{name} {path}: split vs unsplit "
+                                     f"{float(diff.max())}")
+            rec[path] = {"equal_to_per_part": True,
+                         "equal_to_unsplit": bool(torch.equal(got, unsplit)),
+                         "rows_equal_to_unsplit": float(
+                             (diff == 0).all(-1).float().mean()),
+                         "max_abs_diff_to_unsplit": float(diff.max())}
+        out[name] = rec
+    return out
+
+
+def repo_kernel_names():
+    """The __global__ functions of the kernel sources."""
+    names = set()
+    for path in glob.glob(os.path.join(
+            REPO, "interpret_quality_tpu_torch", "csrc", "*.cu")):
+        with open(path) as f:
+            names |= set(re.findall(
+                r"__global__ void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                r"(\w+)\(", f.read()))
+    return names
+
+
+def check_trace(workdir, device):
+    """Shapley init on GCNN with --trace_dir: one Chrome trace per cloud,
+    naming the kernels' launch spans (iq_*) and, where the profiler sees
+    the card, their device kernels."""
+    import importlib
+    traces = os.path.join(workdir, "traces")
+    t0 = time.perf_counter()
+    importlib.import_module("interpret_quality_tpu_torch.cli.shapley_value"
+                            ).main(["--model", "gcnn", "--synthetic",
+                                    "--allow_random_init", "--device",
+                                    str(device), "--checkpoints_root",
+                                    os.path.join(workdir, "ck_trace"),
+                                    "--num_points", str(N), "--num_regions",
+                                    str(R), "--num_samples_save",
+                                    str(MESH_ORDERS), "--samples", "0",
+                                    "--trace_dir", traces])
+    seconds = time.perf_counter() - t0
+    files = os.listdir(traces)
+    if files != ["shapley_init_synthetic_00.pt.trace.json"]:
+        raise AssertionError(f"trace files {files}")
+    with open(os.path.join(traces, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted({e["name"] for e in events
+                    if e.get("name", "").startswith("iq_")})
+    names = repo_kernel_names()
+    device = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    # the profiler may give a kernel's name mangled or demangled
+    kernels = sorted({n for n in names for d in device if n in d})
+    if not spans:
+        raise AssertionError("the trace names no iq_ launch span")
+    return {"file": files[0], "bytes": os.path.getsize(
+        os.path.join(traces, files[0])), "events": len(events),
+        "iq_spans": spans, "repo_device_kernels": kernels,
+        "device_kernel_events": sum(e.get("cat") == "kernel"
+                                    for e in events),
+        "device_kernel_names": [d[:80] for d in device],
+        "seconds_with_trace": seconds}
+
+
+def run_mesh(workdir, device):
+    import torch
+    t0 = time.perf_counter()
+    out = {"visible_devices": torch.cuda.device_count(),
+           "cli_mesh_devices_1": check_mesh_cli(workdir, device)}
+    masked = coalition_batch(device)
+    out["virtual_split"] = check_virtual_split(masked, device)
+    del masked
+    torch.cuda.empty_cache()
+    out["trace"] = check_trace(workdir, device)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     # the run uses one card: show it only that one
     os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get(
@@ -1967,12 +2470,30 @@ def main() -> int:
     try:
         with contextlib.redirect_stdout(sys.stderr):
             train = run_train(train_dir, device)
+            train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.empty_cache()
+            adversarial, adv_launches = run_adversarial(
+                train_dir, device,
+                gcnn_checkpoint(os.path.join(train_dir, "ck")))
     finally:
         os.chdir(cwd)
     shutil.rmtree(train_dir, ignore_errors=True)
     emit({"phase": "train", **train, "nvidia_smi": smi,
-          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "cuts": TRAIN_CUTS})
+          "peak_memory_gb": train_peak_gb, "cuts": TRAIN_CUTS})
+    emit({"phase": "adversarial", **adversarial, "nvidia_smi": smi,
+          "cuts": ADV_CUTS})
+    torch.cuda.empty_cache()
+
+    mesh_dir = os.path.join(workdir, "mesh")
+    os.makedirs(mesh_dir)
+    os.chdir(mesh_dir)                      # Shapley init's FPS file
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            mesh = run_mesh(mesh_dir, device)
+    finally:
+        os.chdir(cwd)
+    shutil.rmtree(mesh_dir, ignore_errors=True)
+    emit({"phase": "mesh", **mesh})
 
     def src(module):
         return os.path.relpath(build.source_path(module), REPO)
@@ -1988,7 +2509,7 @@ def main() -> int:
     emit({"kernels": [
         {"name": kname, "route": "cuda", "source": src(module),
          "replaces": pallas + where, "launches": launches[kname],
-         "train_launches": train["launches"][kname],
+         "train_launches": train["launches"][kname] + adv_launches[kname],
          "library_ms": None, **numbers,
          **({"kernel_phase_launches": k8_launches, "off_path": OFF_PATH[kname]}
             if kname in OFF_PATH else {})}

@@ -32,7 +32,7 @@ from scipy.special import comb
 from ..config import (BALL_QUERY_COEF, ExperimentConfig,
                       MODELNET_INTER_SELECTED_SAMPLE,
                       SHAPENET_INTER_SELECTED_SAMPLE)
-from ..pipeline import load_frozen_model, resolve_dataset
+from ..pipeline import load_frozen_model, resolve_dataset, split_forward
 from ..utils.io import (IOStream, load_torch_tensor, mkdir, save_npy,
                         save_torch_tensor)
 from ..utils.profiling import StageTimer
@@ -213,7 +213,9 @@ class InteractionEngine:
     logits reach the host once per call.
 
     Args:
-      forward_fn: ``(B, N, 3) -> (B, num_class)`` logits on ``device``.
+      forward_fn: ``(B, N, 3) -> (B, num_class)`` logits on ``device``:
+        the model's ``ForwardFn``, or its split over devices
+        (``parallel.SplitForward``, logits on its first device).
       num_regions: R.
       batch_contexts: cells per forward.
       device: where the clouds, masks and logits live.
@@ -278,7 +280,8 @@ def run_interaction_logits(cfg: ExperimentConfig, mode_name: str = "rotate",
                            ratios: Sequence[float] = tuple(RATIOS),
                            sample_indices: Optional[list] = None,
                            gen_pair_seed: Optional[int] = None,
-                           resume: bool = False):
+                           resume: bool = False,
+                           coalition_devices: Optional[Sequence] = None):
     """Save ratio<r>_all_logits.pt for the normal pose, the adv pose, and
     the rank-1 single region at the normal pose (reference
     final_point_binary_interaction_logits.py:83-136).
@@ -286,15 +289,18 @@ def run_interaction_logits(cfg: ExperimentConfig, mode_name: str = "rotate",
     ``gen_pair_seed`` selects which interaction_seed<k>/ tree to read and
     write (the seed gen_pair ran with) without touching this run's own
     randomness; default = cfg.seed.  ``resume`` skips (pose, ratio) outputs
-    that exist and appends to the log; otherwise the log is rewritten."""
+    that exist and appends to the log; otherwise the log is rewritten.
+    ``coalition_devices`` splits the 4-row batches over those devices
+    (``pipeline.split_forward``)."""
     set_random(cfg.seed)
     folder_seed = cfg.seed if gen_pair_seed is None else gen_pair_seed
     mode = MODES[mode_name]
     dataset, names = resolve_dataset(cfg, synthetic)
     _, forward, device = load_frozen_model(cfg, allow_random_init)
-    engine = InteractionEngine(forward, cfg.num_regions,
+    split, split_device = split_forward(forward, device, coalition_devices)
+    engine = InteractionEngine(split, cfg.num_regions,
                                batch_contexts=cfg.interaction_batch_size,
-                               device=device)
+                               device=split_device)
 
     indices = (sample_indices if sample_indices is not None
                else selected_sample_indices(cfg.dataset))

@@ -55,7 +55,9 @@ class ShapleyEngine:
     """Batched masked-coalition Shapley estimator for one frozen model.
 
     Args:
-      forward_fn: ``(B, N, 3) -> (B, num_class)`` logits on ``device``.
+      forward_fn: ``(B, N, 3) -> (B, num_class)`` logits on ``device``:
+        the model's ``ForwardFn``, or its split over devices
+        (``parallel.SplitForward``, logits on its first device).
       num_regions: R.
       softmax_type: reward type ("modified" | "normal").
       batch_orders: permutations per forward (the forward batch is

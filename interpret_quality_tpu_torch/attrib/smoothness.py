@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -331,17 +331,19 @@ def test_all_region(engine, data: np.ndarray, lbl: int, orders: np.ndarray,
 def run_smoothness(cfg: ExperimentConfig, modes=SMOOTH_MODES,
                    synthetic: bool = False, allow_random_init: bool = False,
                    sample_indices: Optional[list] = None,
-                   max_epochs: Optional[int] = None, resume: bool = False):
+                   max_epochs: Optional[int] = None, resume: bool = False,
+                   coalition_devices: Optional[Sequence] = None):
     """Full smoothness suite: {linearity, planarity, scattering} x {inc, dec}.
 
     ``resume`` skips (sample, mode, objective) cells whose final artifact
     already exists, so an interrupted suite restarts at the first
-    incomplete cell."""
+    incomplete cell.  ``coalition_devices`` splits each epoch's coalition
+    batches over those devices (``pipeline.split_forward``)."""
     epochs = EPOCH if max_epochs is None else max_epochs
     set_random(cfg.seed)
     dataset, names = resolve_dataset(cfg, synthetic)
     _, forward, device = load_frozen_model(cfg, allow_random_init)
-    engine = make_engine(cfg, forward, device)
+    engine = make_engine(cfg, forward, device, coalition_devices)
 
     indices = sample_indices if sample_indices is not None else range(len(dataset))
     for pc_index in indices:

@@ -10,7 +10,7 @@ Reference call stacks replaced here:
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -21,7 +21,7 @@ from ..models.plans import plan_modes_for
 from ..ops.geometry import farthest_point_sample
 from ..pipeline import load_frozen_model, make_engine, resolve_dataset
 from ..utils.io import IOStream, mkdir, save_npy, save_torch_tensor
-from ..utils.profiling import StageTimer
+from ..utils.profiling import StageTimer, device_trace
 from ..utils.rng import set_random
 from .perturbations import MODES
 from .shapley import generate_all_orders, norm_factor, region_id_from_fps
@@ -51,17 +51,22 @@ def save_fps(cfg: ExperimentConfig, synthetic: bool = False,
 def run_shapley_init(cfg: ExperimentConfig, synthetic: bool = False,
                      allow_random_init: bool = False,
                      sample_indices: Optional[list] = None,
-                     resume: bool = False, antithetic: bool = False):
+                     resume: bool = False, antithetic: bool = False,
+                     coalition_devices: Optional[Sequence] = None,
+                     trace_dir: Optional[str] = None):
     """Per eval cloud: region ids, norm factor, saved permutations, the
     ``num_samples_save``-order Shapley estimate with convergence snapshots,
     and the per-order estimates (region_sv_all.npy).
 
     ``antithetic=True`` samples the permutations in (pi, reverse pi) pairs;
-    the artifacts are unchanged."""
+    the artifacts are unchanged.  ``coalition_devices`` splits the
+    coalition batches over those devices (``pipeline.split_forward``);
+    ``trace_dir`` writes a ``torch.profiler`` trace of each cloud's
+    estimate there."""
     set_random(cfg.seed)
     dataset, names = resolve_dataset(cfg, synthetic)
     _, forward, device = load_frozen_model(cfg, allow_random_init)
-    engine = make_engine(cfg, forward, device)
+    engine = make_engine(cfg, forward, device, coalition_devices)
 
     fps_path = cfg.fps_index_path()
     if not os.path.exists(fps_path):
@@ -94,7 +99,8 @@ def run_shapley_init(cfg: ExperimentConfig, synthetic: bool = False,
                 torch.from_numpy(fps_indices[i]).to(device)).cpu().numpy()
             save_npy(result_path + "region_id.npy", region_id)
 
-            nf = norm_factor(forward, data, lbl, cfg.softmax_type, device)
+            nf = norm_factor(engine.forward_fn, data, lbl, cfg.softmax_type,
+                             engine.device)
             save_npy(result_path + "norm_factor.npy", nf)
 
             all_orders = generate_all_orders(cfg.num_samples_save,
@@ -102,9 +108,10 @@ def run_shapley_init(cfg: ExperimentConfig, synthetic: bool = False,
                                              antithetic=antithetic)
             save_npy(result_path + "all_orders.npy", all_orders)
 
-            with StageTimer(f"shapley_init:{names[i]}",
-                            items=cfg.num_samples_save * (cfg.num_regions + 1),
-                            printer=io.cprint):
+            with device_trace(trace_dir, f"shapley_init_{names[i]}"), \
+                    StageTimer(f"shapley_init:{names[i]}",
+                               items=cfg.num_samples_save
+                               * (cfg.num_regions + 1), printer=io.cprint):
                 _, per_order = engine.shapley_for_pose(
                     data, lbl, region_id, all_orders, return_per_order=True)
         save_npy(result_path + "region_sv_all.npy", per_order)
@@ -134,18 +141,21 @@ def _save_snapshot(region_sv_sum, pc_idx, count, result_path, region_id):
 def run_enum(cfg: ExperimentConfig, mode_name: str, synthetic: bool = False,
              allow_random_init: bool = False, save_logits: bool = True,
              sample_indices: Optional[list] = None, resume: bool = False,
-             max_poses: Optional[int] = None):
+             max_poses: Optional[int] = None,
+             coalition_devices: Optional[Sequence] = None,
+             trace_dir: Optional[str] = None):
     """Recompute Shapley values at every pose of a perturbation grid.
 
     Where ``models.plans.PLAN_MODES`` allows it for (model, mode), the graph
     is built once per order chunk and reused for every pose
     (``ShapleyEngine.enum_all_poses_plan``); otherwise it is rebuilt in every
-    forward (``enum_all_poses``)."""
+    forward (``enum_all_poses``).  ``coalition_devices`` and ``trace_dir``
+    as in ``run_shapley_init`` (a trace of each cloud's pose grid)."""
     set_random(cfg.seed)
     mode = MODES[mode_name]
     dataset, names = resolve_dataset(cfg, synthetic)
     _, forward, device = load_frozen_model(cfg, allow_random_init)
-    engine = make_engine(cfg, forward, device)
+    engine = make_engine(cfg, forward, device, coalition_devices)
 
     all_params = mode.generate_params()                 # (P, 3) or (P,)
     if max_poses is not None:
@@ -176,11 +186,13 @@ def run_enum(cfg: ExperimentConfig, mode_name: str, synthetic: bool = False,
             timer = StageTimer(f"enum:{mode_name}:{names[pc_index]}",
                                items=P * orders.shape[0] * (cfg.num_regions + 1),
                                printer=io.cprint)
-            with timer:
+            with device_trace(trace_dir,
+                              f"enum_{mode_name}_{names[pc_index]}"), timer:
                 if use_plan:
                     region_shapley_list, all_logits = engine.enum_all_poses_plan(
                         mode.disturb_fn, data, all_params, lbl, region_id,
-                        orders, forward.plan_fn, forward.apply_plan_fn,
+                        orders, engine.forward_fn.plan_fn,
+                        engine.forward_fn.apply_plan_fn,
                         return_logits=save_logits)
                 else:
                     region_shapley_list, all_logits = engine.enum_all_poses(

@@ -1,6 +1,9 @@
 """Shared CLI argument surface: the reference flags (e.g.
 final_shapley_value.py:178-188) plus ``--synthetic``, ``--allow_random_init``,
-``--samples``, ``--resume`` and ``--device``."""
+``--samples``, ``--resume``, ``--mesh_devices``, ``--trace_dir`` and
+``--device``.  The JAX package's ``--matmul_precision`` and
+``--gather_precision`` have no counterpart: the port always computes what
+their exact settings give (f32 matmuls, f32 gathers)."""
 from __future__ import annotations
 
 import argparse
@@ -41,6 +44,13 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    help="comma-separated eval-sample indices to process")
     p.add_argument("--resume", action="store_true",
                    help="skip samples whose stage artifacts already exist")
+    p.add_argument("--mesh_devices", type=int, default=0,
+                   help="split the coalition batches over this many devices "
+                        "(0 = one device; with --device cpu a virtual split "
+                        "on the CPU)")
+    p.add_argument("--trace_dir", type=str, default=None,
+                   help="write a torch.profiler (Chrome) trace of each "
+                        "stage call's device work to this directory")
     p.add_argument("--device", type=str, default="cuda", choices=DEVICES,
                    help="where the model runs; 'cuda' raises when no card is "
                         "present")
@@ -67,3 +77,15 @@ def sample_indices_from_args(args):
     if args.samples is None:
         return None
     return [int(s) for s in args.samples.split(",") if s != ""]
+
+
+def split_from_args(args):
+    """The devices of the coalition split (``parallel.make_mesh``), or None
+    for one device.  With ``--device cpu`` the split is virtual: the CPU
+    named ``--mesh_devices`` times."""
+    if not args.mesh_devices:
+        return None
+    from ..parallel import make_mesh
+    if args.device == "cpu":
+        return make_mesh(devices=["cpu"] * args.mesh_devices)
+    return make_mesh(args.mesh_devices)

@@ -1,6 +1,7 @@
 """CLI: perturbation enumeration (trans / rotate / scale), one entry point
 with --mode for the reference's final_{trans,rotate,scale}_center_enum_all.py."""
-from .common import base_parser, config_from_args, sample_indices_from_args
+from .common import (base_parser, config_from_args, sample_indices_from_args,
+                     split_from_args)
 
 
 def main(argv=None, default_mode: str = "trans"):
@@ -19,7 +20,9 @@ def main(argv=None, default_mode: str = "trans"):
              allow_random_init=args.allow_random_init,
              save_logits=not args.no_logits,
              sample_indices=sample_indices_from_args(args),
-             resume=args.resume, max_poses=args.max_poses)
+             resume=args.resume, max_poses=args.max_poses,
+             coalition_devices=split_from_args(args),
+             trace_dir=args.trace_dir)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """CLI: interaction logits over (pair, context) grids (replaces reference
 final_point_binary_interaction_logits.py)."""
-from .common import base_parser, config_from_args, sample_indices_from_args
+from .common import (base_parser, config_from_args, sample_indices_from_args,
+                     split_from_args)
 
 
 def main(argv=None):
@@ -24,7 +25,8 @@ def main(argv=None):
                                         else args.ratio),
                            sample_indices=sample_indices_from_args(args),
                            gen_pair_seed=args.gen_pair_seed,
-                           resume=args.resume)
+                           resume=args.resume,
+                           coalition_devices=split_from_args(args))
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """CLI: Shapley initialisation — region ids, permutations, norm factors and
 the Shapley estimates with convergence snapshots (replaces reference
 final_shapley_value.py)."""
-from .common import base_parser, config_from_args, sample_indices_from_args
+from .common import (base_parser, config_from_args, sample_indices_from_args,
+                     split_from_args)
 
 
 def main(argv=None):
@@ -15,7 +16,9 @@ def main(argv=None):
     run_shapley_init(cfg, synthetic=args.synthetic,
                      allow_random_init=args.allow_random_init,
                      sample_indices=sample_indices_from_args(args),
-                     resume=args.resume, antithetic=args.antithetic)
+                     resume=args.resume, antithetic=args.antithetic,
+                     coalition_devices=split_from_args(args),
+                     trace_dir=args.trace_dir)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """CLI: smoothness (linearity / planarity / scattering) enumeration
 (replaces reference final_smoothness_center_enum_all.py)."""
-from .common import base_parser, config_from_args, sample_indices_from_args
+from .common import (base_parser, config_from_args, sample_indices_from_args,
+                     split_from_args)
 
 
 def main(argv=None):
@@ -16,7 +17,8 @@ def main(argv=None):
                    synthetic=args.synthetic,
                    allow_random_init=args.allow_random_init,
                    sample_indices=sample_indices_from_args(args),
-                   max_epochs=args.max_epochs, resume=args.resume)
+                   max_epochs=args.max_epochs, resume=args.resume,
+                   coalition_devices=split_from_args(args))
 
 
 if __name__ == "__main__":

@@ -4,7 +4,7 @@
 ``fps`` replaces ``interpret_quality_tpu/ops/pallas/fps.py`` ``fps_pallas``
 / ``_fps_kernel``.  It takes its plain version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.  Each launch adds one to
-``LAUNCHES["fps"]``.
+``LAUNCHES["fps"]`` and runs inside a profiler span named ``iq_fps``.
 
 The kernel keeps a cloud of up to ``REGISTER_ROUTE_MAX_N`` points in
 registers (a block of 128 threads per cloud, 1, 2, 4 or 8 points a thread,
@@ -18,6 +18,7 @@ import ctypes
 import functools
 
 import torch
+from torch.profiler import record_function
 
 from ..geometry import farthest_point_sample
 from . import build
@@ -67,8 +68,9 @@ def fps(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
         raise ValueError(f"xyz {tuple(xyz.shape)} must be (B, N, 3) with N in "
                          f"[1, {MAX_N}] and npoint={npoint} positive")
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
-    rc = _lib().iq_fps(xyz.data_ptr(), out.data_ptr(), B, N, npoint,
-                       stream(xyz))
+    with record_function("iq_fps"):
+        rc = _lib().iq_fps(xyz.data_ptr(), out.data_ptr(), B, N, npoint,
+                           stream(xyz))
     raise_on(rc, "iq_fps")
     LAUNCHES["fps"] += 1
     return out

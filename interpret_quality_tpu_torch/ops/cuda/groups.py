@@ -26,7 +26,8 @@ in, and the DensityNet scale (``density_scale``).
 
 A wrapper takes its plain version only for tensors on the CPU.  For CUDA
 tensors it launches its kernel or raises; there is no fallback.  Each launch
-adds one to ``LAUNCHES[name]``.
+adds one to ``LAUNCHES[name]`` and runs inside a profiler span named after
+its launcher (``iq_ball_mlp3``, ...).
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from ..geometry import (index_points, query_ball_point, sorted_topk_indices,
                         square_distance)
@@ -162,11 +164,12 @@ def fused_ball_mlp3(new_xyz: torch.Tensor, xyz: torch.Tensor,
     scratch = torch.empty(4 + C1 * C2 + C2 * C3 + (B * N if uf is None else 0),
                           dtype=torch.float32,
                           device=xyz.device)
-    rc = _lib().iq_ball_mlp3(new_xyz.data_ptr(), xyz.data_ptr(),
-                             None if uf is None else uf.data_ptr(),
-                             *[t.data_ptr() for t in w], out.data_ptr(),
-                             scratch.data_ptr(), B, S, N, k, C1, C2, C3,
-                             radius ** 2, stream(xyz))
+    with record_function("iq_ball_mlp3"):
+        rc = _lib().iq_ball_mlp3(new_xyz.data_ptr(), xyz.data_ptr(),
+                                 None if uf is None else uf.data_ptr(),
+                                 *[t.data_ptr() for t in w], out.data_ptr(),
+                                 scratch.data_ptr(), B, S, N, k, C1, C2, C3,
+                                 radius ** 2, stream(xyz))
     raise_on(rc, "iq_ball_mlp3")
     LAUNCHES["fused_ball_mlp3"] += 1
     return out
@@ -206,10 +209,11 @@ def knn_with_density(query: torch.Tensor, database: torch.Tensor,
     idx = torch.empty((B, S, k), dtype=torch.int32, device=query.device)
     den = torch.empty((B, S, k), dtype=torch.float32, device=query.device)
     dmax = torch.empty((B, S, 1), dtype=torch.float32, device=query.device)
-    rc = _lib().iq_knn_density(query.data_ptr(), database.data_ptr(),
-                               inv_density.data_ptr(), idx.data_ptr(),
-                               den.data_ptr(), dmax.data_ptr(), B, S, N, C, k,
-                               stream(query))
+    with record_function("iq_knn_density"):
+        rc = _lib().iq_knn_density(query.data_ptr(), database.data_ptr(),
+                                   inv_density.data_ptr(), idx.data_ptr(),
+                                   den.data_ptr(), dmax.data_ptr(), B, S, N,
+                                   C, k, stream(query))
     raise_on(rc, "iq_knn_density")
     LAUNCHES["knn_with_density"] += 1
     return idx, den, dmax
@@ -312,12 +316,14 @@ def fused_pointconv_sa(idx, den, dmax, new_xyz, u, xyz, csw, a2, b2, a3, b3,
     # both layers' weights in the order the kernel's fragments read them
     scratch = torch.empty(C1 * C2 + C2 * C3, dtype=torch.float32,
                           device=u.device)
-    rc = _lib().iq_pointconv_sa(idx.data_ptr(), ds.data_ptr(),
-                                new_xyz.data_ptr(), u.data_ptr(),
-                                xyz.data_ptr(), csw.data_ptr(),
-                                *[t.data_ptr() for t in w], packed.data_ptr(),
-                                out.data_ptr(), scratch.data_ptr(), B, S, N, K,
-                                C1, C2, C3, stream(u))
+    with record_function("iq_pointconv_sa"):
+        rc = _lib().iq_pointconv_sa(idx.data_ptr(), ds.data_ptr(),
+                                    new_xyz.data_ptr(), u.data_ptr(),
+                                    xyz.data_ptr(), csw.data_ptr(),
+                                    *[t.data_ptr() for t in w],
+                                    packed.data_ptr(), out.data_ptr(),
+                                    scratch.data_ptr(), B, S, N, K,
+                                    C1, C2, C3, stream(u))
     raise_on(rc, "iq_pointconv_sa")
     LAUNCHES["fused_pointconv_sa"] += 1
     return out
@@ -353,8 +359,10 @@ def gather_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"values {tuple(values.shape)} and idx "
                          f"{tuple(idx.shape)} disagree on B")
     out = torch.empty((B, S, K, F), dtype=torch.float32, device=values.device)
-    rc = _lib().iq_gather_rows(values.data_ptr(), idx.data_ptr(),
-                               out.data_ptr(), B, N, S * K, F, stream(values))
+    with record_function("iq_gather_rows"):
+        rc = _lib().iq_gather_rows(values.data_ptr(), idx.data_ptr(),
+                                   out.data_ptr(), B, N, S * K, F,
+                                   stream(values))
     raise_on(rc, "iq_gather_rows")
     LAUNCHES["gather_rows"] += 1
     return out

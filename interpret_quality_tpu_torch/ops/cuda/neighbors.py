@@ -14,7 +14,9 @@ wrapper                     replaces (interpret_quality_tpu/ops/pallas/)
 A wrapper takes its plain version only for tensors on the CPU.  For CUDA
 tensors it launches its kernel or raises; there is no fallback.  Each launch
 adds one to ``LAUNCHES[name]``, so a run can show that its main path went
-through the kernels.  ``knn`` and ``knn_gather_extrema`` select for the
+through the kernels, and runs inside a profiler span named after its
+launcher (``iq_knn``, ...), which a stage's ``--trace_dir`` trace shows.
+``knn`` and ``knn_gather_extrema`` select for the
 distinct query rows of a cloud only: a row that is a bit-for-bit copy of an
 earlier one (a masked coalition's collapsed regions) takes that row's
 result, which is what it would have selected.  ``gather_extrema`` has two
@@ -29,6 +31,7 @@ import functools
 from typing import Tuple
 
 import torch
+from torch.profiler import record_function
 
 from ..geometry import index_points, sorted_topk_indices, square_distance
 from . import build
@@ -99,8 +102,10 @@ def knn(query: torch.Tensor, database: torch.Tensor, k: int) -> torch.Tensor:
         raise ValueError(f"S={S} query rows per cloud (at most {MAX_QUERY_ROWS})")
     out = torch.empty((B, S, k), dtype=torch.int32, device=query.device)
     scratch = _distinct_rows_scratch(B, S, query.device)
-    rc = _lib().iq_knn(query.data_ptr(), database.data_ptr(), out.data_ptr(),
-                       scratch.data_ptr(), B, S, N, C, k, stream(query))
+    with record_function("iq_knn"):
+        rc = _lib().iq_knn(query.data_ptr(), database.data_ptr(),
+                           out.data_ptr(), scratch.data_ptr(), B, S, N, C, k,
+                           stream(query))
     raise_on(rc, "iq_knn")
     LAUNCHES["knn"] += 1
     return out
@@ -154,9 +159,10 @@ def _gather_extrema(idx: torch.Tensor, a: torch.Tensor, route: int
     _check_k(k, MAX_K)
     amax = torch.empty((B, S, F), dtype=torch.float32, device=a.device)
     amin = torch.empty_like(amax)
-    rc = _lib().iq_gather_extrema(idx.data_ptr(), a.data_ptr(),
-                                  amax.data_ptr(), amin.data_ptr(),
-                                  B, S, N, F, k, route, stream(a))
+    with record_function("iq_gather_extrema"):
+        rc = _lib().iq_gather_extrema(idx.data_ptr(), a.data_ptr(),
+                                      amax.data_ptr(), amin.data_ptr(),
+                                      B, S, N, F, k, route, stream(a))
     raise_on(rc, "iq_gather_extrema")
     LAUNCHES["gather_extrema"] += 1
     return amax, amin
@@ -208,10 +214,11 @@ def knn_gather_extrema(xs: torch.Tensor, a: torch.Tensor, k: int
     amax = torch.empty((B, N, F), dtype=torch.float32, device=a.device)
     amin = torch.empty_like(amax)
     scratch = _distinct_rows_scratch(B, N, xs.device)
-    rc = _lib().iq_knn_gather_extrema(xs.data_ptr(), a.data_ptr(),
-                                      amax.data_ptr(), amin.data_ptr(),
-                                      scratch.data_ptr(), B, N, C, F, k,
-                                      stream(xs))
+    with record_function("iq_knn_gather_extrema"):
+        rc = _lib().iq_knn_gather_extrema(xs.data_ptr(), a.data_ptr(),
+                                          amax.data_ptr(), amin.data_ptr(),
+                                          scratch.data_ptr(), B, N, C, F, k,
+                                          stream(xs))
     raise_on(rc, "iq_knn_gather_extrema")
     LAUNCHES["knn_gather_extrema"] += 1
     return amax, amin

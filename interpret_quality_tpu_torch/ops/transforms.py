@@ -1,5 +1,8 @@
 """Rigid-body and scale transforms of point clouds (counterpart of
-``interpret_quality_tpu/ops/transforms.py:12-52``)."""
+``interpret_quality_tpu/ops/transforms.py``).  Every transform is built
+from torch primitives, so autograd differentiates it in all its arguments
+(the reference's rotation has a 115-line hand-written backward,
+tools/final_util.py:287-401)."""
 from __future__ import annotations
 
 import torch
@@ -37,3 +40,33 @@ def rotation_matrix_xyz(angle_tuple: torch.Tensor) -> torch.Tensor:
 def rotate_xyz(x: torch.Tensor, angle_tuple: torch.Tensor) -> torch.Tensor:
     """Rotate a cloud by Euler angles: x @ R^T; x (..., N, 3), angles (3,)."""
     return torch.matmul(x, rotation_matrix_xyz(angle_tuple).T)
+
+
+def rot_angle_axis(x: torch.Tensor, angle: torch.Tensor, theta: torch.Tensor,
+                   phi: torch.Tensor) -> torch.Tensor:
+    """Rotate each cloud by ``angle`` about the axis of spherical angles
+    (theta, phi), v = (sin t cos p, sin t sin p, cos t): the Rodrigues
+    matrix, term by term as the JAX package builds it.
+
+    Args:
+      x: (B, N, 3); angle, theta, phi: (B,).
+    Returns:
+      (B, N, 3) rotated clouds.
+    """
+    ca = torch.cos(angle)
+    sa = torch.sin(angle)
+    ax = torch.sin(theta) * torch.cos(phi)
+    ay = torch.sin(theta) * torch.sin(phi)
+    az = torch.cos(theta)
+    one_m_ca = 1.0 - ca
+    row0 = torch.stack([ca + ax * ax * one_m_ca,
+                        ax * ay * one_m_ca - az * sa,
+                        ax * az * one_m_ca + ay * sa], dim=-1)
+    row1 = torch.stack([ax * ay * one_m_ca + az * sa,
+                        ca + ay * ay * one_m_ca,
+                        ay * az * one_m_ca - ax * sa], dim=-1)
+    row2 = torch.stack([ax * az * one_m_ca - ay * sa,
+                        ay * az * one_m_ca + ax * sa,
+                        ca + az * az * one_m_ca], dim=-1)
+    rot = torch.stack([row0, row1, row2], dim=-2)          # (B, 3, 3)
+    return torch.einsum("bij,bnj->bni", rot, x)

@@ -2,7 +2,9 @@
 (counterpart of ``interpret_quality_tpu/pipeline.py``)."""
 from __future__ import annotations
 
+import copy
 import os
+from typing import Optional, Sequence
 
 import torch
 
@@ -13,6 +15,7 @@ from .data.datasets import (SyntheticClouds, get_folder_name_list,
 from .models import build_model, make_forward_fn
 from .models.checkpoint import load_checkpoint
 from .models.common import resolve_device
+from .parallel import coalition_split
 
 
 def load_frozen_model(cfg: ExperimentConfig, allow_random_init: bool = False):
@@ -54,7 +57,25 @@ def load_frozen_model(cfg: ExperimentConfig, allow_random_init: bool = False):
     return model, make_forward_fn(model), device
 
 
-def make_engine(cfg: ExperimentConfig, forward, device) -> ShapleyEngine:
+def split_forward(forward, device, coalition_devices: Optional[Sequence] = None):
+    """(forward, device) of the engines: the frozen model's ``forward`` on
+    ``device`` as it is, or, given ``coalition_devices``
+    (``parallel.make_mesh``), its coalition split over them, one replica of
+    the model per device, the logits on the first."""
+    if not coalition_devices:
+        return forward, device
+    model = forward.model
+    split = coalition_split(
+        lambda d: make_forward_fn(copy.deepcopy(model).to(d)),
+        coalition_devices)
+    return split, split.device
+
+
+def make_engine(cfg: ExperimentConfig, forward, device,
+                coalition_devices: Optional[Sequence] = None) -> ShapleyEngine:
+    """The Shapley engine of ``forward``, split over ``coalition_devices``
+    where given (``split_forward``)."""
+    forward, device = split_forward(forward, device, coalition_devices)
     return ShapleyEngine(forward, num_regions=cfg.num_regions,
                          softmax_type=cfg.softmax_type,
                          batch_orders=min(cfg.shapley_batch_size,

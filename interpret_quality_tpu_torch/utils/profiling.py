@@ -1,13 +1,17 @@
-"""Stage timing.
+"""Stage timing and tracing.
 
 ``StageTimer`` prints one JSON line per stage with the raw item count beside
 the seconds, so aggregators sum items directly instead of multiplying back
 through a rounded rate.  Stages end by copying their results to the host,
 which waits for the device, so the wall clock covers the device work.
+``device_trace`` wraps a stage's device work in a ``torch.profiler`` trace.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
+import re
 import time
 from typing import Optional
 
@@ -44,3 +48,25 @@ class StageTimer:
         if self.printer is not None:
             self.printer(json.dumps(rec))
         return False
+
+
+@contextlib.contextmanager
+def device_trace(trace_dir: Optional[str], name: str):
+    """A ``torch.profiler`` trace of the block (CPU activities, and CUDA
+    where a card is present) written to ``<trace_dir>/<name>.pt.trace.json``
+    as a Chrome trace, one file per call; a no-op without ``trace_dir``."""
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(
+        trace_dir, re.sub(r"[^\w.-]", "_", name) + ".pt.trace.json"))

@@ -510,3 +510,120 @@ def test_train_steps_launch_the_index_kernels(cuda, name, kernel, per_step):
     launched = {**nb.LAUNCHES, **fp.LAUNCHES, **gr.LAUNCHES}
     assert launched.pop(kernel) == per_step
     assert all(v == 0 for v in launched.values()), launched
+
+
+# ------------------------------------------------------ adversarial, split
+@pytest.mark.cuda
+def test_adv_step_launches_knn_only_and_keeps_the_model_in_training(cuda):
+    """An adversarial step on the card: the BIM attacks and both train
+    passes take GCNN's graph from kernel 1, 7 + 3 + 2 launches, and no
+    other kernel; the parameters move, the model stays in training."""
+    from interpret_quality_tpu_torch.models import build_model
+    from interpret_quality_tpu_torch.train import adversarial as adv
+    from interpret_quality_tpu_torch.train.trainer import make_optimizer
+    x, labels = _grid_clouds(256, 2)
+    torch.manual_seed(0)
+    model = build_model("gcnn", 10, 20).to(cuda).train()
+    optimizer, scheduler, _ = make_optimizer(model, "gcnn_adv", 1, 1)
+    before = model.linear3.weight.detach().clone()
+    step = adv.make_adv_step(model, optimizer, scheduler,
+                             torch.Generator(device=cuda).manual_seed(0))
+    for counter in (nb, fp, gr):
+        counter.reset_launches()
+    loss, p1, p2 = step(x.to(cuda), labels.to(cuda), TRAIN_BATCH)
+    torch.cuda.synchronize()
+    launched = {**nb.LAUNCHES, **fp.LAUNCHES, **gr.LAUNCHES}
+    assert launched.pop("knn") == adv.ROT_ADV_ITER + adv.TRANS_ADV_ITER + 2
+    assert all(v == 0 for v in launched.values()), launched
+    assert model.training and torch.isfinite(loss)
+    assert p1.shape == p2.shape == (TRAIN_BATCH,)
+    assert not torch.equal(model.linear3.weight, before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dgcnn", "pointnet2"])
+def test_virtual_split_is_the_per_part_forward(cuda, name):
+    """A split over [cuda, cuda]: bit-equal to the unsplit forward of the
+    same parts, plan path included."""
+    from interpret_quality_tpu_torch.models import build_model, make_forward_fn
+    from interpret_quality_tpu_torch.pipeline import split_forward
+    torch.manual_seed(0)
+    forward = make_forward_fn(build_model(name, 10, 20).to(cuda))
+    split, device = split_forward(forward, cuda, [cuda, cuda])
+    x = _cloud(cuda, 7, 256, 3)
+    parts = torch.tensor_split(x, 2)
+    with torch.inference_mode():
+        assert torch.equal(split(x), torch.cat([forward(p) for p in parts]))
+        plan = split.plan_fn(x)
+        assert torch.equal(split.apply_plan_fn(x, plan), torch.cat(
+            [forward.apply_plan_fn(p, q) for p, q in zip(parts, plan)]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dgcnn", "pointnet2"])
+def test_split_over_the_visible_cards(cuda, name):
+    """The split over every visible card (needs two or more): each part
+    runs on its own card, with the kernels launched in that card's
+    context, and comes back to the first card bit-equal to the unsplit
+    forward of the same part there, plan path included."""
+    from interpret_quality_tpu_torch.models import build_model, make_forward_fn
+    from interpret_quality_tpu_torch.parallel import make_mesh
+    from interpret_quality_tpu_torch.pipeline import split_forward
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards")
+    devices = make_mesh(n)
+    torch.manual_seed(0)
+    forward = make_forward_fn(build_model(name, 10, 20).to(devices[0]))
+    split, device = split_forward(forward, devices[0], devices)
+    assert device == devices[0]
+    assert [next(r.model.parameters()).device for r in split.replicas] == \
+        devices
+    x = _cloud(devices[0], 2 * n + 1, 256, 3)
+    parts = torch.tensor_split(x, n)
+    with torch.inference_mode():
+        got = split(x)
+        plan = split.plan_fn(x)
+        got_plan = split.apply_plan_fn(x, plan)
+        leaves = [p if name == "dgcnn" else p[0] for p in plan]
+        assert [t.device for t in leaves] == devices  # copied to each card
+        want = torch.cat([forward(p) for p in parts])
+        want_plan = torch.cat([forward.apply_plan_fn(p, forward.plan_fn(p))
+                               for p in parts])
+    torch.cuda.synchronize()
+    assert got.device == devices[0]
+    assert torch.equal(got, want) and torch.equal(got_plan, want_plan)
+
+
+@pytest.mark.cuda
+def test_cli_shapley_init_over_the_visible_cards(cuda, tmp_path, monkeypatch):
+    """cli.shapley_value --mesh_devices <all visible cards> (needs two or
+    more) against the run on one card: GCNN's estimates within f32
+    rounding (the parts' dense layers sum in another order for another row
+    count), efficient, and every card busy."""
+    import numpy as np
+
+    from interpret_quality_tpu_torch.cli import shapley_value
+    from interpret_quality_tpu_torch.config import ExperimentConfig
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards")
+    monkeypatch.chdir(tmp_path)
+    out = []
+    for flag in ("0", str(n)):
+        root = str(tmp_path / f"ck{flag}")
+        shapley_value.main(["--model", "gcnn", "--synthetic",
+                            "--allow_random_init", "--checkpoints_root", root,
+                            "--num_points", "1024", "--num_samples_save",
+                            "20", "--samples", "0", "--mesh_devices", flag])
+        folder = ExperimentConfig(model="gcnn", checkpoints_root=root
+                                  ).exp_folder + "synthetic_00/"
+        out.append([np.load(folder + f) for f in ("region_sv_all.npy",
+                                                   "norm_factor.npy")])
+        if flag != "0":
+            assert all(torch.cuda.max_memory_allocated(i) > 0
+                       for i in range(n))
+    (sv1, nf1), (svn, nfn) = out
+    np.testing.assert_allclose(svn, sv1, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(nfn, nf1, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(svn.sum(1), nfn, rtol=1e-3, atol=1e-4)

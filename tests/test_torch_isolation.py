@@ -65,7 +65,9 @@ def test_importing_every_port_module_loads_no_jax():
         "cli.smoothness_enum", "data.native", "data.augment",
         "models.checkpoint", "results.tables", "results.plots",
         "results.visualization", "cli.result", "cli.plot_interaction",
-        "train", "train.losses", "train.trainer", "cli.train")
+        "train", "train.losses", "train.trainer", "cli.train",
+        "train.adversarial", "cli.train_adv", "parallel", "parallel.mesh",
+        "ops.transforms")
     } <= set(_port_modules())
 
 
@@ -109,6 +111,35 @@ def test_cli_train_asks_for_cuda_and_raises_without_it(tmp_path,
                     "--test_samples", "4", "--checkpoints_root",
                     str(tmp_path / "ck")])
     assert not os.listdir(tmp_path)        # nothing ran on the CPU instead
+
+
+def test_cli_train_adv_asks_for_cuda_and_raises_without_it(tmp_path,
+                                                           monkeypatch):
+    """cli.train_adv runs on CUDA unless --device cpu is given, and raises
+    before it writes anything when there is no card."""
+    from interpret_quality_tpu_torch.cli import train_adv
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_adv.main(["--synthetic", "--num_points", "64", "--epochs", "1",
+                        "--allow_random_init", "--checkpoints_root",
+                        str(tmp_path / "ck")])
+    assert not os.listdir(tmp_path)        # nothing ran on the CPU instead
+
+
+def test_make_mesh_asks_for_cuda_and_raises_without_it(monkeypatch):
+    """A split over CUDA devices that are not there raises: it never
+    shrinks and never moves to the CPU."""
+    from interpret_quality_tpu_torch.cli.common import (base_parser,
+                                                        split_from_args)
+    from interpret_quality_tpu_torch.parallel import make_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: make_mesh(), lambda: make_mesh(2),
+                 lambda: make_mesh(devices=["cuda:0", "cuda:0"]),
+                 lambda: split_from_args(base_parser("t").parse_args(
+                     ["--mesh_devices", "2"]))):
+        with pytest.raises(RuntimeError, match="0 are visible|0 CUDA"):
+            call()
 
 
 def test_config_defaults_to_cuda():

@@ -21,6 +21,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  takes and the clouds the card holds at once;
                knn_with_density (PointConv SA1 k=32, SA2 k=64): selections
                  up to near ties, densities bit-equal where they agree;
+               knn and knn_with_density also on both routes forced (xyz,
+                 tiled), which must be bit-equal, and on two worst-case
+                 clouds (every point one of 8 exact copies; all regions but
+                 one on the centre), each route timed;
                fused_ball_mlp3 (the six PointNet++ MSG branches) and
                  fused_pointconv_sa (PointConv SA1/SA2): rtol 1e-4 /
                  atol 1e-5, a ball-query row excused only where a point lies
@@ -407,15 +411,43 @@ def selection_gap(query, db, idx_k, idx_p):
     return differ, sets_differ, max_abs, max_rel
 
 
+def route_outputs(run, what):
+    """run(route) on both kNN routes forced (xyz, tiled): their outputs
+    must be bit-equal.  Returns the xyz route's."""
+    import torch
+    from interpret_quality_tpu_torch.ops.cuda.neighbors import KNN_ROUTES
+    xyz, tiled = (run(KNN_ROUTES[name]) for name in ("xyz", "tiled"))
+    if not all(torch.equal(a, b) for a, b in zip(xyz, tiled)):
+        raise AssertionError(f"{what}: the xyz and tiled routes differ")
+    return xyz
+
+
+def route_times(run):
+    """ms of run(route) on each kNN route forced."""
+    from interpret_quality_tpu_torch.ops.cuda.neighbors import KNN_ROUTES
+    return {name: cuda_ms(lambda: run(KNN_ROUTES[name]))
+            for name in ("xyz", "tiled")}
+
+
 def check_knn(nb, masked, device):
+    """Kernel 1 at GCNN's graph: the route the shape takes (the main path's)
+    and both routes forced, bit-equal to each other, so the selection gap
+    against knn_plain (within REL_LIMIT) holds for each; on an
+    exact-duplicate cloud each route equals knn_plain."""
     import torch
     g = torch.Generator(device="cpu").manual_seed(0)
     base = torch.randn(33, N // 8, 3, generator=g)
     dup = base.repeat(1, 8, 1).contiguous().to(device)     # exact ties
-    if not torch.equal(nb.knn(dup, dup, K), nb.knn_plain(dup, dup, K)):
-        raise AssertionError("knn: indices differ from knn_plain on an "
-                             "exact-duplicate cloud")
+    want = nb.knn_plain(dup, dup, K)
+    for name, route in nb.KNN_ROUTES.items():
+        if not torch.equal(nb._knn(dup, dup, K, route), want):
+            raise AssertionError(f"knn ({name} route): indices differ from "
+                                 "knn_plain on an exact-duplicate cloud")
     idx = nb.knn(masked, masked, K)
+    if not torch.equal(route_outputs(
+            lambda r: (nb._knn(masked, masked, K, r),), "knn")[0], idx):
+        raise AssertionError("knn: the route the shape takes differs from "
+                             "the same route forced")
     torch.cuda.synchronize()
     differ_rows, rows, max_abs, max_rel = 0, 0, 0.0, 0.0
     for sl in chunks(masked.shape[0]):
@@ -436,12 +468,17 @@ def check_knn(nb, masked, device):
     bound, by = bound_ms(B * N * C * 4 * 2 + B * N * K * 4,
                          queries * N * (2 * C + 3))
     detail = {"kernel": "knn", "B": B, "N": N, "C": C, "k": K,
+              "route": nb.knn_route(N, C, K), "ms": t_k, "plain_ms": t_p,
+              "bound_ms": bound,
+              "route_ms": route_times(lambda r: nb._knn(masked, masked, K, r)),
+              "routes_bit_equal": True,
               "distinct_query_rows": queries / (B * N),
               "identical_index_rows": 1 - differ_rows / rows,
               "max_rel_selected_dist_err": max_rel,
               "duplicate_cloud_indices_equal": True}
     return idx, dict(max_abs_err=max_abs, ms=t_k, plain_ms=t_p,
-                     bound_ms=bound, bound_by=by), [detail]
+                     bound_ms=bound, bound_by=by,
+                     main_path_route=detail["route"]["route"]), [detail]
 
 
 def check_gather(nb, layers, idx):
@@ -734,7 +771,9 @@ def check_pointconv_kernels(gr, fp, model, masked):
 
     Kernel 6 against knn_with_density_plain on every chunk: selected
     distances within REL_LIMIT of |x|^2 (selection_gap), den bit-equal
-    where the index rows are, dmax where the sets are.  Kernel 7 takes the
+    where the index rows are, dmax where the sets are; both of its routes
+    forced (xyz, tiled) bit-equal in all three outputs, so each is held
+    the same way, and timed apart.  Kernel 7 takes the
     kernel-6 indices; on the same indices it must stay within rtol 1e-4 /
     atol 1e-5 of fused_pointconv_sa_plain on every row (its first chunk is
     also compared with the plain version on the emulated TF32 split)."""
@@ -744,7 +783,7 @@ def check_pointconv_kernels(gr, fp, model, masked):
         pointconv_sa_3xtf32)
     from interpret_quality_tpu_torch.ops.geometry import (compute_density,
                                                           index_points)
-    k6 = dict(ms=0.0, plain=0.0, ops=0.0, nbytes=0.0, max_abs=0.0)
+    k6 = dict(ms=0.0, plain=0.0, ops=0.0, nbytes=0.0, max_abs=0.0, routes=[])
     k7 = dict(ms=0.0, plain=0.0, ops=0.0, mops=0.0, f32_ops=0.0, nbytes=0.0,
               max_abs=0.0)
     details = []
@@ -754,6 +793,12 @@ def check_pointconv_kernels(gr, fp, model, masked):
         new_xyz = index_points(xyz, fp.fps(xyz, sa.npoint))
         k = sa.nsample
         idx, den, dmax = gr.knn_with_density(new_xyz, xyz, inv, k)
+        forced = route_outputs(lambda r: gr._knn_with_density(
+            new_xyz, xyz, inv, k, r), f"knn_with_density sa{level + 1}")
+        if not all(torch.equal(a, b) for a, b in zip(forced, (idx, den, dmax))):
+            raise AssertionError("knn_with_density: the route the shape takes "
+                                 "differs from the same route forced")
+        del forced
         torch.cuda.synchronize()
         differ_rows = set_rows = rows = 0
         gap_abs = gap_rel = 0.0
@@ -781,13 +826,22 @@ def check_pointconv_kernels(gr, fp, model, masked):
             reps=1)
         B, S, n = new_xyz.shape[0], new_xyz.shape[1], xyz.shape[1]
         b_ = (B * S * 3 + B * n * 3 + B * n + 2 * B * S * k + B * S) * 4
-        o_ = B * S * n * (2 * 3 + 3)
+        # the work the data needs: the xyz route (the shape's) selects for
+        # the distinct centres only, a repeated one takes its original's result
+        queries = distinct_row_count(new_xyz)
+        o_ = queries * n * (2 * 3 + 3)
         details.append({"kernel": "knn_with_density", "level": level + 1,
-                        "B": B, "S": S, "N": n, "k": k, "ms": t_k,
+                        "B": B, "S": S, "N": n, "k": k,
+                        "route": gr.knn_density_route(n, 3, k), "ms": t_k,
                         "plain_ms": t_p, "bound_ms": bound_ms(b_, o_)[0],
+                        "route_ms": route_times(lambda r: gr._knn_with_density(
+                            new_xyz, xyz, inv, k, r)),
+                        "routes_bit_equal": True,
+                        "distinct_query_rows": queries / (B * S),
                         "identical_index_rows": 1 - differ_rows / rows,
                         "rows_with_other_neighbour_set": set_rows / rows,
                         "max_rel_selected_dist_err": gap_rel})
+        k6["routes"].append(details[-1]["route"]["route"])
         k6["ms"] += t_k
         k6["plain"] += t_p
         k6["nbytes"] += b_
@@ -868,8 +922,67 @@ def check_pointconv_kernels(gr, fp, model, masked):
                    bound_ms=bound, bound_by=by)
         if "f32_ops" in k:
             out["bound_f32_cores_ms"] = bound_ms(k["nbytes"], k["f32_ops"])[0]
+        if "routes" in k:
+            out["main_path_route"] = k["routes"]
         return out
     return summary(k6), summary(k7), details
+
+
+def worst_case_clouds(masked):
+    """The selection's two worst cases at the main path's size: every point
+    one of 8 exact copies ("duplicate"), and clouds with all regions but one
+    collapsed on the centre ("one_region": rows 1, 34, ... of the masked
+    batch, cycled to its B clouds), where hundreds of candidates tie."""
+    import torch
+    B = masked.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(2)
+    dup = torch.randn(B, N // 8, 3, generator=g).repeat(1, 8, 1)
+    one = masked[1::R + 1]
+    one = one.repeat(-(-B // one.shape[0]), 1, 1)[:B]
+    return {"duplicate": dup.contiguous().to(masked.device),
+            "one_region": one.contiguous()}
+
+
+def check_selection_worst_cases(nb, gr, fp, model, masked):
+    """Kernels 1 and 6 on worst_case_clouds: kernel 1 at GCNN's graph (k =
+    K), kernel 6 at PointConv's two levels (FPS centres of the cloud, the
+    model's k and bandwidths).  Both routes forced must be bit-equal, and
+    their indices within REL_LIMIT of knn_plain's by selection_gap on every
+    chunk; each route is timed."""
+    import torch
+    from interpret_quality_tpu_torch.ops.geometry import (compute_density,
+                                                          index_points)
+    details = []
+    for cloud, x in worst_case_clouds(masked).items():
+        B = x.shape[0]
+        levels, xyz = [("knn", None, x, x, None, K)], x
+        for level, sa in enumerate((model.sa1, model.sa2)):
+            inv = 1.0 / compute_density(xyz, sa.bandwidth)
+            new_xyz = index_points(xyz, fp.fps(xyz, sa.npoint))
+            levels.append(("knn_with_density", level + 1, new_xyz, xyz, inv,
+                           sa.nsample))
+            xyz = new_xyz
+        for kernel, level, q, db, inv, k in levels:
+            def run(route):
+                if inv is None:
+                    return (nb._knn(q, db, k, route),)
+                return gr._knn_with_density(q, db, inv, k, route)
+            idx = route_outputs(run, f"{kernel} on the {cloud} cloud")[0]
+            gap = max(selection_gap(q[sl], db[sl], idx[sl],
+                                    nb.knn_plain(q[sl], db[sl], k))[3]
+                      for sl in chunks(B))
+            if gap > REL_LIMIT:
+                raise AssertionError(f"{kernel} on the {cloud} cloud: selected "
+                                     f"distances differ by {gap} relative to "
+                                     f"|x|^2 (limit {REL_LIMIT})")
+            details.append({"kernel": kernel, "level": level, "cloud": cloud,
+                            "B": B, "S": q.shape[1], "N": db.shape[1], "k": k,
+                            "distinct_query_rows":
+                                distinct_row_count(q) / (B * q.shape[1]),
+                            "routes_bit_equal": True,
+                            "max_rel_selected_dist_err": gap,
+                            "route_ms": route_times(run)})
+    return details
 
 
 def pointconv_forward_split(model, masked):
@@ -2421,9 +2534,11 @@ def main() -> int:
         pconv = seeded_model("pointconv", device)
         k6, k7, d67 = check_pointconv_kernels(gr, fp, pconv, masked)
         torch.cuda.empty_cache()
+        d16 = check_selection_worst_cases(nb, gr, fp, pconv, masked)
+        torch.cuda.empty_cache()
         split = pointconv_forward_split(pconv, masked)
         del pconv
-    for d in d1 + d2 + d3 + d4 + d5 + d67 + [d8]:
+    for d in d1 + d2 + d3 + d4 + d5 + d67 + d16 + [d8]:
         emit({"phase": "kernel_shape", **d})
     emit({"phase": "pointconv_forward_split", **split})
     torch.cuda.empty_cache()

@@ -10,7 +10,7 @@
 //                     fused_ball_mlp3 -> _ball_mlp3_kernel
 //   iq_knn_density    kNN over xyz, each neighbour's inverse density and the
 //                     per-query max
-//                     replaces groups.py knn_with_density -> _knn_den_kernel
+//                     replaces groups.py:337 knn_with_density -> _knn_den_kernel
 //   iq_pointconv_sa   the PointConv SA grouped compute: gathered layer-1 rows,
 //                     layers 2-3, density scale, WeightNet on exact offsets,
 //                     and the contraction over the neighbours
@@ -20,8 +20,8 @@
 //
 // None of the TPU workarounds are carried over: rows are gathered directly
 // in f32 (no one-hot matmuls, no bf16 hi/lo planes) and the kNN keeps exact
-// f32 distances with ties to the lowest index (select_knn, shared with
-// neighbors.cu).  iq_ball_mlp3 and iq_pointconv_sa run their layers 2 and 3
+// f32 distances with ties to the lowest index (the xyz route of knn_xyz.cuh
+// or the tiled select_knn, both shared with neighbors.cu).  iq_ball_mlp3 and iq_pointconv_sa run their layers 2 and 3
 // on the tensor cores with a three-product TF32 split that keeps f32
 // accuracy, through one piece of code (order_weights_kernel, WeightRing,
 // mma_layer, mlp_layers23; see iq_ball_mlp3); each brings its own front (a
@@ -36,6 +36,7 @@
 // iq_gather_rows must lie in [0, N); neither checks.
 
 #include "knn_select.cuh"
+#include "knn_xyz.cuh"
 
 namespace {
 
@@ -574,11 +575,15 @@ ball_mlp3_kernel(const float* __restrict__ new_xyz, const float* __restrict__ xy
 // ---------------------------------------------------------- iq_knn_density
 // Replaces knn_with_density -> _knn_den_kernel (ops/pallas/groups.py:290-364).
 //
-// What bounds it on H100: the selection, as in iq_knn (operations).  The
-// selection is select_knn itself, templated on the list length (k = 32 at
-// PointConv SA1, 64 at SA2), so the indices are those of iq_knn bit for bit;
-// a warp per query then reads its neighbours' inverse densities from device
-// memory and reduces their max.
+// What bounds it on H100: at SA1 the selection's operations, 2 C + 3 a
+// distance, at SA2 the bytes of its outputs: 0.114 ms a PointConv forward
+// over the distinct centres (67 TFLOP/s, 3.35 TB/s).  Two routes,
+// chosen by shape alone as iq_knn's (knn_route): the xyz route
+// (knn_density_xyz_kernel, the selection of knn_xyz.cuh) and the tiled one
+// (knn_density_kernel, select_knn itself), each templated on the list
+// length (k = 32 at PointConv SA1, 64 at SA2), so the indices are those of
+// iq_knn bit for bit.  A warp per query then reads its neighbours' inverse
+// densities from device memory and reduces their max.
 template <int KL>
 __global__ void __launch_bounds__(kSelThreads, KL == 1 ? 2 : 1)
 knn_density_kernel(const float* __restrict__ query, const float* __restrict__ db,
@@ -607,6 +612,64 @@ knn_density_kernel(const float* __restrict__ query, const float* __restrict__ db
     for (int d = 16; d > 0; d >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, d));
     if (lane == 0) odmax[(size_t)b * S + q0 + r] = mx;
   }
+}
+
+// The xyz route: a block stages one cloud's database and runs kXyzQueries
+// of its distinct query rows, a warp each (knn_xyz.cuh); FPS repeats a
+// centre once a masked cloud has fewer distinct points than centres, and a
+// copy takes its original's result (copy_duplicate_rows).  rows == nullptr:
+// every query row, in order.
+template <int KL, int M, int NPL>
+__global__ void __launch_bounds__(kXyzThreads, 4)
+knn_density_xyz_kernel(const float* __restrict__ query, const float* __restrict__ db,
+                       const float* __restrict__ invden, const int* __restrict__ rows,
+                       const int* __restrict__ nrows, int32_t* __restrict__ oidx,
+                       float* __restrict__ oden, float* __restrict__ odmax, int S, int N,
+                       int C, int k, int nqb) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.x / nqb;
+  const int q0 = (blockIdx.x - b * nqb) * kXyzQueries;
+  const int ns = rows ? nrows[b] : S;         // distinct query rows of this cloud
+  if (q0 >= ns) return;
+  float* buffers;
+  const XyzCloud cl = xyz_stage(db + (size_t)b * N * C, N, C, smem, &buffers);
+  const float* iv = invden + (size_t)b * N;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int qend = min(q0 + kXyzQueries, ns);
+  for (int r = q0 + warp; r < qend; r += kXyzWarps) {
+    const size_t row = (size_t)b * S + (rows ? rows[(size_t)b * S + r] : r);
+    float vd[KL];
+    int vi[KL];
+    xyz_select<KL, M, NPL>(cl, query + row * C, k, buffers + warp * 2 * kXyzBuffer, lane, vd,
+                           vi);
+    float mx = -CUDART_INF_F;
+#pragma unroll
+    for (int s = 0; s < KL; ++s) {
+      const int e = 32 * s + lane;
+      if (e < k) {
+        const float v = __ldg(iv + vi[s]);
+        oidx[row * k + e] = vi[s];
+        oden[row * k + e] = v;
+        mx = fmaxf(mx, v);
+      }
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, d));
+    if (lane == 0) odmax[row] = mx;
+  }
+}
+
+// The instance of knn_density_xyz_kernel for (N, k): the list's registers a
+// lane (k <= 32: 1, else 2), the keys a lane hands the first list and the
+// candidates it keeps in registers.
+using KnnDensityXyz = void (*)(const float*, const float*, const float*, const int*,
+                               const int*, int32_t*, float*, float*, int, int, int, int, int);
+inline KnnDensityXyz knn_density_xyz_launcher(int N, int k) {
+  const bool small = xyz_small(N);
+  if (k > 32) return small ? knn_density_xyz_kernel<2, 2, 16> : knn_density_xyz_kernel<2, 2, 32>;
+  if (xyz_deep(k))
+    return small ? knn_density_xyz_kernel<1, 2, 16> : knn_density_xyz_kernel<1, 2, 32>;
+  return small ? knn_density_xyz_kernel<1, 1, 16> : knn_density_xyz_kernel<1, 1, 32>;
 }
 
 // --------------------------------------------------------- iq_pointconv_sa
@@ -1037,15 +1100,40 @@ int iq_ball_mlp3(const float* new_xyz, const float* xyz, const float* uf, const 
   return cudaGetLastError();
 }
 
+// route: 0 chooses by shape (knn_route), kXyzRoute or kTiledRoute forces
+// one (a forced xyz route on a shape it does not take is refused).
+// scratch: B * (2 * S + 1) ints of device memory (see DistinctRows), with
+// which the xyz route selects for the distinct query rows only; nullptr
+// (or S > kMaxDistinctRows): for every row.
 int iq_knn_density(const float* query, const float* db, const float* invden, int32_t* idx,
-                   float* den, float* dmax, int B, int S, int N, int C, int k,
-                   void* stream) {
+                   float* den, float* dmax, int* scratch, int B, int S, int N, int C, int k,
+                   int route, void* stream) {
   if (B <= 0 || S <= 0) return cudaSuccess;
-  if (k < 1 || k > kMaxDensityK || k > N || C < 1) return cudaErrorInvalidValue;
-  const int nqb = (S + kQueries - 1) / kQueries;
-  const dim3 grid((unsigned)B * nqb);
+  if (k < 1 || k > kMaxDensityK || k > N || C < 1 || route < 0 || route > kTiledRoute)
+    return cudaErrorInvalidValue;
+  if (route == 0) route = knn_route(N, C);
+  if (route == kXyzRoute && !xyz_fits(N, C)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
+  if (route == kXyzRoute) {
+    const size_t smem = xyz_smem_bytes(N, C);
+    const int nqb = (S + kXyzQueries - 1) / kXyzQueries;
+    const bool distinct = scratch != nullptr && S <= kMaxDistinctRows;
+    const DistinctRows d(scratch, B, S);
+    if (distinct && (err = distinct_rows(query, d, B, S, C, s)) != cudaSuccess) return err;
+    const KnnDensityXyz kernel = knn_density_xyz_launcher(N, k);
+    if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<(unsigned)B * nqb, kXyzThreads, smem, s>>>(
+        query, db, invden, distinct ? d.rows : nullptr, distinct ? d.nrows : nullptr, idx, den,
+        dmax, S, N, C, k, nqb);
+    if ((err = cudaGetLastError()) != cudaSuccess || !distinct) return err;
+    if ((err = copy_duplicate_rows(d, reinterpret_cast<float*>(idx), den, B, S, k, s)) !=
+        cudaSuccess)
+      return err;
+    return copy_duplicate_rows(d, dmax, nullptr, B, S, 1, s);
+  }
+  const int nqb = (S + kQueries - 1) / kQueries;
+  const dim3 grid((unsigned)B * nqb);
   if (k <= 32) {
     const size_t smem = select_smem_floats(1) * sizeof(float);
     if ((err = prepare(knn_density_kernel<1>, smem)) != cudaSuccess) return err;
@@ -1058,6 +1146,19 @@ int iq_knn_density(const float* query, const float* db, const float* invden, int
                                                           S, N, C, k, nqb);
   }
   return cudaGetLastError();
+}
+
+// The route iq_knn_density takes for (N, C, k), for the record (it
+// launches nothing): info as iq_knn_route's.
+int iq_knn_density_route(int N, int C, int k, int* info) {
+  if (k < 1 || k > kMaxDensityK || k > N || C < 1) return cudaErrorInvalidValue;
+  info[0] = knn_route(N, C);
+  if (info[0] == kXyzRoute)
+    return kernel_info(knn_density_xyz_launcher(N, k), kXyzThreads, xyz_smem_bytes(N, C), info);
+  return k <= 32 ? kernel_info(knn_density_kernel<1>, kSelThreads,
+                               select_smem_floats(1) * sizeof(float), info)
+                 : kernel_info(knn_density_kernel<2>, kSelThreads,
+                               select_smem_floats(2) * sizeof(float), info);
 }
 
 // scratch: C1*C2 + C2*C3 floats of device memory on a 16-byte boundary (both

@@ -1,24 +1,32 @@
 // Exact kNN selection shared by the neighbour kernels (neighbors.cu) and
-// the PointConv kNN-with-density kernel (groups.cu).
+// the PointConv kNN-with-density kernel (groups.cu): the tiled route.
+// Clouds of at most 4 channels whose database fits shared memory take the
+// xyz route instead (knn_xyz.cuh), which returns the same indices.
 //
 // Selection semantics are those of a stable ascending sort of the distances:
 // ascending squared distance (|q|^2 - 2 q.d) + |d|^2 in f32, ties to the
 // lowest database index.  Masked coalitions collapse whole regions onto the
 // cloud centre, so exact ties are the common case.  Every kernel that selects
-// neighbours calls select_knn, so their indices agree bit for bit.
+// neighbours calls select_knn or xyz_select, so their indices agree bit for
+// bit.
 //
-// The tie rule rests on two things, which any change here must keep:
+// The tie rule rests on two things:
 //   1. a (query, database row) distance is one fixed instruction sequence
 //      (an fmaf chain over the channels in ascending order, from 0), so
 //      identical database rows get bit-identical distances to a query
 //      wherever they sit in a tile, and a point's distance to itself is
-//      exactly 0;
-//   2. candidates reach a query's sorted list in ascending index and are
-//      inserted behind every entry that is <= them, after a strict '<'
-//      against the k-th entry (or an earlier, larger value of it: the list
-//      is sorted over all its lanes, so a candidate let through in error
-//      lands behind entry k - 1), so an equal distance never overtakes an
-//      earlier index.
+//      exactly 0.  Both routes rest on it: they compute a distance by the
+//      same instructions, so their distances, and then their indices, are
+//      bit-equal;
+//   2. on the tiled route (select_knn), the order of arrival: candidates
+//      reach a query's sorted list in ascending index and are inserted
+//      behind every entry that is <= them, after a strict '<' against the
+//      k-th entry (or an earlier, larger value of it: the list is sorted
+//      over all its lanes, so a candidate let through in error lands behind
+//      entry k - 1), so an equal distance never overtakes an earlier index.
+//      The xyz route does not rest on the order of arrival (its lanes hold
+//      candidates interleaved): it orders candidates by the key (distance,
+//      index), compared lexicographically, which gives the same order.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -108,16 +116,32 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__
 // copy_duplicate_rows_kernel hands the results to the copies.
 //
 // One block per cloud: first[b, n] = the lowest row of x[b] (S rows of C
-// floats) with the bits of row n, found through a hash of the row and checked
-// on the whole row; rows[b, 0..nrows[b]) lists the rows that are their own
-// first copy, ascending.  Shared memory: S unsigned.
+// floats) with the bits of row n, found through an open-addressing hash
+// table in shared memory (a slot per class of equal rows, holding its
+// lowest row; equality checked on the whole row); rows[b, 0..nrows[b])
+// lists the rows that are their own first copy, ascending.  Shared memory:
+// S hashes and a table of distinct_table(S) ints; O(S) a cloud.
 constexpr int kDistinctThreads = 256;
-constexpr int kMaxDistinctRows = 12288;       // S whose hashes fit shared memory
+constexpr int kMaxDistinctRows = 12288;       // S whose hashes and table fit shared memory
+
+__host__ __device__ __forceinline__ int distinct_table(int S) {
+  int t = 64;
+  while (t < 2 * S) t <<= 1;                  // a power of two, at most half full
+  return t;
+}
+
+__device__ __forceinline__ bool same_row(const unsigned* xb, int m, int n, int C) {
+  int c = 0;
+  while (c < C && xb[(size_t)m * C + c] == xb[(size_t)n * C + c]) ++c;
+  return c == C;
+}
 
 __global__ void __launch_bounds__(kDistinctThreads)
 distinct_rows_kernel(const float* __restrict__ x, int* __restrict__ first,
                      int* __restrict__ rows, int* __restrict__ nrows, int S, int C) {
   extern __shared__ unsigned hashes[];
+  int* table = reinterpret_cast<int*>(hashes + S);
+  const int T = distinct_table(S);
   __shared__ int offset[kDistinctThreads + 1];
   const unsigned* xb = reinterpret_cast<const unsigned*>(x) + (size_t)blockIdx.x * S * C;
   int* fb = first + (size_t)blockIdx.x * S;
@@ -126,18 +150,27 @@ distinct_rows_kernel(const float* __restrict__ x, int* __restrict__ first,
     for (int c = 0; c < C; ++c) h = (h ^ xb[(size_t)n * C + c]) * 16777619u;
     hashes[n] = h;
   }
+  for (int t = threadIdx.x; t < T; t += blockDim.x) table[t] = -1;
   __syncthreads();
+  // each row finds its class's slot (linear probing from its hash), claims
+  // an empty one, or lowers the slot's row to its own; fb[n] holds the slot
   for (int n = threadIdx.x; n < S; n += blockDim.x) {
     const unsigned h = hashes[n];
-    int m = 0;
-    for (; m < n; ++m) {
-      if (hashes[m] != h) continue;
-      int c = 0;
-      while (c < C && xb[(size_t)m * C + c] == xb[(size_t)n * C + c]) ++c;
-      if (c == C) break;
+    for (int slot = h & (T - 1);; slot = (slot + 1) & (T - 1)) {
+      int m = table[slot];
+      if (m < 0 && (m = atomicCAS(&table[slot], -1, n)) < 0) {
+        fb[n] = slot;
+        break;
+      }
+      if (hashes[m] == h && same_row(xb, m, n, C)) {
+        atomicMin(&table[slot], n);
+        fb[n] = slot;
+        break;
+      }
     }
-    fb[n] = m;
   }
+  __syncthreads();
+  for (int n = threadIdx.x; n < S; n += blockDim.x) fb[n] = table[fb[n]];
   __syncthreads();
   // compaction: each thread a stretch of rows, the stretches' counts scanned
   const int per = (S + blockDim.x - 1) / blockDim.x;
@@ -159,19 +192,25 @@ distinct_rows_kernel(const float* __restrict__ x, int* __restrict__ first,
 }
 
 // out[b, n, :] = out[b, first[b, n], :] for every row that is a copy; F
-// 4-byte values per row (floats or indices).
-__global__ void __launch_bounds__(256)
+// 4-byte values per row (floats or indices).  A warp a row (32 lanes over
+// F), grid-stride over the rows, so a launch has at most kCopyBlocks blocks
+// however many rows it copies.
+constexpr int kCopyRows = 8;                  // rows (warps) per block
+constexpr int kCopyBlocks = 4096;             // most blocks of a launch
+
+__global__ void __launch_bounds__(32 * kCopyRows)
 copy_duplicate_rows_kernel(const int* __restrict__ first, float* __restrict__ out0,
                            float* __restrict__ out1, int S, long long nrows_total, int F) {
-  const long long row = (long long)blockIdx.x * blockDim.y + threadIdx.y;
-  if (row >= nrows_total) return;
-  const int n = (int)(row % S);
-  const int src = first[row];
-  if (src == n) return;
-  const size_t to = (size_t)row * F, from = (size_t)(row - n + src) * F;
-  for (int f = threadIdx.x; f < F; f += blockDim.x) {
-    out0[to + f] = out0[from + f];
-    if (out1 != nullptr) out1[to + f] = out1[from + f];
+  for (long long row = (long long)blockIdx.x * kCopyRows + threadIdx.y; row < nrows_total;
+       row += (long long)gridDim.x * kCopyRows) {
+    const int n = (int)(row % S);
+    const int src = first[row];
+    if (src == n) continue;
+    const size_t to = (size_t)row * F, from = (size_t)(row - n + src) * F;
+    for (int f = threadIdx.x; f < F; f += 32) {
+      out0[to + f] = out0[from + f];
+      if (out1 != nullptr) out1[to + f] = out1[from + f];
+    }
   }
 }
 
@@ -189,7 +228,7 @@ struct DistinctRows {
 inline cudaError_t distinct_rows(const float* x, const DistinctRows& d, int B, int S, int C,
                                  cudaStream_t s) {
   if (S > kMaxDistinctRows) return cudaErrorInvalidValue;
-  const size_t smem = (size_t)S * sizeof(unsigned);
+  const size_t smem = ((size_t)S + distinct_table(S)) * sizeof(unsigned);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         distinct_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -203,9 +242,9 @@ inline cudaError_t distinct_rows(const float* x, const DistinctRows& d, int B, i
 inline cudaError_t copy_duplicate_rows(const DistinctRows& d, float* out0, float* out1, int B,
                                        int S, int F, cudaStream_t s) {
   const long long total = (long long)B * S;
-  const dim3 block(32, 8);
-  copy_duplicate_rows_kernel<<<(unsigned)((total + 7) / 8), block, 0, s>>>(d.first, out0, out1,
-                                                                          S, total, F);
+  const long long blocks = (total + kCopyRows - 1) / kCopyRows;
+  copy_duplicate_rows_kernel<<<(unsigned)(blocks < kCopyBlocks ? blocks : kCopyBlocks),
+                               dim3(32, kCopyRows), 0, s>>>(d.first, out0, out1, S, total, F);
   return cudaGetLastError();
 }
 

@@ -4,7 +4,7 @@
 // interpret_quality_tpu_torch/ops/cuda/neighbors.py):
 //
 //   iq_knn                 exact k-nearest-neighbour indices
-//                          replaces interpret_quality_tpu/ops/pallas/neighbors.py
+//                          replaces interpret_quality_tpu/ops/pallas/neighbors.py:482
 //                          knn_pallas -> _knn_kernel
 //   iq_gather_extrema      per-point max/min of value rows over given indices
 //                          replaces neighbors.py gather_extrema -> _idx_extrema_kernel
@@ -12,10 +12,15 @@
 //                          replaces neighbors.py knn_gather_extrema -> _extrema_kernel
 //                          (and its nq-layout twin _extrema_kernel_nq)
 //
-// Selection (select_knn, knn_select.cuh) is shared with groups.cu.  iq_knn
-// and iq_knn_gather_extrema call the same function, so their indices agree
-// bit for bit.  The two gathers are separate functions: iq_knn_gather_extrema
-// gathers with gather_extrema_rows; iq_gather_extrema stages a column slice
+// Selection is shared with groups.cu.  iq_knn has two routes, chosen by
+// shape alone (knn_route): the xyz route (knn_xyz.cuh: the cloud staged once
+// a block, a warp per query, a selection on (distance, index)) for clouds of
+// C <= 4 channels whose database fits shared memory, else the tiled
+// select_knn (knn_select.cuh), which iq_knn_gather_extrema calls too.  Both
+// compute a distance by the same instructions and return a stable sort's
+// order, so all three agree bit for bit on the indices.  The two gathers are
+// separate functions: iq_knn_gather_extrema gathers with
+// gather_extrema_rows; iq_gather_extrema stages a column slice
 // of the cloud in shared memory (gather_extrema_slice_kernel) and takes
 // gather_extrema_rows only for clouds whose slice does not fit.  Max and min
 // are exact, so every route gives bit-equal results on equal indices.
@@ -28,9 +33,11 @@
 // Launchers run on the caller's stream, allocate nothing and return
 // cudaGetLastError() (0 on success); cudaErrorInvalidValue for arguments the
 // kernels do not take (k > 32, or a route whose slice does not fit shared
-// memory).  Indices handed to iq_gather_extrema must lie in [0, N).
+// memory, or an xyz route forced on a shape it does not take).  Indices
+// handed to iq_gather_extrema must lie in [0, N).
 
 #include "knn_select.cuh"
+#include "knn_xyz.cuh"
 
 namespace {
 
@@ -75,7 +82,8 @@ __device__ __forceinline__ void gather_extrema_rows(
   }
 }
 
-// Replaces knn_pallas -> _knn_kernel (ops/pallas/neighbors.py:445-496).
+// Replaces knn_pallas -> _knn_kernel (ops/pallas/neighbors.py:445-496),
+// the tiled route: select_knn over kQueries distinct query rows a block.
 // Bound: operations (distance arithmetic); see select_knn.
 __global__ void __launch_bounds__(kSelThreads, 2)
 knn_kernel(const float* __restrict__ query, const float* __restrict__ db,
@@ -95,6 +103,46 @@ knn_kernel(const float* __restrict__ query, const float* __restrict__ db,
     const int r = e / k;
     o[(size_t)qrows[q0 + r] * k + (e - r * k)] = li[r * 32 + (e - r * k)];
   }
+}
+
+// Replaces knn_pallas -> _knn_kernel (ops/pallas/neighbors.py:445-496),
+// the xyz route.  What bounds it: operations, 2 C + 3 a distance over the
+// distinct query rows (0.116 ms a GCNN forward at 67 TFLOP/s); the design
+// (knn_xyz.cuh) leaves the distances and the two passes over the staged
+// cloud, with one block barrier.  A block stages one cloud and runs
+// kXyzQueries of its distinct query rows, a warp each.
+template <int M, int NPL>
+__global__ void __launch_bounds__(kXyzThreads, 4)
+knn_xyz_kernel(const float* __restrict__ query, const float* __restrict__ db,
+               const int* __restrict__ rows, const int* __restrict__ nrows,
+               int32_t* __restrict__ out, int S, int N, int C, int k, int nqb) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.x / nqb;
+  const int q0 = (blockIdx.x - b * nqb) * kXyzQueries;
+  const int ns = nrows[b];                    // distinct query rows of this cloud
+  if (q0 >= ns) return;
+  float* buffers;
+  const XyzCloud cl = xyz_stage(db + (size_t)b * N * C, N, C, smem, &buffers);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int* qrows = rows + (size_t)b * S;
+  const int qend = min(q0 + kXyzQueries, ns);
+  for (int r = q0 + warp; r < qend; r += kXyzWarps) {
+    const size_t row = (size_t)b * S + qrows[r];
+    float vd[1];
+    int vi[1];
+    xyz_select<1, M, NPL>(cl, query + row * C, k, buffers + warp * 2 * kXyzBuffer, lane, vd,
+                          vi);
+    if (lane < k) out[row * k + lane] = vi[0];
+  }
+}
+
+// The instance of knn_xyz_kernel for (N, k): the keys a lane hands the
+// first list and the candidates it keeps in registers.
+using KnnXyz = void (*)(const float*, const float*, const int*, const int*, int32_t*, int, int,
+                        int, int, int);
+inline KnnXyz knn_xyz_launcher(int N, int k) {
+  if (xyz_deep(k)) return xyz_small(N) ? knn_xyz_kernel<2, 16> : knn_xyz_kernel<2, 32>;
+  return xyz_small(N) ? knn_xyz_kernel<1, 16> : knn_xyz_kernel<1, 32>;
 }
 
 // Replaces knn_gather_extrema -> _extrema_kernel and its nq twin
@@ -264,21 +312,47 @@ extern "C" {
 
 // scratch (iq_knn, iq_knn_gather_extrema): B * (2 * S + 1) ints of device
 // memory, S the number of query rows of a cloud (see DistinctRows).
+// route (iq_knn): 0 chooses by shape (knn_route), kXyzRoute or kTiledRoute
+// forces one (a forced xyz route on a shape it does not take is refused).
 int iq_knn(const float* query, const float* db, int32_t* out, int* scratch, int B, int S,
-           int N, int C, int k, void* stream) {
+           int N, int C, int k, int route, void* stream) {
   if (B <= 0 || S <= 0) return cudaSuccess;
-  if (k < 1 || k > kMaxK || k > N || C < 1) return cudaErrorInvalidValue;
-  const size_t smem = select_smem_floats(1) * sizeof(float);
-  const int nqb = (S + kQueries - 1) / kQueries;
+  if (k < 1 || k > kMaxK || k > N || C < 1 || route < 0 || route > kTiledRoute)
+    return cudaErrorInvalidValue;
+  if (route == 0) route = knn_route(N, C);
+  if (route == kXyzRoute && !xyz_fits(N, C)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const DistinctRows d(scratch, B, S);
   cudaError_t err;
   if ((err = distinct_rows(query, d, B, S, C, s)) != cudaSuccess) return err;
-  if ((err = prepare(knn_kernel, smem)) != cudaSuccess) return err;
-  knn_kernel<<<(unsigned)B * nqb, kSelThreads, smem, s>>>(query, db, d.rows, d.nrows, out, S,
-                                                           N, C, k, nqb);
+  if (route == kXyzRoute) {
+    const size_t smem = xyz_smem_bytes(N, C);
+    const int nqb = (S + kXyzQueries - 1) / kXyzQueries;
+    const KnnXyz kernel = knn_xyz_launcher(N, k);
+    if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<(unsigned)B * nqb, kXyzThreads, smem, s>>>(query, db, d.rows, d.nrows, out, S, N,
+                                                        C, k, nqb);
+  } else {
+    const size_t smem = select_smem_floats(1) * sizeof(float);
+    const int nqb = (S + kQueries - 1) / kQueries;
+    if ((err = prepare(knn_kernel, smem)) != cudaSuccess) return err;
+    knn_kernel<<<(unsigned)B * nqb, kSelThreads, smem, s>>>(query, db, d.rows, d.nrows, out,
+                                                             S, N, C, k, nqb);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return copy_duplicate_rows(d, reinterpret_cast<float*>(out), nullptr, B, S, k, s);
+}
+
+// The route iq_knn takes for (N, C, k), for the record (it launches
+// nothing): info = {route, threads a block, blocks a SM holds, dynamic
+// shared memory a block (bytes), registers a thread, local memory a thread
+// (bytes)}.
+int iq_knn_route(int N, int C, int k, int* info) {
+  if (k < 1 || k > kMaxK || k > N || C < 1) return cudaErrorInvalidValue;
+  info[0] = knn_route(N, C);
+  if (info[0] == kXyzRoute)
+    return kernel_info(knn_xyz_launcher(N, k), kXyzThreads, xyz_smem_bytes(N, C), info);
+  return kernel_info(knn_kernel, kSelThreads, select_smem_floats(1) * sizeof(float), info);
 }
 
 int iq_knn_gather_extrema(const float* xs, const float* a, float* omax, float* omin,

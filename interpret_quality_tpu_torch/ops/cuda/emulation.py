@@ -1,8 +1,9 @@
 """The arithmetic of the redesigned kernels, emulated in plain PyTorch: the
 three-product TF32 split of ``csrc/groups.cu``'s tensor-core layers (both
 ``fused_ball_mlp3``'s and ``fused_pointconv_sa``'s, the latter with its
-contraction), the distance chain of ``csrc/knn_select.cuh`` and the argmax
-of ``csrc/fps.cu``'s register route.
+contraction), the distance chain of ``csrc/knn_select.cuh``, the selection
+of the kNN kernels' xyz route (``csrc/knn_xyz.cuh``) and the argmax of
+``csrc/fps.cu``'s register route.
 
 The kernels that run a matrix product on the tensor cores keep f32 accuracy
 by splitting every f32 operand into two TF32 values, x = hi + lo, and
@@ -15,7 +16,7 @@ use it as a second reference for the kernels' arithmetic.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -133,3 +134,134 @@ def square_distance_chain(query: torch.Tensor, db: torch.Tensor) -> torch.Tensor
         q2 = q2 + query[:, :, c] * query[:, :, c]
         d2 = d2 + db[:, :, c] * db[:, :, c]
     return (q2[:, :, None] - 2.0 * dot) + d2[:, None, :]
+
+
+LANES = 32               # a warp: lane l takes candidates l, l + 32, ...
+XYZ_BUFFER = 64          # survivors a warp's buffer holds (kXyzBuffer)
+XYZ_SMALL_N = 512        # up to here 16 candidates a lane, else 32 (kXyzSmallN)
+XYZ_DEEP_K = 24          # above it a lane hands the first list 2 keys (kXyzDeepK)
+_NO_INDEX = torch.iinfo(torch.int32).max     # the index of an empty key
+
+
+class XyzSelection(NamedTuple):
+    """What ``select_knn_xyz`` returns: the indices, and per query how many
+    candidates pass 2 let through and how many times the buffer was merged
+    into the list before the end of the candidates."""
+    idx: torch.Tensor          # (B, S, k) int32
+    survivors: torch.Tensor    # (B, S) int64
+    flushes: torch.Tensor      # (B, S) int64
+
+
+def _key_sort(d: torch.Tensor, i: torch.Tensor):
+    """Keys (d, i) sorted ascending along the last axis, distance first,
+    then index."""
+    o = torch.argsort(i, dim=-1, stable=True)
+    d, i = d.gather(-1, o), i.gather(-1, o)
+    o = torch.argsort(d, dim=-1, stable=True)
+    return d.gather(-1, o), i.gather(-1, o)
+
+
+def _key_less(ad, ai, bd, bi):
+    return (ad < bd) | ((ad == bd) & (ai < bi))
+
+
+def select_knn_xyz(query: torch.Tensor, db: torch.Tensor, k: int) -> XyzSelection:
+    """The xyz route's selection (``csrc/knn_xyz.cuh`` ``xyz_select``) step
+    for step, on ``square_distance_chain``'s distances, for every query at
+    once.  Keys are (distance, index), compared as the kernel compares them
+    (floats, so -0 == +0).
+
+    Pass 1: lane l keeps the M smallest keys of its candidates l, l + 32,
+    ... (M = 2 above k = 24, else 1); the 32 KL smallest of those 32 M keys
+    (KL = ceil(k / 32)), sorted, are the first list, and its entry k - 1 the
+    threshold.  Pass 2, segment by segment (32
+    x 16 candidates up to N = 512, else 32 x 32): the candidates below the
+    threshold that are not their lane's own list entries are marked; in
+    rounds, the marked ones, lane by lane in ascending index, fill the
+    buffer's free slots, each tested again against the threshold as it
+    stands (one that fails takes its slot as an empty key); then while 32
+    or more wait, the first 32 are merged into the list (its 32 KL smallest
+    keys are kept), the rest move down and the threshold is read again.
+    What is left is merged at the end.
+
+    query (B, S, C), db (B, N, C) float32, k <= N -> ``XyzSelection``.
+    """
+    B, S, _ = query.shape
+    N = db.shape[1]
+    if not 1 <= k <= N:
+        raise ValueError(f"k={k} must lie in [1, N={N}]")
+    kl = -(-k // LANES)
+    m = 2 if k > XYZ_DEEP_K else 1
+    seg = LANES * (16 if N <= XYZ_SMALL_N else 32)
+    nseg = -(-N // seg)
+    Q = B * S
+    inf = float("inf")
+    # + 0.0 turns -0 into +0: the kernel's float compares do not tell them apart
+    dist = square_distance_chain(query, db).reshape(Q, N) + 0.0
+    d = torch.full((Q, nseg * seg), inf)
+    d[:, :N] = dist
+    ids = torch.arange(nseg * seg, dtype=torch.int64)
+    ids = torch.where(ids < N, ids, _NO_INDEX).expand(Q, -1)
+
+    # pass 1: each lane's m smallest keys (slots beyond N hold empty keys)
+    lane_d = d.reshape(Q, -1, LANES).transpose(1, 2)            # (Q, lane, block)
+    lane_i = ids.reshape(Q, -1, LANES).transpose(1, 2)
+    own_d, own_i = (t[..., :m] for t in _key_sort(lane_d, lane_i))
+    ld, li = (t[:, :LANES * kl] for t in _key_sort(own_d.reshape(Q, -1),
+                                                     own_i.reshape(Q, -1)))
+    own = (lane_i[..., None] == own_i[:, :, None, :]).any(-1)      # (Q, lane, block)
+    own = own.transpose(1, 2).reshape(Q, -1)                       # candidate order
+
+    buf_d = torch.full((Q, XYZ_BUFFER), inf)
+    buf_i = torch.full((Q, XYZ_BUFFER), _NO_INDEX, dtype=torch.int64)
+    count = torch.zeros(Q, dtype=torch.int64)
+    survivors = torch.zeros(Q, dtype=torch.int64)
+    flushes = torch.zeros(Q, dtype=torch.int64)
+    rows = torch.arange(Q)[:, None].expand(-1, seg)
+
+    def merge(ld, li, wd, wi):
+        return tuple(t[:, :LANES * kl] for t in _key_sort(torch.cat([ld, wd], 1),
+                                                          torch.cat([li, wi], 1)))
+
+    def drain(ld, li, buf_d, buf_i, count, flushes):
+        while True:
+            full = count >= LANES
+            if not bool(full.any()):
+                return ld, li, buf_d, buf_i, count, flushes
+            md, mi = merge(ld, li, buf_d[:, :LANES], buf_i[:, :LANES])
+            ld = torch.where(full[:, None], md, ld)
+            li = torch.where(full[:, None], mi, li)
+            pad_d = torch.full_like(buf_d[:, LANES:], inf)
+            pad_i = torch.full_like(buf_i[:, LANES:], _NO_INDEX)
+            buf_d = torch.where(full[:, None], torch.cat([buf_d[:, LANES:], pad_d], 1), buf_d)
+            buf_i = torch.where(full[:, None], torch.cat([buf_i[:, LANES:], pad_i], 1), buf_i)
+            count = count - LANES * full
+            flushes = flushes + full
+
+    # pass 2
+    for g in range(nseg):
+        # the segment's candidates lane by lane, in ascending index per lane
+        order = (torch.arange(seg).reshape(-1, LANES).t().reshape(-1)) + g * seg
+        cd, ci, cown = d[:, order], ids[:, order], own[:, order]
+        marked = (_key_less(cd, ci, ld[:, k - 1, None], li[:, k - 1, None])
+                  & ~cown & (ci < N))
+        survivors += marked.sum(1)
+        rank = torch.cumsum(marked, 1) - 1
+        total = marked.sum(1)
+        done = torch.zeros(Q, dtype=torch.int64)
+        while bool((done < total).any()):
+            take = (marked & (rank >= done[:, None])
+                    & (rank < (done + XYZ_BUFFER - count)[:, None]))
+            keep = _key_less(cd, ci, ld[:, k - 1, None], li[:, k - 1, None])
+            at = (count[:, None] + rank - done[:, None])[take]
+            buf_d[rows[take], at] = torch.where(keep, cd, inf)[take]
+            buf_i[rows[take], at] = torch.where(keep, ci, _NO_INDEX)[take]
+            n = take.sum(1)
+            done += n
+            count += n
+            ld, li, buf_d, buf_i, count, flushes = drain(ld, li, buf_d, buf_i, count,
+                                                         flushes)
+    md, mi = merge(ld, li, buf_d[:, :LANES], buf_i[:, :LANES])
+    li = torch.where((count > 0)[:, None], mi, li)
+    return XyzSelection(li[:, :k].reshape(B, S, k).to(torch.int32),
+                        survivors.reshape(B, S), flushes.reshape(B, S))

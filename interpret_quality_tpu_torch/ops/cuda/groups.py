@@ -20,7 +20,11 @@ Signatures and layouts are the JAX functions' (without their TPU knobs
 and kNN ties go to the lowest index.  The kernels of ``fused_ball_mlp3`` and
 ``fused_pointconv_sa`` run their layers 2-3 (and the latter its contraction)
 on the tensor cores as three TF32 products that keep f32 accuracy, through
-one piece of code.  As in the JAX package, the work around
+one piece of code.  ``knn_with_density`` takes ``neighbors.knn``'s two
+routes by the same rule (``knn_density_route``), and ``_knn_with_density``
+forces one, for the checks; on the xyz route it selects for the distinct
+query rows only (FPS repeats a centre once a masked cloud has fewer
+distinct points than centres), as ``neighbors.knn`` does.  As in the JAX package, the work around
 each kernel stays plain PyTorch: the hoisted layer-1 rows the callers pass
 in, and the DensityNet scale (``density_scale``).
 
@@ -42,6 +46,8 @@ from ..geometry import (index_points, query_ball_point, sorted_topk_indices,
                         square_distance)
 from . import build
 from .launch import F, I, P, check, on_cpu, raise_on, stream
+from .neighbors import (KNN_ROUTES, MAX_QUERY_ROWS, _distinct_rows_scratch,
+                        route_info)
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES = {"fused_ball_mlp3": 0, "knn_with_density": 0,
@@ -68,10 +74,12 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     lib = build.load("groups")
     lib.iq_ball_mlp3.argtypes = [P] * 11 + [I] * 7 + [F, P]
-    lib.iq_knn_density.argtypes = [P] * 6 + [I] * 5 + [P]
+    lib.iq_knn_density.argtypes = [P] * 7 + [I] * 6 + [P]
+    lib.iq_knn_density_route.argtypes = [I, I, I, P]
     lib.iq_pointconv_sa.argtypes = [P] * 13 + [I] * 7 + [P]
     lib.iq_gather_rows.argtypes = [P] * 3 + [I] * 4 + [P]
-    for fn in (lib.iq_ball_mlp3, lib.iq_knn_density, lib.iq_pointconv_sa,
+    for fn in (lib.iq_ball_mlp3, lib.iq_knn_density, lib.iq_knn_density_route,
+               lib.iq_pointconv_sa,
                lib.iq_gather_rows):
         fn.restype = ctypes.c_int
     return lib
@@ -195,6 +203,14 @@ def knn_with_density(query: torch.Tensor, database: torch.Tensor,
     """
     if on_cpu(query, database, inv_density):
         return knn_with_density_plain(query, database, inv_density, k)
+    return _knn_with_density(query, database, inv_density, k,
+                             KNN_ROUTES["shape"])
+
+
+def _knn_with_density(query: torch.Tensor, database: torch.Tensor,
+                      inv_density: torch.Tensor, k: int, route: int):
+    """Launch iq_knn_density on ``route`` (``neighbors.KNN_ROUTES``): by
+    shape, as ``knn_with_density`` does, or one route forced."""
     check(query, "query", torch.float32, 3)
     check(database, "database", torch.float32, 3)
     check(inv_density, "inv_density", torch.float32, 2)
@@ -209,14 +225,28 @@ def knn_with_density(query: torch.Tensor, database: torch.Tensor,
     idx = torch.empty((B, S, k), dtype=torch.int32, device=query.device)
     den = torch.empty((B, S, k), dtype=torch.float32, device=query.device)
     dmax = torch.empty((B, S, 1), dtype=torch.float32, device=query.device)
+    # the xyz route selects for the distinct query rows only, given scratch
+    scratch = (_distinct_rows_scratch(B, S, query.device)
+               if S <= MAX_QUERY_ROWS else None)
     with record_function("iq_knn_density"):
-        rc = _lib().iq_knn_density(query.data_ptr(), database.data_ptr(),
-                                   inv_density.data_ptr(), idx.data_ptr(),
-                                   den.data_ptr(), dmax.data_ptr(), B, S, N,
-                                   C, k, stream(query))
+        rc = _lib().iq_knn_density(
+            query.data_ptr(), database.data_ptr(), inv_density.data_ptr(),
+            idx.data_ptr(), den.data_ptr(), dmax.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), B, S, N, C, k,
+            route, stream(query))
     raise_on(rc, "iq_knn_density")
     LAUNCHES["knn_with_density"] += 1
     return idx, den, dmax
+
+
+def knn_density_route(N: int, C: int, k: int) -> dict:
+    """The route ``knn_with_density`` takes for N database rows of C
+    channels at k neighbours, as ``neighbors.knn_route`` tells it for
+    ``knn``.  Launches nothing."""
+    info = (ctypes.c_int * 6)()
+    raise_on(_lib().iq_knn_density_route(N, C, k, info),
+             "iq_knn_density_route")
+    return route_info(info)
 
 
 # ------------------------------------------------------ fused_pointconv_sa

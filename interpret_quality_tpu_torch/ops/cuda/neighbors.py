@@ -19,10 +19,15 @@ launcher (``iq_knn``, ...), which a stage's ``--trace_dir`` trace shows.
 ``knn`` and ``knn_gather_extrema`` select for the
 distinct query rows of a cloud only: a row that is a bit-for-bit copy of an
 earlier one (a masked coalition's collapsed regions) takes that row's
-result, which is what it would have selected.  ``gather_extrema`` has two
-routes, chosen by shape alone (``gather_extrema_route``): a column slice of
-the cloud staged in shared memory, and for clouds whose slice does not fit,
-rows read through the cache.
+result, which is what it would have selected.  ``knn`` has two routes,
+chosen by shape alone (``knn_route``): the xyz route (the cloud staged
+once a block, a warp per query) for clouds of at most 4 channels whose
+database fits shared memory, else the tiled selection that
+``knn_gather_extrema`` runs too; both return the same indices bit for bit.
+``gather_extrema`` has two routes, chosen by shape alone
+(``gather_extrema_route``): a column slice of the cloud staged in shared
+memory, and for clouds whose slice does not fit, rows read through the
+cache.  ``_knn`` and ``_gather_extrema`` force a route, for the checks.
 """
 from __future__ import annotations
 
@@ -52,12 +57,13 @@ def reset_launches() -> None:
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load("neighbors")
-    lib.iq_knn.argtypes = [P, P, P, P, I, I, I, I, I, P]
+    lib.iq_knn.argtypes = [P, P, P, P, I, I, I, I, I, I, P]
+    lib.iq_knn_route.argtypes = [I, I, I, P]
     lib.iq_gather_extrema.argtypes = [P, P, P, P, I, I, I, I, I, I, P]
     lib.iq_gather_extrema_route.argtypes = [I, I, I, P]
     lib.iq_knn_gather_extrema.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
-    for fn in (lib.iq_knn, lib.iq_gather_extrema, lib.iq_gather_extrema_route,
-               lib.iq_knn_gather_extrema):
+    for fn in (lib.iq_knn, lib.iq_knn_route, lib.iq_gather_extrema,
+               lib.iq_gather_extrema_route, lib.iq_knn_gather_extrema):
         fn.restype = ctypes.c_int
     return lib
 
@@ -75,6 +81,20 @@ def _check_k(k: int, n: int):
 
 
 # --------------------------------------------------------------------- knn
+# the route argument of iq_knn and iq_knn_density: chosen by shape, or one
+# route forced
+KNN_ROUTES = {"shape": 0, "xyz": 1, "tiled": 2}
+
+
+def route_info(info) -> dict:
+    """The record of a kNN route query (``knn_route``,
+    ``groups.knn_density_route``)."""
+    route, threads, blocks, smem, regs, local = info
+    return {"route": "xyz" if route == KNN_ROUTES["xyz"] else "tiled",
+            "threads": threads, "blocks_per_sm": blocks,
+            "smem_bytes": smem, "registers": regs, "local_bytes": local}
+
+
 def knn_plain(query: torch.Tensor, database: torch.Tensor, k: int) -> torch.Tensor:
     """Plain version of ``knn``: (B, S, C), (B, N, C) -> (B, S, k) int32."""
     return sorted_topk_indices(square_distance(query, database), k)
@@ -90,6 +110,14 @@ def knn(query: torch.Tensor, database: torch.Tensor, k: int) -> torch.Tensor:
     """
     if on_cpu(query, database):
         return knn_plain(query, database, k)
+    return _knn(query, database, k, KNN_ROUTES["shape"])
+
+
+def _knn(query: torch.Tensor, database: torch.Tensor, k: int, route: int
+         ) -> torch.Tensor:
+    """Launch iq_knn on ``route`` (``KNN_ROUTES``): by shape, as ``knn``
+    does, or one route forced, to hold both routes against each other and
+    the plain version at the same shapes."""
     check(query, "query", torch.float32, 3)
     check(database, "database", torch.float32, 3)
     B, S, C = query.shape
@@ -105,10 +133,20 @@ def knn(query: torch.Tensor, database: torch.Tensor, k: int) -> torch.Tensor:
     with record_function("iq_knn"):
         rc = _lib().iq_knn(query.data_ptr(), database.data_ptr(),
                            out.data_ptr(), scratch.data_ptr(), B, S, N, C, k,
-                           stream(query))
+                           route, stream(query))
     raise_on(rc, "iq_knn")
     LAUNCHES["knn"] += 1
     return out
+
+
+def knn_route(N: int, C: int, k: int) -> dict:
+    """The route ``knn`` takes for clouds of N database rows of C channels
+    at k neighbours, its launch shape, how many of its blocks one SM of the
+    current card holds, and its kernel's registers and local memory
+    (``cudaFuncGetAttributes``).  Launches nothing."""
+    info = (ctypes.c_int * 6)()
+    raise_on(_lib().iq_knn_route(N, C, k, info), "iq_knn_route")
+    return route_info(info)
 
 
 # ---------------------------------------------------------- gather_extrema

@@ -6,10 +6,15 @@ CUDA sources.
     python3 scripts/time_torch_kernels.py [--csrc DIR ...] [--reps 3]
                            [--only knn,gather,fused,density,ball,pconv,fps]
 
-``--only`` names: ``knn`` (iq_knn), ``gather`` (iq_gather_extrema, GCNN's four
+``--only`` names: ``knn`` (iq_knn, GCNN's graph, on the route the shape
+takes and on each of its two routes forced: ``xyz``, the cloud staged once
+a block and a warp per query, and ``tiled``, the blocked selection kernel 3
+shares), ``gather`` (iq_gather_extrema, GCNN's four
 layers on their kNN indices, on the route each shape takes and on the row
 route forced, with the route and the blocks one SM holds), ``fused``
-(iq_knn_gather_extrema, DGCNN's four layers), ``density`` (iq_knn_density, PointConv's two levels), ``ball``
+(iq_knn_gather_extrema, DGCNN's four layers), ``density`` (iq_knn_density,
+PointConv's two levels, by shape and on each route forced, with the share
+of distinct query rows), ``ball``
 (iq_ball_mlp3, PointNet++'s six branches), ``pconv`` (iq_pointconv_sa,
 PointConv's two levels, on the kernel-6 indices) and ``fps`` (iq_fps, 1024 ->
 512 -> 128, with the blocks one SM holds).
@@ -55,12 +60,12 @@ def registers(report: str):
             spills = tuple(int(x) for x in m.groups())
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            # "void (anonymous namespace)::kernel<8>(float const*, ...)"
-            # -> "kernel<8>"
+            # "void (anonymous namespace)::kernel<1, 32>(float const*, ...)"
+            # -> "kernel<1, 32>"
             full = subprocess.run(["c++filt", name], capture_output=True,
                                   text=True).stdout.strip()
             short = full.replace("(anonymous namespace)::", "").split("(")[0]
-            short = short.split(" ")[-1]
+            short = short.removeprefix("void ")
             out[short or name] = (int(m.group(1)), *spills)
     return out
 
@@ -176,6 +181,11 @@ def main() -> int:
                             nb.knn(dup, dup, cs.K), nb.knn_plain(dup, dup, cs.K))
                     rec["knn_ms"] = cs.cuda_ms(
                         lambda: nb.knn(masked, masked, cs.K), args.reps)
+                    rec["knn_route"] = nb.knn_route(cs.N, 3, cs.K)
+                    rec["knn_route_ms"] = {
+                        name: cs.cuda_ms(lambda: nb._knn(
+                            masked, masked, cs.K, nb.KNN_ROUTES[name]), args.reps)
+                        for name in ("xyz", "tiled")}
                 if "gather" in only:
                     # bit-equal to the plain version on the first chunk
                     sl = next(cs.chunks(masked.shape[0]))
@@ -198,9 +208,18 @@ def main() -> int:
                         cs.cuda_ms(lambda: nb.knn_gather_extrema(xs, a, cs.K),
                                    args.reps) for xs, a in layers]
                 if "density" in only:
+                    rec["density_distinct_query_rows"] = [
+                        cs.distinct_row_count(d[0]) / d[0].shape[0] / d[0].shape[1]
+                        for d in dens]
                     rec["knn_with_density_ms"] = [
                         cs.cuda_ms(lambda: gr.knn_with_density(*d), args.reps)
                         for d in dens]
+                    rec["knn_with_density_route"] = [gr.knn_density_route(
+                        d[1].shape[1], 3, d[3]) for d in dens]
+                    rec["knn_with_density_route_ms"] = [{
+                        name: cs.cuda_ms(lambda: gr._knn_with_density(
+                            *d, nb.KNN_ROUTES[name]), args.reps)
+                        for name in ("xyz", "tiled")} for d in dens]
                 if "ball" in only:
                     rec["fused_ball_mlp3_filled_rows"] = ball_rows
                     rec["fused_ball_mlp3_ms"] = [

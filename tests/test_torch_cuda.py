@@ -250,6 +250,92 @@ def test_selection_on_ragged_clouds(cuda, C, k):
         assert torch.equal(got, want)
 
 
+def _route_clouds(kind, B, N, C, seed):
+    """Clouds for the route tests: random, on a 1/64 grid (every distance
+    exact), all points on one, or masked (a random 30% kept, the rest on the
+    cloud's mean, as a coalition puts its absent regions on the centre)."""
+    g = torch.Generator().manual_seed(seed)
+    if kind == "grid":
+        return torch.randint(-64, 64, (B, N, C), generator=g).float() / 64
+    if kind == "coincident":
+        return torch.randn(B, 1, C, generator=g).expand(B, N, C).contiguous()
+    x = torch.randn(B, N, C, generator=g)
+    if kind == "masked":
+        kept = torch.rand(B, N, 1, generator=g) < 0.3
+        x = torch.where(kept, x, x.mean(1, keepdim=True))
+    return x
+
+
+ROUTE_SIZES = [(N, S) for N in (1, 20, 33, 100, 256, 513, 1100) for S in (N, 77)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "grid", "coincident", "masked"])
+@pytest.mark.parametrize("k", [1, 20, 32, 64])
+def test_knn_routes_bit_equal(cuda, kind, k):
+    """Kernels 1 and 6 on both routes forced (xyz, tiled) at ragged sizes (N
+    = 1 and N = k among them, N not a multiple of 32, two segments of the
+    xyz route at N = 1100) and S != N: the indices, densities and maxima of
+    the two routes bit-equal; on exact clouds (grid, coincident) equal to
+    the plain versions, else their selected distances within 1e-5 of
+    |x|^2 of the plain versions' (REL_LIMIT)."""
+    X, T = nb.KNN_ROUTES["xyz"], nb.KNN_ROUTES["tiled"]
+    exact = kind in ("grid", "coincident")
+    for N, S in ROUTE_SIZES:
+        if k > N:
+            continue
+        db = _route_clouds(kind, 3, N, 3, seed=N + k).to(cuda)
+        q = db if S == N else _route_clouds(kind, 3, S, 3, seed=S + k).to(cuda)
+        want = nb.knn_plain(q, db, k)
+        inv = torch.rand(3, N, device=cuda) + 0.5
+        routes = [gr._knn_with_density(q, db, inv, k, r) for r in (X, T)]
+        if k <= nb.MAX_K:
+            routes = [(nb._knn(q, db, k, r),) + out for r, out in zip((X, T), routes)]
+        for a, b in zip(*routes):
+            assert torch.equal(a, b), (N, S)
+        idx = routes[0][0]
+        if exact:
+            assert torch.equal(idx, want), (N, S)
+        else:
+            assert _selected_distance_gap(q, db, idx, want) <= 1e-5, (N, S)
+        pidx, pden, pdmax = gr.knn_with_density_plain(q, db, inv, k)
+        same = (idx == pidx).all(-1)
+        den, dmax = routes[0][-2:]
+        assert torch.equal(den[same], pden[same])
+        assert torch.equal(dmax[same], pdmax[same])
+
+
+@pytest.mark.cuda
+def test_knn_routes_refuse_what_they_do_not_take(cuda):
+    """k beyond either kernel's range, and the xyz route forced on a shape
+    it does not take (more than 4 channels, a database that does not fit a
+    block's shared memory); the route queries name the route each shape
+    takes."""
+    X = nb.KNN_ROUTES["xyz"]
+    xs = torch.randn(2, 128, 3, device=cuda)
+    with pytest.raises(ValueError):
+        nb._knn(xs, xs, 33, X)
+    with pytest.raises(ValueError):
+        gr._knn_with_density(xs, xs, torch.ones(2, 128, device=cuda), 65, X)
+    wide = torch.randn(2, 128, 5, device=cuda)
+    with pytest.raises(RuntimeError):
+        nb._knn(wide, wide, 8, X)
+    big = torch.randn(1, 20000, 3, device=cuda)
+    with pytest.raises(RuntimeError):
+        nb._knn(big[:, :16].contiguous(), big, 8, X)
+    with pytest.raises(RuntimeError):
+        gr._knn_with_density(big[:, :16].contiguous(), big,
+                             torch.ones(1, 20000, device=cuda), 8, X)
+    assert nb.knn_route(1024, 3, 20)["route"] == "xyz"
+    assert gr.knn_density_route(512, 3, 64)["route"] == "xyz"
+    assert nb.knn_route(1024, 64, 20)["route"] == "tiled"
+    assert nb.knn_route(20000, 3, 20)["route"] == "tiled"
+    nb.reset_launches()
+    assert torch.equal(nb._knn(big[:, :16].contiguous(), big, 8, 0),
+                       nb._knn(big[:, :16].contiguous(), big, 8, nb.KNN_ROUTES["tiled"]))
+    assert nb.LAUNCHES["knn"] == 2
+
+
 def _pconv_args(cuda, widths, k, D, B, S, N=256):
     """Inputs of fused_pointconv_sa as PointConvDensitySA.forward builds
     them, on clouds with a collapsed half, from the kNN kernel's indices."""

@@ -96,6 +96,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
              (ATTACK_* tolerances, sign flips counted) with its invariants
              on the card (norms kept, |alpha| <= pi/2, |t| <= 1) and the
              losses before and after it.
+  8b. adv_robustness  scripts/adv_robustness_torch.py at its defaults
+             (1024 points, 16 clouds, 8 rotation draws) on the train
+             phase's GCNN and the adversarial phase's adv-GCNN checkpoints:
+             its JSON at --out, accuracies finite in [0, 1]; the same
+             clean and rotated clouds on the CPU, whose predictions the
+             card's must equal where the CPU's top two logits lie more
+             than ROBUST_TOP2_REL apart (the excused rows counted); the
+             card's rotated accuracy recomputed equal to the script's;
+             kNN and gather_extrema launched.
+  8c. data_parallel  the data-parallel train step of every family at full
+             width (DP_BATCH clouds of 1024 points, a padded tail) over one
+             NCCL rank and over two gloo ranks on the card, each set of
+             ranks spawned once: one step against trainer.make_train_step
+             on the whole batch in this process, dropout on with the same
+             seed (the same masks, checked where the inputs are nonzero),
+             loss, gradients and running statistics within STEP_*, every
+             parameter within DP_PARAM_TOL of the first step of the two
+             gradients; DGCNN's clouds excused only where a feature-space
+             selection first differs at a near tie (REL_LIMIT); then
+             DP_TIMED_STEPS timed steps (ms per step on the
+             data_parallel_times line, beside the train phase's single
+             step and the time to start the ranks: world 2 on one card is
+             no scaling number); kNN in the edge-conv steps and FPS in
+             PointNet++'s and PointConv's; then dryrun_multichip(1).
   9. mesh    cli.shapley_value --mesh_devices 1 against no flag (DGCNN,
              equal artifacts); a virtual split over [cuda, cuda] of
              DGCNN's and PointNet++'s forward and plan path on the masked
@@ -111,8 +135,8 @@ this script imports neither, so it needs neither on the card's machine.
 Every line on stdout is one JSON object.  The first ("device") carries the
 card's name and power limit as nvidia-smi prints them; the "kernels" line
 comes just before the last, which is {"ok": true, "device": {...}}; its
-rows carry each kernel's launches on the main path and in the train and
-adversarial phases.
+rows carry each kernel's launches on the main path and in the train,
+adversarial, adv_robustness and data_parallel phases.
 The run uses one card: the first that CUDA_VISIBLE_DEVICES names, else card 0.
 Artifacts go to build/chip_smoke/ in the checkout.
 """
@@ -246,6 +270,32 @@ ADV_CUTS = ("cli.train_adv: 2 epochs of 400 on the 64 synthetic training "
 # one init with --trace_dir.
 MESH_ORDERS = 50
 MESH_MODELS = ("dgcnn", "pointnet2")
+# The data_parallel phase: the data-parallel train step of every family at
+# full width (DP_BATCH clouds of N points, the last row a padded tail) over
+# the ranks of DP_RUNS, all on the one card: world 1 through NCCL, world 2
+# through gloo (NCCL refuses two ranks on one card).  Each set of ranks is
+# spawned once and loops over the families: one step held against
+# trainer.make_train_step on the whole batch in this process, dropout on
+# with the same generator seed (the same masks), then DP_TIMED_STEPS timed
+# steps.  Loss, gradients and running statistics within the STEP_*
+# bounds; each parameter within DP_PARAM_TOL of its buffer's largest value
+# of where the optimiser's first step puts the two runs' gradients apart.
+# Then dryrun_multichip(1) on the card.
+DP_RUNS = (("nccl", 1), ("gloo", 2))
+DP_BATCH, DP_VALID, DP_TIMED_STEPS = 32, 31, 3
+DP_PARAM_TOL = 1e-6
+DP_CUTS = ("one checked and three timed steps per family on one fixed "
+           "batch of 32 synthetic clouds at 1024 points and full width; "
+           "random weights from a seed; both worlds on one card, so no "
+           "scaling number")
+# The adv_robustness phase: scripts/adv_robustness_torch.py at its defaults
+# (1024 points, 16 clouds, 8 rotation draws) on the train phase's GCNN and
+# the adversarial phase's adv-GCNN; the same clouds on the CPU, whose
+# predictions the card's must equal wherever the CPU logits' top two lie
+# more than ROBUST_TOP2_REL of the row's largest |logit| apart.
+ROBUST_TOP2_REL = 1e-3
+ROBUST_CUTS = ("checkpoints of the train phase's 2-epoch GCNN and the "
+               "adversarial phase's 2-epoch adv-GCNN, not trained models")
 # Kernels that no entry point reaches, so the main path cannot launch them:
 # they are held in the kernel phase alone.
 OFF_PATH = {"gather_rows": "no entry point of the JAX package calls "
@@ -2353,6 +2403,365 @@ def run_adversarial(workdir, device, resume_path):
     return out, launched
 
 
+# ---------------------------------------------------------- adv_robustness
+def robustness_script():
+    """scripts/adv_robustness_torch.py as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "adv_robustness_torch",
+        os.path.join(REPO, "scripts", "adv_robustness_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def top2_agree(logits_card, logits_cpu):
+    """(rows whose predictions differ, rows excused: a CPU top-two gap
+    within ROBUST_TOP2_REL of the row's largest |logit|)."""
+    import torch
+    top = logits_cpu.topk(2, dim=-1).values
+    near = (top[:, 0] - top[:, 1]) <= ROBUST_TOP2_REL * \
+        logits_cpu.abs().amax(-1)
+    differ = logits_card.cpu().argmax(-1) != logits_cpu.argmax(-1)
+    return int((differ & ~near).sum()), int((differ & near).sum())
+
+
+def run_adv_robustness(workdir, device):
+    """The adv_robustness phase on the train and adversarial phases'
+    checkpoints under ``workdir``: the script's JSON at --out, finite
+    accuracies in [0, 1]; card against CPU on the same clouds, clean and
+    rotated; the card's per-draw accuracy recomputed equal to the
+    script's.  Returns (record, launches)."""
+    import torch
+    from interpret_quality_tpu_torch.models.registry import _logits
+    script = robustness_script()
+    out_path = os.path.join(workdir, "robustness", "rob.json")
+    before = all_launches()
+    t0 = time.perf_counter()
+    out = script.main(["--device", str(device), "--checkpoints_root",
+                       os.path.join(workdir, "ck"), "--out", out_path])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = launches_since(before)
+    with open(out_path) as f:
+        if json.load(f) != out:
+            raise AssertionError("the robustness JSON differs from the run")
+    test_ds = script.SyntheticClouds(num_samples=script.NUM_SAMPLES,
+                                     num_points=script.NUM_POINTS, seed=2)
+    rec = {"script_s": seconds, "card": out.get("card"), "models": {}}
+    t0 = time.perf_counter()
+    for name in script.RUNS:
+        res = out["models"][name]
+        numbers = [res[k] for k in ("clean_acc", "clean_balanced_acc",
+                                    "rot_robust_acc_mean",
+                                    "rot_robust_acc_std")]
+        if not res["checkpoint"].endswith("model_best.t7") or not all(
+                np.isfinite(v) and 0 <= v <= 1 for v in numbers):
+            raise AssertionError(f"robustness of {name}: {res}")
+        card = script.load_gcnn(res["checkpoint"], device)
+        cpu = script.load_gcnn(res["checkpoint"], "cpu")
+        wrong = excused = rows = 0
+        hits = np.zeros(script.ROT_DRAWS)
+        counts = np.zeros(script.ROT_DRAWS)
+        clean = [(-1, torch.from_numpy(d).to(device), lab, v) for d, lab, v
+                 in test_ds.batches(script.BATCH_SIZE, shuffle=False)]
+        with torch.no_grad():
+            for draw, x, labels, valid in clean + list(
+                    script.rotated_batches(test_ds, device,
+                                           script.ROT_DRAWS,
+                                           script.BATCH_SIZE)):
+                lg, lc = _logits(card(x)), _logits(cpu(x.cpu()))
+                w, e = top2_agree(lg[:valid], lc[:valid])
+                wrong, excused, rows = wrong + w, excused + e, rows + valid
+                if draw >= 0:
+                    hits[draw] += int((lg[:valid].argmax(-1).cpu().numpy()
+                                       == labels[:valid]).sum())
+                    counts[draw] += valid
+        if wrong:
+            raise AssertionError(f"robustness of {name}: {wrong} of {rows} "
+                                 f"predictions differ from the CPU's")
+        if float(np.mean(hits / counts)) != res["rot_robust_acc_mean"]:
+            raise AssertionError(f"robustness of {name}: the card's rotated "
+                                 f"accuracy {hits / counts} against the "
+                                 f"script's {res['rot_robust_acc_mean']}")
+        rec["models"][name] = {**res, "rows_vs_cpu": rows,
+                               "rows_excused_top2": excused}
+    rec["card_vs_cpu_s"] = time.perf_counter() - t0
+    rec["launches"] = {k: v for k, v in launched.items() if v}
+    if set(rec["launches"]) != set(FAMILY_KERNELS["gcnn"]):
+        raise AssertionError(f"robustness launched {rec['launches']}")
+    return rec, launched
+
+
+# ----------------------------------------------------------- data_parallel
+@contextlib.contextmanager
+def stdout_to_stderr_fd():
+    """File descriptor 1 on stderr while the block runs, so the processes
+    it starts print nothing onto this script's JSON lines."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    os.dup2(2, 1)
+    try:
+        yield
+    finally:
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
+
+
+@contextlib.contextmanager
+def recorded_step(model, name):
+    """What one step draws and selects: each Dropout's kept values and
+    where its input is nonzero, and for DGCNN each kNN call's query rows
+    and indices, on the CPU."""
+    from interpret_quality_tpu_torch.models import dgcnn
+    from interpret_quality_tpu_torch.models.common import Dropout
+    rec = {"masks": [], "knn": []}
+
+    def hook(_module, inputs, output):
+        rec["masks"].append(((output != 0).cpu(), (inputs[0] != 0).cpu()))
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, Dropout)]
+    original = dgcnn.knn
+
+    def knn(query, database, k):
+        idx = original(query, database, k)
+        rec["knn"].append((query.detach().cpu(), idx.cpu()))
+        return idx
+    if name == "dgcnn":
+        dgcnn.knn = knn
+    try:
+        yield rec
+    finally:
+        dgcnn.knn = original
+        for h in handles:
+            h.remove()
+
+
+def dp_batch():
+    """DP_BATCH full-width synthetic clouds and their labels."""
+    from interpret_quality_tpu_torch.data.datasets import SyntheticClouds
+    ds = SyntheticClouds(DP_BATCH, N, 10, seed=11)
+    return (np.stack([ds[i][0] for i in range(DP_BATCH)]),
+            np.array([ds[i][1] for i in range(DP_BATCH)], np.int64))
+
+
+def dp_rank(group, states, x, labels, t_spawn):
+    """The data_parallel phase in one rank: per family one checked step
+    (its record, the gradients and state on rank 0 only: the replicas are
+    equal) and DP_TIMED_STEPS timed ones."""
+    import torch
+    from interpret_quality_tpu_torch.models import build_model
+    from interpret_quality_tpu_torch.parallel import make_dp_train_step
+    from interpret_quality_tpu_torch.train.trainer import make_optimizer
+    out = {"start_s": time.time() - t_spawn, "families": {}}
+    dev = group.device
+    xd, ld = torch.from_numpy(x).to(dev), torch.from_numpy(labels).to(dev)
+    for name in TRAIN_MODELS:
+        model = build_model(name, 10, K)
+        model.load_state_dict(states[name])
+        model = model.to(dev).train()
+        optimizer, scheduler, _ = make_optimizer(model, name,
+                                                 1 + DP_TIMED_STEPS, 1)
+        step = make_dp_train_step(model, optimizer, scheduler, name, group,
+                                  torch.Generator(device=dev).manual_seed(0))
+        before = all_launches()
+        with recorded_step(model, name) as rec:
+            loss, preds = step(xd, ld, DP_VALID)
+        fam = {"loss": loss.cpu(), "preds": preds.cpu(), **rec}
+        if group.rank == 0:       # copies: the timed steps go on in place
+            fam["grads"] = {n: p.grad.to("cpu", copy=True)
+                            for n, p in model.named_parameters()}
+            fam["state"] = {k: v.to("cpu", copy=True) for k, v in
+                            model.state_dict().items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DP_TIMED_STEPS):
+            step(xd, ld, DP_BATCH)
+        torch.cuda.synchronize()
+        fam["ms_per_step"] = (time.perf_counter() - t0) / DP_TIMED_STEPS * 1e3
+        fam["launches"] = launches_since(before)
+        out["families"][name] = fam
+        del model, optimizer, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def single_dp_reference(name, state, x, labels, device):
+    """trainer.make_train_step on the whole batch, as the ranks start."""
+    import torch
+    from interpret_quality_tpu_torch.models import build_model
+    from interpret_quality_tpu_torch.train.trainer import (make_optimizer,
+                                                           make_train_step)
+    model = build_model(name, 10, K)
+    model.load_state_dict(state)
+    model = model.to(device).train()
+    optimizer, scheduler, _ = make_optimizer(model, name,
+                                             1 + DP_TIMED_STEPS, 1)
+    step = make_train_step(model, optimizer, scheduler, name,
+                           torch.Generator(device=device).manual_seed(0))
+    with recorded_step(model, name) as rec:
+        loss, preds = step(torch.from_numpy(x).to(device),
+                           torch.from_numpy(labels).to(device), DP_VALID)
+    return {"loss": loss.cpu(), "preds": preds.cpu(), **rec,
+            "grads": {n: p.grad.cpu() for n, p in model.named_parameters()},
+            "state": {k: v.cpu() for k, v in model.state_dict().items()}}
+
+
+def first_step_gap(name, g_a, g_b, p0):
+    """How far the optimiser's first step puts the parameters of two
+    gradients apart: SGD's lr * g, Adam's lr * g / (|g| + eps), g with the
+    weight decay."""
+    from interpret_quality_tpu_torch.train.trainer import (WEIGHT_DECAY,
+                                                           lr_schedule_for)
+    lr = lr_schedule_for(name, 1 + DP_TIMED_STEPS, 1)(0)
+    ga, gb = g_a + WEIGHT_DECAY * p0, g_b + WEIGHT_DECAY * p0
+    if name in ("pointnet", "pointnet2"):
+        return lr * (ga / (ga.abs() + 1e-8) - gb / (gb.abs() + 1e-8)).abs()
+    return lr * (ga - gb).abs()
+
+
+def dgcnn_excused_clouds(ranks, ref):
+    """Clouds whose DGCNN selections differ between the DP step and the
+    single step: at the first call where a cloud differs, every differing
+    row must be a near tie (selection_gap within REL_LIMIT of the single
+    step's own features); later calls of that cloud follow from it."""
+    import torch
+    excused, worst = set(), 0.0
+    for call, (query, idx) in enumerate(ref["knn"]):
+        got = torch.cat([r["knn"][call][1] for r in ranks])
+        differ = (got != idx).any(-1).any(-1)
+        for b in differ.nonzero().flatten().tolist():
+            if b in excused:
+                continue
+            _, _, _, rel = selection_gap(query[b:b + 1], query[b:b + 1],
+                                         got[b:b + 1], idx[b:b + 1])
+            if rel > REL_LIMIT:
+                raise AssertionError(f"dgcnn DP step: cloud {b} selects "
+                                     f"other neighbours at kNN call {call}, "
+                                     f"{rel} apart")
+            excused.add(b)
+            worst = max(worst, rel)
+    return sorted(excused), worst
+
+
+def check_dp_family(name, ranks, ref, p0):
+    """One family's DP step (every rank's record) against the single
+    step: loss, dropout masks, DGCNN's selections, gradients, running
+    statistics and parameters."""
+    import torch
+    fam = [r["families"][name] for r in ranks]
+    got = fam[0]
+    if not torch.allclose(got["loss"], ref["loss"], rtol=STEP_LOGIT_TOL,
+                          atol=STEP_LOGIT_TOL):
+        raise AssertionError(f"{name} DP loss {got['loss']} vs {ref['loss']}")
+    mask_diff = 0
+    for call, (kept, nonzero) in enumerate(ref["masks"]):
+        k = torch.cat([f["masks"][call][0] for f in fam])
+        nz = torch.cat([f["masks"][call][1] for f in fam]) & nonzero
+        mask_diff += int(((k != kept) & nz).sum())
+    if mask_diff:
+        raise AssertionError(f"{name} DP dropout: {mask_diff} values kept "
+                             f"or dropped otherwise than the single step")
+    excused, worst = dgcnn_excused_clouds(fam, ref) if name == "dgcnn" \
+        else ([], 0.0)
+    g_ref = ref["grads"]
+    floor = STEP_GRAD_FLOOR * max(float(g.norm()) for g in g_ref.values())
+    grad_err = 0.0
+    for pname, want in g_ref.items():
+        err = float((got["grads"][pname] - want).norm())
+        if not err <= STEP_GRAD_REL * float(want.norm()) + floor:
+            raise AssertionError(f"{name} DP gradient {pname}: {err} vs "
+                                 f"|single| {float(want.norm())}")
+        grad_err = max(grad_err, err / (float(want.norm()) + floor))
+    stat_err = param_err = 0.0
+    for key, want in ref["state"].items():
+        diff = (got["state"][key] - want).abs()
+        scale = float(want.abs().max())
+        if key.endswith(("running_mean", "running_var")):
+            err = float(diff.max()) / scale
+            if not err <= STEP_STAT_TOL:
+                raise AssertionError(f"{name} DP {key}: {err}")
+            stat_err = max(stat_err, err)
+        elif key in g_ref:
+            over = diff - first_step_gap(name, got["grads"][key],
+                                         g_ref[key], p0[key])
+            err = float(over.max()) / max(scale, 1e-30)
+            if not err <= DP_PARAM_TOL:
+                raise AssertionError(f"{name} DP parameter {key}: {err}")
+            param_err = max(param_err, err)
+    return {"loss_abs_diff": float((got["loss"] - ref["loss"]).abs()),
+            "grad_max_rel_norm_err": grad_err, "stats_max_rel_err": stat_err,
+            "param_max_rel_err_beyond_first_step": param_err,
+            "dropout_calls": len(ref["masks"]),
+            "preds_equal_share": float((got["preds"] == ref["preds"]
+                                        ).float().mean()),
+            "excused_clouds": excused, "excused_max_rel_gap": worst}
+
+
+def run_data_parallel(device):
+    """The data_parallel phase: per DP_RUNS entry one set of ranks on the
+    card over every family, held against the single step; then
+    dryrun_multichip(1).  Returns (record, times, launches)."""
+    import torch
+    from interpret_quality_tpu_torch.parallel import spawn
+    from interpret_quality_tpu_torch.parallel.dryrun import dryrun_multichip
+    x, labels = dp_batch()
+    states = {name: seeded_model(name, "cpu").state_dict()
+              for name in TRAIN_MODELS}
+    phase = dict.fromkeys(all_launches(), 0)
+    before = all_launches()
+    refs = {name: single_dp_reference(name, states[name], x, labels, device)
+            for name in TRAIN_MODELS}
+    for k, v in launches_since(before).items():
+        phase[k] += v
+    torch.cuda.empty_cache()
+    out, times = {"cuts": DP_CUTS}, {}
+    for backend, world in DP_RUNS:
+        run = f"{backend}_world{world}"
+        t0 = time.time()
+        with stdout_to_stderr_fd():
+            ranks = spawn(dp_rank, world, backend, [device] * world,
+                          args=(states, x, labels, t0))
+        times[run] = {"spawn_to_rank_start_s": max(r["start_s"]
+                                                   for r in ranks),
+                      "spawn_total_s": time.time() - t0,
+                      "ms_per_step": {}}
+        out[run] = {}
+        for name in TRAIN_MODELS:
+            out[run][name] = check_dp_family(name, ranks, refs[name],
+                                             states[name])
+            times[run]["ms_per_step"][name] = max(
+                r["families"][name]["ms_per_step"] for r in ranks)
+            launched = {}
+            for r in ranks:
+                for k, v in r["families"][name]["launches"].items():
+                    launched[k] = launched.get(k, 0) + v
+                    phase[k] += v
+            wrong = [k for k, v in launched.items()
+                     if bool(v) != (k in TRAIN_STEP_KERNELS[name])]
+            if wrong:
+                raise AssertionError(f"{name} DP steps launched {launched}")
+            out[run][name]["launches"] = {k: v for k, v in launched.items()
+                                          if v}
+    before = all_launches()
+    t0 = time.time()
+    printed = io.StringIO()
+    with stdout_to_stderr_fd(), contextlib.redirect_stdout(printed):
+        dryrun_multichip(1, "cuda")
+    lines = [line for line in printed.getvalue().splitlines()
+             if line.startswith("[dryrun]")]
+    log("\n".join(lines))
+    if len(lines) != 6:
+        raise AssertionError(f"dryrun_multichip(1): {lines}")
+    out["dryrun_multichip_1"] = {"ok_lines": len(lines),
+                                 "seconds": time.time() - t0}
+    for k, v in launches_since(before).items():
+        phase[k] += v
+    out["launches"] = {k: v for k, v in phase.items() if v}
+    return out, times, phase
+
+
 # -------------------------------------------------------------------- mesh
 def check_mesh_cli(workdir, device):
     """cli.shapley_value on DGCNN with --mesh_devices 1 and without: the
@@ -2590,6 +2999,8 @@ def main() -> int:
             adversarial, adv_launches = run_adversarial(
                 train_dir, device,
                 gcnn_checkpoint(os.path.join(train_dir, "ck")))
+            torch.cuda.empty_cache()
+            robustness, rob_launches = run_adv_robustness(train_dir, device)
     finally:
         os.chdir(cwd)
     shutil.rmtree(train_dir, ignore_errors=True)
@@ -2597,6 +3008,17 @@ def main() -> int:
           "peak_memory_gb": train_peak_gb, "cuts": TRAIN_CUTS})
     emit({"phase": "adversarial", **adversarial, "nvidia_smi": smi,
           "cuts": ADV_CUTS})
+    emit({"phase": "adv_robustness", **robustness, "cuts": ROBUST_CUTS})
+    torch.cuda.empty_cache()
+
+    with contextlib.redirect_stdout(sys.stderr):
+        dp, dp_times, dp_launches = run_data_parallel(device)
+    emit({"phase": "data_parallel", **dp})
+    emit({"phase": "data_parallel_times", **dp_times, "nvidia_smi": smi,
+          "single_step_ms": {name: train[name]["fixed_batch_steps"][
+              "ms_per_step"] for name in TRAIN_MODELS},
+          "note": "world 2 is two gloo ranks on one card: no scaling "
+                  "number; each step includes the replicas' checksum"})
     torch.cuda.empty_cache()
 
     mesh_dir = os.path.join(workdir, "mesh")
@@ -2624,7 +3046,8 @@ def main() -> int:
     emit({"kernels": [
         {"name": kname, "route": "cuda", "source": src(module),
          "replaces": pallas + where, "launches": launches[kname],
-         "train_launches": train["launches"][kname] + adv_launches[kname],
+         "train_launches": train["launches"][kname] + adv_launches[kname]
+         + rob_launches[kname] + dp_launches[kname],
          "library_ms": None, **numbers,
          **({"kernel_phase_launches": k8_launches, "off_path": OFF_PATH[kname]}
             if kname in OFF_PATH else {})}

@@ -20,6 +20,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..parallel import data_parallel
+
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1     # torch's; flax's momentum 0.9 is the same update
 LEAKY_SLOPE = 0.2
@@ -63,14 +65,24 @@ def batch_norm(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
     running variance takes the biased batch variance, as flax's ``nn.BatchNorm``
     stores it, unless ``unbiased_update``: then v * n / (n - 1), as the JAX
     package's edge convs store it (``models/dgcnn.py:107-110`` there) and
-    torch's BatchNorm always does.
+    torch's BatchNorm always does.  Under a data-parallel context
+    (``parallel.data_parallel``) both passes are all-reduced sums over the
+    global batch and n counts its rows, as the JAX package's step sharded
+    over a mesh takes them.
     """
     dims = tuple(range(x.dim() - 1))
-    mean = x.mean(dim=dims)
-    xc = x - mean
-    var = xc.square().mean(dim=dims)
+    n = x.numel() // x.shape[-1]
+    dp = data_parallel.active()
+    if dp is None:
+        mean = x.mean(dim=dims)
+        xc = x - mean
+        var = xc.square().mean(dim=dims)
+    else:                   # the same two passes over the global batch
+        n *= dp.world
+        mean = dp.all_reduce(x.sum(dim=dims)) / n
+        xc = x - mean
+        var = dp.all_reduce(xc.square().sum(dim=dims)) / n
     with torch.no_grad():
-        n = x.numel() // x.shape[-1]
         update = var * (n / max(n - 1, 1)) if unbiased_update else var
         bn.running_mean.mul_(1.0 - BN_MOMENTUM).add_(BN_MOMENTUM * mean)
         bn.running_var.mul_(1.0 - BN_MOMENTUM).add_(BN_MOMENTUM * update)
@@ -92,7 +104,9 @@ class Dropout(nn.Module):
     is given, never from torch's or numpy's global stream: in training each
     value is kept with probability 1 - p and scaled by 1 / (1 - p); in eval,
     or at p = 0, the input passes unchanged (the reference's ``nn.Dropout``
-    in both)."""
+    in both).  Under a data-parallel context the mask is drawn for the
+    global batch, from a generator seeded alike on every rank, and each
+    rank keeps its rows: the mask of the single-process step."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -106,7 +120,14 @@ class Dropout(nn.Module):
             raise ValueError("a Dropout in training needs a torch.Generator "
                              "(pass generator=...), or call .eval() on it")
         keep = 1.0 - self.p
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        dp = data_parallel.active()
+        if dp is None:
+            mask = torch.rand(x.shape, generator=generator,
+                              device=x.device) < keep
+        else:               # the global batch's mask, this rank's rows
+            mask = torch.rand((dp.global_batch, *x.shape[1:]),
+                              generator=generator,
+                              device=x.device)[dp.rows(x.shape[0])] < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..parallel import data_parallel
 from .common import Dropout, bn_apply, conv_bn_relu, pointwise
 
 
@@ -100,7 +101,13 @@ class PointNetCls(nn.Module):
 
 def feature_transform_regularizer(trans: torch.Tensor) -> torch.Tensor:
     """||T T^t - I||_F, the mean over the batch (reference
-    pointnet.py:119-126)."""
+    pointnet.py:119-126).  Under a data-parallel context, this rank's share
+    of the mean over the global batch (its sum over the global count): the
+    shares of all ranks sum to it, as the losses' do."""
     eye = torch.eye(trans.shape[-1], dtype=trans.dtype, device=trans.device)
     diff = torch.matmul(trans, trans.transpose(-1, -2)) - eye
-    return torch.linalg.matrix_norm(diff).mean()
+    norms = torch.linalg.matrix_norm(diff)
+    dp = data_parallel.active()
+    if dp is None:
+        return norms.mean()
+    return norms.sum() / (norms.shape[0] * dp.world)

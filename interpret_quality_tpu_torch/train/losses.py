@@ -8,17 +8,24 @@ from typing import Optional
 import torch
 from torch.nn import functional as F
 
+from ..parallel import data_parallel
+
 SMOOTHING_EPS = 0.2
 
 
 def _weighted_mean(per_sample: torch.Tensor,
                    weights: Optional[torch.Tensor]) -> torch.Tensor:
     """Mean over rows; with ``weights`` (a padded tail's validity mask), the
-    weighted mean, so the pad rows carry no gradient."""
+    weighted mean, so the pad rows carry no gradient.  Under a
+    data-parallel context the weighted mean is this rank's share of the
+    global batch's: its rows' sum over the all-reduced sum of the
+    weights."""
     if weights is None:
         return per_sample.mean()
     w = weights.to(per_sample.dtype)
-    return (per_sample * w).sum() / w.sum().clamp(min=1.0)
+    dp = data_parallel.active()
+    total = w.sum() if dp is None else dp.all_reduce(w.sum())
+    return (per_sample * w).sum() / total.clamp(min=1.0)
 
 
 def smooth_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

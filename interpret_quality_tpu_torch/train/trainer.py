@@ -148,6 +148,20 @@ def valid_weights(batch: int, valid: int, device) -> torch.Tensor:
     return torch.arange(batch, device=device) < valid
 
 
+def train_loss(model: torch.nn.Module, model_name: str, data: torch.Tensor,
+               labels: torch.Tensor, weights: torch.Tensor,
+               generator: Optional[torch.Generator] = None):
+    """(loss, logits) of the train forward: the family's loss, the pad rows
+    masked out by ``weights``, plus PointNet's regulariser."""
+    logits, trans_feat = train_forward(model, data, generator)
+    loss = cal_loss(logits, labels, smoothing=model_name in SMOOTHED,
+                    weights=weights)
+    if trans_feat is not None:                      # PointNet's
+        reg = feature_transform_regularizer(trans_feat)
+        loss = loss + reg * FT_REG_WEIGHT
+    return loss, logits
+
+
 def make_train_step(model: torch.nn.Module, optimizer, scheduler,
                     model_name: str,
                     generator: Optional[torch.Generator] = None):
@@ -155,15 +169,11 @@ def make_train_step(model: torch.nn.Module, optimizer, scheduler,
     the model in the mode its caller set (training: batch statistics,
     dropout from ``generator``).  The loss and the predictions (of the
     logits before the step) stay on the device."""
-    smoothing = model_name in SMOOTHED
 
     def step(data: torch.Tensor, labels: torch.Tensor, valid: int):
         weights = valid_weights(data.shape[0], valid, data.device)
-        logits, trans_feat = train_forward(model, data, generator)
-        loss = cal_loss(logits, labels, smoothing=smoothing, weights=weights)
-        if trans_feat is not None:                  # PointNet's
-            reg = feature_transform_regularizer(trans_feat)
-            loss = loss + reg * FT_REG_WEIGHT
+        loss, logits = train_loss(model, model_name, data, labels, weights,
+                                  generator)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         optimizer.step()

@@ -713,3 +713,91 @@ def test_cli_shapley_init_over_the_visible_cards(cuda, tmp_path, monkeypatch):
     np.testing.assert_allclose(svn, sv1, rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(nfn, nf1, rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(svn.sum(1), nfn, rtol=1e-3, atol=1e-4)
+
+
+# -------------------------------------------------------- data parallel
+def _first_step_gap(name, g_a, g_b, p0):
+    """How far the optimiser's first step puts the parameters of two
+    gradients apart: SGD's lr * g, Adam's lr * g / (|g| + eps), g with the
+    weight decay."""
+    from interpret_quality_tpu_torch.train.trainer import (WEIGHT_DECAY,
+                                                           lr_schedule_for)
+    lr = lr_schedule_for(name, 1, 1)(0)
+    ga, gb = g_a + WEIGHT_DECAY * p0, g_b + WEIGHT_DECAY * p0
+    if name in ("pointnet", "pointnet2"):
+        return lr * (ga / (ga.abs() + 1e-8) - gb / (gb.abs() + 1e-8)).abs()
+    return lr * (ga - gb).abs()
+
+
+def _dp_against_the_single_step(name, backend, devices):
+    """One data-parallel step over ``devices`` (dropout on, a padded tail)
+    against trainer.make_train_step on the whole batch on the first card,
+    from the same weights and generator seed: loss, every gradient and
+    running statistic within the TRAIN_* bounds, every parameter within
+    1e-6 of its buffer's largest value of where the first step puts the
+    two gradients apart."""
+    import torch_dp_ranks
+    from interpret_quality_tpu_torch.models import build_model
+    from interpret_quality_tpu_torch.parallel import spawn
+    from interpret_quality_tpu_torch.train.trainer import (make_optimizer,
+                                                           make_train_step)
+    world = len(devices)
+    xs, ls = zip(*(_grid_clouds(256, seed) for seed in range(world)))
+    x, labels = torch.cat(xs), torch.cat(ls)
+    valid = x.shape[0] - 1
+    torch.manual_seed(0)
+    state = build_model(name, 10, 20).state_dict()
+    got = spawn(torch_dp_ranks.dp_step_cases, world, backend, devices,
+                args=([(name, state, x.numpy(), labels.numpy(), valid, 1,
+                        True, torch.float32)],))[0][0]
+    model = build_model(name, 10, 20)
+    model.load_state_dict(state)
+    model = model.to(devices[0]).train()
+    optimizer, scheduler, _ = make_optimizer(model, name, 1, 1)
+    step = make_train_step(model, optimizer, scheduler, name,
+                           torch.Generator(device=devices[0]).manual_seed(1))
+    loss, _ = step(x.to(devices[0]), labels.to(devices[0]), valid)
+    grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    tol = dict(rtol=TRAIN_LOGIT_TOL, atol=TRAIN_LOGIT_TOL)
+    assert torch.allclose(got["loss"], loss.cpu(), **tol)
+    floor = TRAIN_GRAD_FLOOR * max(float(g.norm()) for g in grads.values())
+    for p, want in grads.items():
+        assert float((got["grads"][p] - want).norm()) <= \
+            TRAIN_GRAD_REL * float(want.norm()) + floor, p
+    for key, want in model.state_dict().items():
+        want, have = want.cpu(), got["state"][key]
+        if key.endswith(("running_mean", "running_var")):
+            assert float((have - want).abs().max()) <= \
+                TRAIN_STAT_TOL * float(want.abs().max()), key
+        elif key in grads:
+            gap = _first_step_gap(name, got["grads"][key], grads[key],
+                                  state[key])
+            assert float(((have - want).abs() - gap).max()) <= \
+                1e-6 * float(want.abs().max()), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gcnn", "pointnet2"])
+def test_dp_step_world_one_nccl_matches_the_single_step(cuda, name):
+    """The data-parallel step on one rank through NCCL: the kNN or FPS
+    kernel gives its graph or centres, and it is the single step."""
+    _dp_against_the_single_step(name, "nccl", [torch.device("cuda", 0)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gcnn", "pointnet"])
+def test_dp_step_over_the_visible_cards(cuda, name):
+    """The data-parallel step over every visible card through NCCL (needs
+    two or more): one rank a card, BatchNorm's statistics and the loss
+    over the whole batch, the single step on the first card."""
+    from interpret_quality_tpu_torch.parallel import make_mesh
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    _dp_against_the_single_step(name, "nccl", make_mesh())
+
+
+@pytest.mark.cuda
+def test_dryrun_on_the_visible_cards(cuda):
+    """dryrun_multichip over every visible card (one card: world 1)."""
+    from interpret_quality_tpu_torch.parallel.dryrun import dryrun_multichip
+    dryrun_multichip(torch.cuda.device_count(), "cuda")

@@ -45,6 +45,18 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     assert offenders == []
 
 
+def test_port_scripts_import_no_jax():
+    """The port's scripts beside the package, and chip_smoke.py, which
+    runs on a machine without JAX."""
+    paths = [os.path.join(REPO, "chip_smoke.py")] + sorted(
+        os.path.join(REPO, "scripts", n)
+        for n in os.listdir(os.path.join(REPO, "scripts"))
+        if n.endswith("_torch.py"))
+    assert any(p.endswith("adv_robustness_torch.py") for p in paths)
+    for path in paths:
+        assert not set(_imported_top_levels(path)) & FORBIDDEN, path
+
+
 def test_importing_every_port_module_loads_no_jax():
     code = ("import importlib, sys\n"
             f"for m in {_port_modules()!r}:\n"
@@ -56,7 +68,7 @@ def test_importing_every_port_module_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert len(_port_modules()) >= 56
+    assert len(_port_modules()) >= 58
     assert {f"interpret_quality_tpu_torch.{m}" for m in (
         "ops.cuda.fps", "ops.cuda.groups", "ops.cuda.launch",
         "models.pointnet", "models.pointnet2", "models.pointconv",
@@ -67,7 +79,7 @@ def test_importing_every_port_module_loads_no_jax():
         "results.visualization", "cli.result", "cli.plot_interaction",
         "train", "train.losses", "train.trainer", "cli.train",
         "train.adversarial", "cli.train_adv", "parallel", "parallel.mesh",
-        "ops.transforms")
+        "ops.transforms", "parallel.data_parallel", "parallel.dryrun")
     } <= set(_port_modules())
 
 

@@ -119,7 +119,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
              data_parallel_times line, beside the train phase's single
              step and the time to start the ranks: world 2 on one card is
              no scaling number); kNN in the edge-conv steps and FPS in
-             PointNet++'s and PointConv's; then dryrun_multichip(1).
+             PointNet++'s and PointConv's; then dryrun_multichip(1).  Each
+             family's record names the parameter behind its largest
+             gradient gap (grad_worst: gap over the single step's norm
+             plus the floor, the figure the check bounds) and the one
+             whose gap is largest over its own norm alone
+             (grad_worst_without_floor), each with its gap and norm.
   9. mesh    cli.shapley_value --mesh_devices 1 against no flag (DGCNN,
              equal artifacts); a virtual split over [cuda, cuda] of
              DGCNN's and PointNet++'s forward and plan path on the masked
@@ -127,6 +132,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
              within 1e-3 of the whole batch's (its equal rows reported);
              one Shapley init with --trace_dir, whose trace must name the
              kernels' iq_* launch spans; the number of visible devices.
+  10. bench  bench_torch.py in a subprocess over the five families
+             (BENCH_ARGS) with --checkpoints_root at the main path's tree:
+             DGCNN, PointNet++ and PointConv take their sustained rates
+             from its enum logs, PointNet and GCNN run the enum probe; the
+             last line keeps bench.py's keys, every engine rate is finite,
+             each family's kernels launch in its engine run and kernels 1-7
+             over the run; then scripts/suite_wallclock_torch.py,
+             collect_evidence_torch.py (DGCNN), make_results_md_torch.py
+             and make_compare_md_torch.py on that tree, their outputs under
+             build/chip_smoke/; then bench_torch.py for DGCNN with no tree,
+             whose rates must come from that evidence and whose measured
+             line from that wall-clock file.  Any non-zero exit, missing
+             rate or basis not from the port's own logs, evidence or probes
+             fails the phase.
 
 Plots (matplotlib) and flax .msgpack checkpoints (msgpack) are held by the
 CPU tests only (tests/test_torch_results.py, tests/test_torch_checkpoint.py):
@@ -135,8 +154,9 @@ this script imports neither, so it needs neither on the card's machine.
 Every line on stdout is one JSON object.  The first ("device") carries the
 card's name and power limit as nvidia-smi prints them; the "kernels" line
 comes just before the last, which is {"ok": true, "device": {...}}; its
-rows carry each kernel's launches on the main path and in the train,
-adversarial, adv_robustness and data_parallel phases.
+rows carry each kernel's launches on the main path, in the train,
+adversarial, adv_robustness and data_parallel phases, and in the bench
+phase's first bench_torch.py run.
 The run uses one card: the first that CUDA_VISIBLE_DEVICES names, else card 0.
 Artifacts go to build/chip_smoke/ in the checkout.
 """
@@ -296,6 +316,13 @@ DP_CUTS = ("one checked and three timed steps per family on one fixed "
 ROBUST_TOP2_REL = 1e-3
 ROBUST_CUTS = ("checkpoints of the train phase's 2-epoch GCNN and the "
                "adversarial phase's 2-epoch adv-GCNN, not trained models")
+# The bench phase: bench_torch.py at these depths over the five families;
+# the families the main path does not enumerate run its enum probe.
+BENCH_ARGS = ("--steps", "3", "--warmup", "1", "--max_poses", "2")
+BENCH_PROBED = ("pointnet", "gcnn")
+BENCH_HEADLINE_KEYS = ["metric", "value", "unit", "vs_baseline",
+                       "suite_speedup_vs_ref_geomean", "suite_basis",
+                       "measured_suite_speedup_pointnet"]
 # Kernels that no entry point reaches, so the main path cannot launch them:
 # they are held in the kernel phase alone.
 OFF_PATH = {"gather_rows": "no entry point of the JAX package calls "
@@ -2666,14 +2693,25 @@ def check_dp_family(name, ranks, ref, p0):
     excused, worst = dgcnn_excused_clouds(fam, ref) if name == "dgcnn" \
         else ([], 0.0)
     g_ref = ref["grads"]
-    floor = STEP_GRAD_FLOOR * max(float(g.norm()) for g in g_ref.values())
-    grad_err = 0.0
+    largest = max(float(g.norm()) for g in g_ref.values())
+    floor = STEP_GRAD_FLOOR * largest
+    grad_err, worst_gap, worst_unfloored = 0.0, None, None
     for pname, want in g_ref.items():
-        err = float((got["grads"][pname] - want).norm())
-        if not err <= STEP_GRAD_REL * float(want.norm()) + floor:
+        err, norm = float((got["grads"][pname] - want).norm()), \
+            float(want.norm())
+        if not err <= STEP_GRAD_REL * norm + floor:
             raise AssertionError(f"{name} DP gradient {pname}: {err} vs "
-                                 f"|single| {float(want.norm())}")
-        grad_err = max(grad_err, err / (float(want.norm()) + floor))
+                                 f"|single| {norm}")
+        gap = {"param": pname, "gap_norm": err, "single_norm": norm,
+               "rel_gap": err / norm if norm > 0 else 0.0,
+               "rel_gap_with_floor": err / (norm + floor)}
+        if worst_gap is None or gap["rel_gap_with_floor"] > \
+                worst_gap["rel_gap_with_floor"]:
+            worst_gap = gap
+        if worst_unfloored is None or gap["rel_gap"] > \
+                worst_unfloored["rel_gap"]:
+            worst_unfloored = gap
+        grad_err = max(grad_err, gap["rel_gap_with_floor"])
     stat_err = param_err = 0.0
     for key, want in ref["state"].items():
         diff = (got["state"][key] - want).abs()
@@ -2691,7 +2729,10 @@ def check_dp_family(name, ranks, ref, p0):
                 raise AssertionError(f"{name} DP parameter {key}: {err}")
             param_err = max(param_err, err)
     return {"loss_abs_diff": float((got["loss"] - ref["loss"]).abs()),
-            "grad_max_rel_norm_err": grad_err, "stats_max_rel_err": stat_err,
+            "grad_max_rel_norm_err": grad_err,
+            "grad_worst": worst_gap,
+            "grad_worst_without_floor": worst_unfloored,
+            "grad_floor": floor, "stats_max_rel_err": stat_err,
             "param_max_rel_err_beyond_first_step": param_err,
             "dropout_calls": len(ref["masks"]),
             "preds_equal_share": float((got["preds"] == ref["preds"]
@@ -2896,6 +2937,177 @@ def run_mesh(workdir, device):
     return out
 
 
+# ------------------------------------------------------------------- bench
+def run_script(args, cwd, timeout: int = 600) -> str:
+    """stdout of ``python <args>`` run from ``cwd`` on this card; its
+    stderr goes to ours; raises on a non-zero exit."""
+    proc = subprocess.run([sys.executable, *args], cwd=cwd, text=True,
+                          capture_output=True, timeout=timeout,
+                          env=dict(os.environ, PYTHONPATH=REPO))
+    sys.stderr.write(proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(args)} exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def bench_output(stdout: str) -> dict:
+    """bench_torch.py's lines: the headline (last), with bench.py's keys,
+    and what its ``#`` lines carry."""
+    lines = stdout.strip().splitlines()
+    out = {"headline": json.loads(lines[-1]), "engine": {}, "probes": {}}
+    if list(out["headline"]) != BENCH_HEADLINE_KEYS:
+        raise AssertionError(f"bench headline {out['headline']}")
+    for line in lines[:-1]:
+        if not line.startswith("# "):
+            raise AssertionError(f"bench printed {line!r} before its result")
+        body = line[2:]
+        for tag in ("device", "enum_probe", "rate_sources",
+                    "measured_wallclock"):
+            if body.startswith(tag + " "):
+                rec = json.loads(body[len(tag) + 1:])
+                if tag == "enum_probe":
+                    out["probes"][rec["model"]] = rec
+                else:
+                    out[tag] = rec
+                break
+        else:
+            if body.startswith('{"per_model"'):
+                out["per_model"] = json.loads(body)["per_model"]
+            elif body.startswith('{"model"'):
+                rec = json.loads(body)
+                out["engine"][rec["model"]] = rec
+    return out
+
+
+def check_bench(out, smi, models, source_ok):
+    """Every family's engine rate finite and positive; each family's rates
+    from files that ``source_ok`` accepts (the main path's logs, the port's
+    evidence) or from a probe; the kernels of each family launched in its
+    engine run."""
+    if out["device"]["device"] != smi:
+        raise AssertionError(f"bench device {out['device']} vs {smi}")
+    if sorted(out["per_model"]) != sorted(models) or \
+            sorted(out["engine"]) != sorted(models):
+        raise AssertionError(f"bench models {sorted(out['per_model'])}")
+    for model in models:
+        rate = out["engine"][model]["forwards_per_sec"]
+        if not (np.isfinite(rate) and rate > 0):
+            raise AssertionError(f"bench {model}: engine rate {rate}")
+        launched = out["engine"][model]["kernel_launches"]
+        if sorted(launched) != sorted(FAMILY_KERNELS[model]):
+            raise AssertionError(f"bench {model} engine launched {launched}")
+        basis = out["per_model"][model]["basis"]
+        sources = out["rate_sources"][model]
+        if model in BENCH_PROBED:
+            ok = basis == "enum_probe" and model in out["probes"] and \
+                not sources
+        else:
+            ok = basis in ("stage_logs", "stage_logs_partial") and \
+                sources and all(source_ok(p) for p in sources)
+        if not ok:
+            raise AssertionError(f"bench {model}: basis {basis} from "
+                                 f"{sources}")
+
+
+def run_bench(workdir, smi, main_rates):
+    """The bench phase: bench_torch.py over the five families on the main
+    path's tree (DGCNN, PointNet++ and PointConv read its enum logs,
+    PointNet and GCNN run the probe), the port's report scripts on that
+    tree, then bench_torch.py for DGCNN with no tree, whose rates come
+    from the port's evidence just collected.  Returns (kernel launches of
+    the first run, record)."""
+    t_phase = time.perf_counter()
+    ck = os.path.join(workdir, "ck")
+    bench_dir = os.path.join(workdir, "bench")
+    results = os.path.join(bench_dir, "results")
+    os.makedirs(results)
+    bench = os.path.join(REPO, "bench_torch.py")
+    t0 = time.perf_counter()
+    first = bench_output(run_script(
+        [bench, "--checkpoints_root", ck, *BENCH_ARGS], bench_dir))
+    bench_s = time.perf_counter() - t0
+    check_bench(first, smi, TRAIN_MODELS,
+                lambda path: path.startswith(ck + "/"))
+    if first["headline"]["suite_basis"] != "measured_mixed":
+        raise AssertionError(f"bench suite_basis {first['headline']}")
+    launches = {}
+    for rec in list(first["engine"].values()) + list(
+            first["probes"].values()):
+        for k, v in rec["kernel_launches"].items():
+            launches[k] = launches.get(k, 0) + v
+
+    scripts = os.path.join(REPO, "scripts")
+    t0 = time.perf_counter()
+    tree = ["--synthetic", "--checkpoints_root", ck, "--samples",
+            RESULT_SAMPLES]
+    wallclock = os.path.join(results, "suite_wallclock_torch.json")
+    run_script([os.path.join(scripts, "suite_wallclock_torch.py"),
+                "--checkpoints_root", ck, "--out", wallclock], bench_dir)
+    evidence = os.path.join(results, "dgcnn_synthetic_torch.json")
+    run_script([os.path.join(scripts, "collect_evidence_torch.py"),
+                "--model", "dgcnn", *tree, "--label", smi, "--out",
+                evidence], bench_dir)
+    md = os.path.join(workdir, "RESULTS_torch.md")
+    run_script([os.path.join(scripts, "make_results_md_torch.py"),
+                "--model", "dgcnn", *tree, "--label", smi, "--out", md],
+               bench_dir)
+    run_script([os.path.join(scripts, "make_compare_md_torch.py"), *tree,
+                "--models", ",".join(ENUM_MODELS), "--label", smi, "--out",
+                md], bench_dir)
+    reports_s = time.perf_counter() - t0
+    with open(wallclock) as f:
+        wc = json.load(f)
+    with open(evidence) as f:
+        ev = json.load(f)
+    with open(md) as f:
+        text = f.read()
+    if wc["hardware"] != smi or sorted(wc["families"]) != sorted(
+            TRAIN_MODELS):
+        raise AssertionError(f"suite_wallclock: {wc['hardware']}, "
+                             f"{sorted(wc['families'])}")
+    if ev["device"] != smi or not {"enum", "interaction", "shapley_init",
+                                   "smoothness"} <= set(
+                                       ev["stage_rates_by_stage"]):
+        raise AssertionError(f"evidence {ev['device']}: "
+                             f"{ev['stage_rates_by_stage']}")
+    sections = ("## Table 2", "## Table 3", "## Table 4",
+                "## Stage throughput", "# Cross-model comparison")
+    if not all(sec in text for sec in sections):
+        raise AssertionError(f"RESULTS_torch.md lacks a section: {text}")
+
+    t0 = time.perf_counter()
+    second = bench_output(run_script(
+        [bench, "--model", "dgcnn", "--checkpoints_root",
+         os.path.join(bench_dir, "no_tree"), "--no_probe", *BENCH_ARGS],
+        bench_dir))
+    evidence_s = time.perf_counter() - t0
+    check_bench(second, smi, ("dgcnn",),
+                lambda path: path == "results/dgcnn_synthetic_torch.json")
+    if second["headline"]["suite_basis"] != "stage_logs" or \
+            second["headline"]["measured_suite_speedup_pointnet"] is None:
+        raise AssertionError(f"bench from evidence: {second['headline']}, "
+                             f"{second['rate_sources']}")
+    return launches, {
+        "headline": first["headline"],
+        "engine_forwards_per_sec": {m: r["forwards_per_sec"]
+                                    for m, r in first["engine"].items()},
+        "main_path_init_forwards_per_s": {
+            m: main_rates[f"shapley_init_{m}"]["forwards_per_s"]
+            for m in TRAIN_MODELS},
+        "probe_forwards_per_sec": {m: r["sustained_forwards_per_sec"]
+                                   for m, r in first["probes"].items()},
+        "per_model": first["per_model"],
+        "kernel_launches": launches,
+        "from_evidence": {"headline": second["headline"],
+                          "per_model": second["per_model"]},
+        "suite_wallclock_families": sorted(wc["families"]),
+        "evidence_stage_rates": ev["stage_rates_by_stage"],
+        "args": list(BENCH_ARGS), "nvidia_smi": smi, "bench_s": bench_s,
+        "reports_s": reports_s, "bench_from_evidence_s": evidence_s,
+        "seconds": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     # the run uses one card: show it only that one
     os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get(
@@ -3032,6 +3244,23 @@ def main() -> int:
     shutil.rmtree(mesh_dir, ignore_errors=True)
     emit({"phase": "mesh", **mesh})
 
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()      # the bench's processes share the card
+    log(f"before bench: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
+    os.chdir(workdir)
+    try:
+        bench_launches, bench = run_bench(workdir, smi, rates)
+    finally:
+        os.chdir(cwd)
+    missing = [k for k in launches if k not in OFF_PATH
+               and not bench_launches.get(k)]
+    if missing:
+        raise AssertionError(f"kernels never launched by bench_torch.py: "
+                             f"{missing}")
+    emit({"phase": "bench", **bench})
+
     def src(module):
         return os.path.relpath(build.source_path(module), REPO)
     pallas = "interpret_quality_tpu/ops/pallas/"
@@ -3048,6 +3277,7 @@ def main() -> int:
          "replaces": pallas + where, "launches": launches[kname],
          "train_launches": train["launches"][kname] + adv_launches[kname]
          + rob_launches[kname] + dp_launches[kname],
+         "bench_launches": bench_launches.get(kname, 0),
          "library_ms": None, **numbers,
          **({"kernel_phase_launches": k8_launches, "off_path": OFF_PATH[kname]}
             if kname in OFF_PATH else {})}

@@ -5,17 +5,15 @@ poses and the most perturbation-sensitive region, plus the 6-model x
 Replaces reference plot_interaction.py (the port's copy of
 ``interpret_quality_tpu/results/plots.py``); reads the
 ratio<r>_<type>_interaction.npy artifacts of any of the three
-implementations.  Needs matplotlib (the ``agg`` backend).
+implementations.  The plots need matplotlib (the ``agg`` backend), which
+is imported when one is drawn: the helpers that read the interaction
+arrays need only numpy.
 """
 from __future__ import annotations
 
 import os
 from typing import List, Sequence
 
-import matplotlib
-
-matplotlib.use("agg")
-import matplotlib.pyplot as plt
 import numpy as np
 
 from ..attrib.interactions import RATIOS, selected_sample_indices
@@ -95,6 +93,14 @@ def get_interaction_single_region(cfg: ExperimentConfig, mode: str,
     return np.array(all_mean), np.array(all_abs)
 
 
+def _pyplot():
+    """matplotlib.pyplot on the ``agg`` backend."""
+    import matplotlib
+    matplotlib.use("agg")
+    import matplotlib.pyplot as plt
+    return plt
+
+
 def _bar_double(ax, orders, a, b, title=None, color2=None, labels=None):
     w = 0.035
     ax.bar(orders, a, w, label=(labels[0] if labels else None), color="#4169E1")
@@ -130,6 +136,7 @@ def plot_single_region_vs_normal_avg(cfg: ExperimentConfig, mode: str,
         np.save(save_dir + f"{cfg.model}_{cfg.dataset}_{tag}.npy", arr)
 
     orders = np.arange(0, 1.3, 0.1)
+    plt = _pyplot()
     fig, ax = plt.subplots(figsize=(5, 5), dpi=200)
     _bar_double(ax, orders, np.abs(mean_n).mean(axis=0),
                 np.abs(mean_sr[:, 0, :]).mean(axis=0), color2="y")
@@ -147,6 +154,7 @@ def plot_normal_vs_adv(cfg: ExperimentConfig, mode: str, names: Sequence[str],
     mean_n, _, mean_a, _ = get_interaction_normal_adv_pose(
         cfg, mode, names, output_type, sample_indices=sample_indices)
     orders = np.arange(0, 1.3, 0.1)
+    plt = _pyplot()
     fig, ax = plt.subplots(figsize=(5, 5), dpi=200)
     _bar_double(ax, orders, np.abs(mean_n).mean(axis=0),
                 np.abs(mean_a).mean(axis=0),
@@ -168,6 +176,7 @@ def plot_all_models(fig_root: str = "figures",
     normal vs adv (top) and all-regions vs most-sensitive-region (bottom)."""
     orders = np.arange(0, 1.3, 0.1)
     nmodels = len(model_names)
+    plt = _pyplot()
     fig, axes = plt.subplots(2 * len(datasets), nmodels,
                              figsize=(5 * nmodels, 16), dpi=100)
     # one model or one row yields a 1-D array: (rows, models) whatever the

@@ -5,6 +5,7 @@ the seconds, so aggregators sum items directly instead of multiplying back
 through a rounded rate.  Stages end by copying their results to the host,
 which waits for the device, so the wall clock covers the device work.
 ``device_trace`` wraps a stage's device work in a ``torch.profiler`` trace.
+``device_line`` names the hardware a measurement ran on.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import contextlib
 import json
 import os
 import re
+import subprocess
 import time
 from typing import Optional
 
@@ -48,6 +50,19 @@ class StageTimer:
         if self.printer is not None:
             self.printer(json.dumps(rec))
         return False
+
+
+def device_line(device: str = "cuda") -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them (the
+    first card's line), or ``cpu`` for ``device`` "cpu".  Raises where
+    nvidia-smi cannot be run."""
+    if device == "cpu":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 @contextlib.contextmanager

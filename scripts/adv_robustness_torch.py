@@ -24,7 +24,6 @@ limit when it runs on the card.  Runs on the card unless ``--device cpu``.
 import argparse
 import json
 import os
-import subprocess
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -40,6 +39,8 @@ from interpret_quality_tpu_torch.train.adversarial import \
     random_rotation_eval_batch  # noqa: E402
 from interpret_quality_tpu_torch.train.trainer import (  # noqa: E402
     balanced_accuracy, eval_step, evaluate)
+from interpret_quality_tpu_torch.utils.profiling import \
+    device_line  # noqa: E402
 
 RUNS = {
     "gcnn": "exp_MODEL_gcnn_DATA_modelnet10_POINTNUM_1024_clean/models",
@@ -104,14 +105,6 @@ def eval_rot_robustness(model, test_ds, device, rot_draws=ROT_DRAWS,
     return float(np.mean(accs)), float(np.std(accs))
 
 
-def card_line() -> str:
-    """The card's name and power limit as nvidia-smi prints them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-
-
 def run(device, checkpoints_root="checkpoints", num_points=NUM_POINTS,
         rot_draws=ROT_DRAWS, num_samples=NUM_SAMPLES) -> dict:
     """The JSON record of both models."""
@@ -125,7 +118,7 @@ def run(device, checkpoints_root="checkpoints", num_points=NUM_POINTS,
            "device": str(device), "models": {}}
     if device.type == "cuda":
         out["card"] = {"name": torch.cuda.get_device_name(device),
-                       "nvidia_smi": card_line()}
+                       "nvidia_smi": device_line("cuda")}
     for name in RUNS:
         path = checkpoint_path(checkpoints_root, name)
         if path is None:

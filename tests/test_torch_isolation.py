@@ -45,16 +45,32 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     assert offenders == []
 
 
+PORT_SCRIPTS = {"adv_robustness_torch.py", "model_flops_torch.py",
+                "suite_wallclock_torch.py", "collect_evidence_torch.py",
+                "make_results_md_torch.py", "make_compare_md_torch.py",
+                "export_t7_torch.py", "make_shapenet_fixture_torch.py"}
+
+
+def _string_constants(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    return {node.value for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)}
+
+
 def test_port_scripts_import_no_jax():
-    """The port's scripts beside the package, and chip_smoke.py, which
-    runs on a machine without JAX."""
-    paths = [os.path.join(REPO, "chip_smoke.py")] + sorted(
+    """The port's scripts beside the package, bench_torch.py and
+    chip_smoke.py, which run on a machine without JAX; none of them loads
+    the JAX benchmark bench.py by path."""
+    paths = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "bench_torch.py")] + sorted(
         os.path.join(REPO, "scripts", n)
         for n in os.listdir(os.path.join(REPO, "scripts"))
         if n.endswith("_torch.py"))
-    assert any(p.endswith("adv_robustness_torch.py") for p in paths)
+    assert PORT_SCRIPTS <= {os.path.basename(p) for p in paths}
     for path in paths:
         assert not set(_imported_top_levels(path)) & FORBIDDEN, path
+        assert "bench.py" not in _string_constants(path), path
 
 
 def test_importing_every_port_module_loads_no_jax():

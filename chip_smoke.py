@@ -83,6 +83,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
              the edge-conv family's train steps, FPS in PointNet++'s and
              PointConv's, no kernel that folds BatchNorm in any train step,
              and every kernel of the family in fit's eval passes.
+  7b. precision  the JAX package's --matmul_precision / --gather_precision
+             on the card (PRECISION_SETTINGS: high with exact gathers, and
+             default with bf16 gathers, the JAX package's defaults; the
+             port's own are highest and hilo): kernel 2's and kernel 8's bf16
+             routes bit-equal to their plain versions on the rounded values
+             at the kernel phase's shapes (kernel 2 on the route the shape
+             takes and on the row route forced), kernels 5 and 7 at each
+             one-pass setting against their emulation
+             (ops/cuda/emulation.py, ONE_PASS_* tolerances), each timed with
+             its route's bound; per family, synthetic cloud 0's Shapley
+             values through the train phase's checkpoint (trained on for
+             PRECISION_MORE_EPOCHS epochs where its values' RMS is below
+             PRECISION_MIN_SHAPLEY_RMS) at each setting
+             against the exact ones on the same orders, whose deviation
+             must stay below the estimator's own standard error (its ratio
+             printed), the engine's forwards/s at
+             each setting, and every kernel and route of the setting
+             launched there (the counts set to 0 just before each setting
+             and read just after); one GCNN and one PointNet train step at
+             default against highest (PRECISION_STEP_LOSS_REL and
+             PRECISION_STEP_COS), and the same step with each fault of
+             PRECISION_STEP_FAULTS planted in the precision product's
+             backward, whose gradient must fall below that cosine.  The phase's
+             record is emitted before any of its failures is raised.
   8. adversarial  cli.train_adv resumed from the train phase's GCNN .t7
              (ADV_CUTS), then cli.shapley_value --model gcnn_adv by the
              default path (the run's model_best.t7 stands in for
@@ -124,7 +148,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
              gradient gap (grad_worst: gap over the single step's norm
              plus the floor, the figure the check bounds) and the one
              whose gap is largest over its own norm alone
-             (grad_worst_without_floor), each with its gap and norm.
+             (grad_worst_without_floor), each with its gap and norm.  Each
+             set of ranks also takes DGCNN's step on the train phase's
+             tie-free batch (tie_free_dgcnn_batch), where every kNN
+             selection of every cloud must equal the single step's (the
+             neighbour sets; at world 2 two neighbours may swap places in
+             a list only where rounding can swap them,
+             check_tie_free_selections); and
+             PointConv's DP_GAP_PARAM gradient is measured against the
+             single step run again and against the same step in float64 on
+             the card, and PointConv's DP step runs in float64 as well,
+             within DP_F64_TOL of the single float64 step
+             (pointconv_gradient_gap).
   9. mesh    cli.shapley_value --mesh_devices 1 against no flag (DGCNN,
              equal artifacts); a virtual split over [cuda, cuda] of
              DGCNN's and PointNet++'s forward and plan path on the masked
@@ -156,7 +191,9 @@ card's name and power limit as nvidia-smi prints them; the "kernels" line
 comes just before the last, which is {"ok": true, "device": {...}}; its
 rows carry each kernel's launches on the main path, in the train,
 adversarial, adv_robustness and data_parallel phases, and in the bench
-phase's first bench_torch.py run.
+phase's first bench_torch.py run; the rows of the precision phase's routes
+("gather_extrema:bf16", "fused_ball_mlp3:default", ...) follow, their
+launches those of that phase's Shapley runs.
 The run uses one card: the first that CUDA_VISIBLE_DEVICES names, else card 0.
 Artifacts go to build/chip_smoke/ in the checkout.
 """
@@ -184,6 +221,7 @@ CHUNK = 330                       # clouds per plain-version call
 REL_LIMIT = 1e-5                  # kNN selected-distance gap, relative to |x|^2
 F32_OPS_PER_S = 67e12             # H100 SXM f32 outside the tensor cores
 TF32_OPS_PER_S = 495e12           # H100 SXM TF32 on the tensor cores, dense
+BF16_OPS_PER_S = 989e12           # H100 SXM bf16 on the tensor cores, dense
 TF32_PASSES = 3                   # products of the split that keeps f32 accuracy
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM HBM3
 FPS_NPOINTS = (512, 128)          # the two SA levels of PointNet++/PointConv
@@ -304,6 +342,13 @@ MESH_MODELS = ("dgcnn", "pointnet2")
 DP_RUNS = (("nccl", 1), ("gloo", 2))
 DP_BATCH, DP_VALID, DP_TIMED_STEPS = 32, 31, 3
 DP_PARAM_TOL = 1e-6
+# the PointConv gradient whose world-2 gap the phase explains: measured
+# against the single step run again and against the step in float64; in
+# float64 the DP step must give the single step's gradients within
+# DP_F64_TOL of their norm plus the floor (the same semantics: only f32
+# rounding can part them)
+DP_GAP_PARAM = "sa2.densitynet.mlp_convs.0.weight"
+DP_F64_TOL = 1e-8
 DP_CUTS = ("one checked and three timed steps per family on one fixed "
            "batch of 32 synthetic clouds at 1024 points and full width; "
            "random weights from a seed; both worlds on one card, so no "
@@ -323,8 +368,60 @@ BENCH_PROBED = ("pointnet", "gcnn")
 BENCH_HEADLINE_KEYS = ["metric", "value", "unit", "vs_baseline",
                        "suite_speedup_vs_ref_geomean", "suite_basis",
                        "measured_suite_speedup_pointnet"]
+# The precision phase: the JAX package's default numerics on the card
+# (--matmul_precision default with --gather_precision bf16) and
+# --matmul_precision high, each against the port's exact settings (highest,
+# hilo): the routes of those settings at the main path's shapes, every
+# family's Shapley values on synthetic cloud 0 at PRECISION_ORDERS orders,
+# and one train step at default.
+PRECISION_SETTINGS = (("high", 2), ("default", 1))   # (matmul, value parts)
+PRECISION_FAMILIES = ("dgcnn", "gcnn", "pointnet2", "pointconv", "pointnet")
+PRECISION_ORDERS = 100
+# The Shapley values are compared through the train phase's checkpoints
+# (TRAIN_EPOCHS epochs on TRAIN_SAMPLES synthetic clouds), which respond to
+# the coalition where seeded weights hardly do.  A checkpoint whose exact
+# Shapley values have an RMS below PRECISION_MIN_SHAPLEY_RMS is trained on
+# for PRECISION_MORE_EPOCHS epochs first: its values would lie below the
+# rounding of a one-pass reward (about 2e-3 a region and order at default,
+# PERF.md section 6), and no setting could be held to them.  The 2-epoch
+# PointNet++ and PointConv hold about 1e-3, the other families 2.5e-2 and
+# more.
+PRECISION_MIN_SHAPLEY_RMS = 1e-2
+PRECISION_MORE_EPOCHS = 8
+# Kernels 5 and 7 at a one-pass setting against their emulation: f32 sums
+# run in another order, so an activation at a rounding boundary of the
+# one-pass operand can round the other way on one side (a bf16 ulp is 2^-8
+# of the value), which moves an output as much as the rounding of one of
+# its C inputs moves it.  The setting's own rounding moves every output by
+# about sqrt(C) such steps (emulation against the exact f32 layers), so
+# the kernel's gap to its emulation must stay a small share of that: RMS at
+# most ONE_PASS_RMS_SHARE, the largest at most ONE_PASS_MAX_SHARE.  Three
+# products, or another rounding, would come out near 1.
+ONE_PASS_RMS_SHARE, ONE_PASS_MAX_SHARE = 0.1, 0.5
+# One train step at default against highest through those checkpoints (bf16
+# operands keep 2^-9 of each value; BatchNorm on a batch of 8): the loss
+# within PRECISION_STEP_LOSS_REL of the exact step's.  The gradient is
+# compared as a direction, its cosine with the exact one at least
+# PRECISION_STEP_COS: upstream of a max (over the k neighbours, over the
+# points) a value moved by rounding can hand the max to another row, and
+# the gradient then flows to that row's parameters, so no tensor-by-tensor
+# bound holds there (relative gaps are reported).  The limit is read off
+# faults planted in the precision product's backward
+# (``ops.precision.PrecisionMatmul``), each run once a phase at default:
+# every fault of PRECISION_STEP_FAULTS must fall below it.  Measured on the
+# H100 (PERF.md section 6): the right step 0.9918 and 0.9994, the faults
+# 0.06-0.65; the limit sits midway in 1 - cosine between the two.
+PRECISION_STEP_MODELS = ("gcnn", "pointnet")
+PRECISION_STEP_LOSS_REL, PRECISION_STEP_COS = 1e-2, 0.95
+PRECISION_STEP_FAULTS = ("no_input_grad", "no_weight_grad",
+                         "weight_grad_half_rows")
 # Kernels that no entry point reaches, so the main path cannot launch them:
 # they are held in the kernel phase alone.
+# the kernels-line source and TPU kernel of the precision phase's routes
+ROUTE_SOURCES = {"gather_extrema": ("neighbors", "neighbors.py:424"),
+                 "gather_rows": ("groups", "groups.py:171"),
+                 "fused_ball_mlp3": ("groups", "groups.py:250"),
+                 "fused_pointconv_sa": ("groups", "groups.py:469")}
 OFF_PATH = {"gather_rows": "no entry point of the JAX package calls "
                            "gather_rows (only its kernel test does), so none "
                            "of the port's does"}
@@ -365,15 +462,26 @@ def chunks(B: int, size: int = CHUNK):
         yield slice(s, min(B, s + size))
 
 
-def bound_ms(nbytes: float, ops: float, matrix_ops: float = 0.0):
+def bound_ms(nbytes: float, ops: float, matrix_ops: float = 0.0,
+             tf32_ops: float = 0.0, bf16_ops: float = 0.0):
     """The least time for the work, and what sets it: bytes over the memory
-    rate, f32 operations over the CUDA cores' rate, and ``matrix_ops``
-    (those a kernel runs on the tensor cores as a three-product TF32 split)
-    times three over the TF32 rate; the largest of the three."""
+    rate, f32 operations over the CUDA cores' rate, or the tensor cores'
+    work at the rate of its operands' type: ``matrix_ops`` (those a kernel
+    runs as a three-product TF32 split) times three and ``tf32_ops`` (one
+    product of TF32 operands, the ``high`` setting) over the TF32 rate,
+    ``bf16_ops`` (one product of bf16-rounded operands, the ``default``
+    setting) over the bf16 rate; the largest of the three."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(ops / F32_OPS_PER_S,
-                matrix_ops * TF32_PASSES / TF32_OPS_PER_S) * 1e3
+    t_mma = ((matrix_ops * TF32_PASSES + tf32_ops) / TF32_OPS_PER_S
+             + bf16_ops / BF16_OPS_PER_S)
+    t_ops = max(ops / F32_OPS_PER_S, t_mma) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def one_pass_ops(setting: str, ops: float) -> dict:
+    """``bound_ms``'s keyword for one tensor-core pass at a matmul
+    precision: TF32 operands at ``high``, bf16-rounded ones at ``default``."""
+    return {"high": {"tf32_ops": ops}, "default": {"bf16_ops": ops}}[setting]
 
 
 # ------------------------------------------------------------------ inputs
@@ -722,7 +830,7 @@ def check_ball_mlp3(gr, fp, model, masked):
     import torch
     from interpret_quality_tpu_torch.models.common import fold_stack
     from interpret_quality_tpu_torch.ops.geometry import index_points
-    from interpret_quality_tpu_torch.ops.cuda.emulation import mlp23_3xtf32
+    from interpret_quality_tpu_torch.ops.cuda.emulation import ball_mlp3_at
     ms = plain = ops = mops = f32_ops = nbytes = 0.0
     max_abs, details = 0.0, []
     xyz, points = masked, None
@@ -749,11 +857,9 @@ def check_ball_mlp3(gr, fp, model, masked):
             # second reference, first chunk: the plain version with its
             # layers 2-3 on the emulated three-product TF32 split
             sl = next(chunks(xyz.shape[0], BALL_CHUNK))
-            f32_layers, gr._mlp23 = gr._mlp23, mlp23_3xtf32
-            try:
-                emulated = plain_on(sl)
-            finally:
-                gr._mlp23 = f32_layers
+            emulated = ball_mlp3_at(new_xyz[sl], xyz[sl],
+                                    None if uf is None else uf[sl], *w,
+                                    radius=radius, k=k, precision="highest")
             edge = near_ball_boundary(new_xyz[sl], xyz[sl], radius)[0]
             emu_abs = float((got[sl] - emulated)[~edge].abs().max())
             del emulated, edge
@@ -1370,6 +1476,604 @@ def check_small_smoothness(device):
                 -1).sum())}
 
 
+# --------------------------------------------------------------- precision
+@contextlib.contextmanager
+def precision_setting(matmul: str, parts: int):
+    """The process's matmul precision and gather value parts (the JAX
+    package's --matmul_precision and --gather_precision) for a block; the
+    exact settings, highest and hilo, restored after it."""
+    from interpret_quality_tpu_torch import config
+    config.set_matmul_precision(matmul)
+    config.set_gather_value_parts(parts)
+    try:
+        yield
+    finally:
+        config.set_matmul_precision("highest")
+        config.set_gather_value_parts(2)
+
+
+def reset_all_launches():
+    from interpret_quality_tpu_torch.ops.cuda import fps, groups, neighbors
+    for c in (neighbors, fps, groups):
+        c.reset_launches()
+
+
+def route_launches():
+    """Launches of each route of a non-exact setting (ROUTE_LAUNCHES)."""
+    from interpret_quality_tpu_torch.ops.cuda import groups, neighbors
+    return {**neighbors.ROUTE_LAUNCHES, **groups.ROUTE_LAUNCHES}
+
+
+def check_gather_bf16(nb, layers, idx):
+    """Kernel 2's bf16 route at each GCNN layer, on the route the shape
+    takes and on the row route forced: bit-equal on every chunk to the
+    plain version on the bf16-rounded values.  ``ms`` is the wrapper's
+    (the bf16 copy of the values, then the launch), ``kernel_ms`` the
+    launch alone on a prepared copy, ``f32_route_ms`` the exact route in
+    the same call.  The bound counts the bf16 route's device-memory bytes:
+    the indices, the values in bf16 once, both f32 outputs once."""
+    import torch
+    ms = plain = kernel = f32 = nbytes = ops = 0.0
+    details = []
+    for _, a in layers:
+        B, F = a.shape[0], a.shape[2]
+        outs = {route: nb._gather_extrema(idx, a, nb.ROUTES[route], parts=1)
+                for route in ("shape", "rows")}
+        torch.cuda.synchronize()
+        for sl in chunks(B):
+            pmax, pmin = nb.gather_extrema_plain(idx[sl], a[sl], parts=1)
+            for route, (kmax, kmin) in outs.items():
+                if not (torch.equal(kmax[sl], pmax)
+                        and torch.equal(kmin[sl], pmin)):
+                    raise AssertionError(f"gather_extrema bf16 ({route} "
+                                         f"route) at F={F}: kernel differs "
+                                         "from its plain version")
+        del outs
+        a16 = a.to(torch.bfloat16)
+        t_k = cuda_ms(lambda: nb.gather_extrema(idx, a, parts=1))
+        t_kernel = cuda_ms(lambda: nb._gather_extrema(idx, a16,
+                                                      nb.ROUTES["shape"]))
+        t_f32 = cuda_ms(lambda: nb.gather_extrema(idx, a, parts=2))
+        t_p = cuda_ms(lambda: [nb.gather_extrema_plain(idx[sl], a[sl], 1)
+                               for sl in chunks(B)], reps=1)
+        del a16
+        b_ = B * N * K * 4 + B * N * F * 2 + 2 * B * N * F * 4
+        o_ = 2 * B * N * K * F
+        details.append({"kernel": "gather_extrema", "route_of_setting": "bf16",
+                        "B": B, "N": N, "F": F, "k": K,
+                        **nb.gather_extrema_route(N, F, K, parts=1),
+                        "bit_equal_both_routes": True, "ms": t_k,
+                        "kernel_ms": t_kernel, "f32_route_ms": t_f32,
+                        "plain_ms": t_p, "bound_ms": bound_ms(b_, o_)[0]})
+        ms, plain, kernel, f32 = ms + t_k, plain + t_p, kernel + t_kernel, \
+            f32 + t_f32
+        nbytes, ops = nbytes + b_, ops + o_
+    bound, by = bound_ms(nbytes, ops)
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bound,
+                bound_by=by, library_ms=None, kernel_ms=kernel,
+                f32_route_ms=f32), details
+
+
+def check_gather_rows_bf16(gr, values, idx):
+    """Kernel 8's bf16 route at check_gather_rows's shapes: bit-equal to
+    gather_rows_plain on the bf16-rounded values; ``kernel_ms`` on a
+    prepared bf16 copy, ``library_ms`` one torch.gather call on the rounded
+    values (the same function once they are rounded).  Returns (numbers,
+    detail, launches of the route here)."""
+    import torch
+    from interpret_quality_tpu_torch.ops.precision import round_bf16
+    before = gr.ROUTE_LAUNCHES["gather_rows:bf16"]
+    got = gr.gather_rows(values, idx, parts=1)
+    want = gr.gather_rows_plain(values, idx, parts=1)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("gather_rows bf16: kernel differs from its "
+                             "plain version")
+    del got, want
+    B, N_, F = values.shape
+    S, K_ = idx.shape[1], idx.shape[2]
+    v16, rounded = values.to(torch.bfloat16), round_bf16(values)
+    lidx = idx.reshape(B, -1).long()[..., None].expand(-1, -1, F)
+    t_k = cuda_ms(lambda: gr.gather_rows(values, idx, parts=1))
+    t_kernel = cuda_ms(lambda: gr.gather_rows(v16, idx))
+    t_p = cuda_ms(lambda: gr.gather_rows_plain(values, idx, parts=1))
+    t_l = cuda_ms(lambda: torch.gather(rounded, 1, lidx))
+    del lidx, v16, rounded
+    bound, by = bound_ms(B * N_ * F * 2 + (B * S * K_ + B * S * K_ * F) * 4,
+                         0.0)
+    detail = {"kernel": "gather_rows", "route_of_setting": "bf16", "B": B,
+              "N": N_, "S": S, "K": K_, "F": F, "bit_equal": True, "ms": t_k,
+              "kernel_ms": t_kernel, "plain_ms": t_p, "library_ms": t_l,
+              "bound_ms": bound}
+    return (dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p, bound_ms=bound,
+                 bound_by=by, library_ms=t_l, kernel_ms=t_kernel), detail,
+            gr.ROUTE_LAUNCHES["gather_rows:bf16"] - before)
+
+
+def one_pass_gap(name, got, emulated, exact, excused=None):
+    """Kernel against its emulation at a one-pass setting, beside the
+    setting's own rounding (the emulation against the exact f32 version on
+    the same gathered values), rows ``excused`` apart: the gap's RMS and
+    maximum within ONE_PASS_RMS_SHARE and ONE_PASS_MAX_SHARE of the
+    rounding's.  Returns (largest gap, RMS share, share of values beyond
+    f32-level agreement: rtol 1e-4, atol 1e-5)."""
+    import torch
+    if excused is not None:
+        got, emulated, exact = got[~excused], emulated[~excused], exact[~excused]
+    gap, rounding = (got - emulated).double(), (emulated - exact).double()
+    rms = float(gap.square().mean().sqrt() / rounding.square().mean().sqrt())
+    top = float(gap.abs().max() / rounding.abs().max())
+    if not (rms <= ONE_PASS_RMS_SHARE and top <= ONE_PASS_MAX_SHARE):
+        raise AssertionError(
+            f"{name}: the kernel's gap to its emulation is {rms} (RMS) and "
+            f"{top} (largest) of the setting's own rounding")
+    near = torch.isclose(got, emulated, rtol=1e-4, atol=1e-5)
+    return float(gap.abs().max()), rms, float((~near).float().mean())
+
+
+def check_one_pass(gr, fp, masked, ball_details):
+    """Kernels 5 and 7 at each one-pass setting of PRECISION_SETTINGS (the
+    matmul precision with its gather value parts) on the main path's
+    inputs, with the seeded models' weights: the first chunk against the
+    kernel's emulation at that setting (``emulation.ball_mlp3_at``,
+    ``pointconv_sa_at``) beside the setting's own rounding (``one_pass_gap``;
+    kernel 5's rows near a ball boundary excused, as in the kernel phase),
+    each launch timed beside the highest setting's in
+    the same call.  The bound is the route's: layers 2-3 one pass on TF32
+    operands at high and on bf16 ones at default (``one_pass_ops``), kernel
+    7's contraction three TF32 passes, over the rows the data needs (kernel
+    5's from the kernel phase's count, ``ball_details``)."""
+    import torch
+    from interpret_quality_tpu_torch.models.common import fold_stack
+    from interpret_quality_tpu_torch.ops.cuda import emulation as em
+    from interpret_quality_tpu_torch.ops.geometry import (compute_density,
+                                                          index_points)
+    rows = {}
+    totals = {(kname, mm): dict(ms=0.0, highest_ms=0.0, plain_ms=0.0,
+                                nbytes=0.0, ops=0.0, mops=0.0, one_pass=0.0,
+                                max_abs=0.0, rms=0.0, share=0.0)
+              for kname in ("fused_ball_mlp3", "fused_pointconv_sa")
+              for mm, _ in PRECISION_SETTINGS}
+    details = []
+    model = seeded_model("pointnet2", masked.device)
+    needed = {(d["level"], d["branch"]): d["distinct_slot_rows"]
+              for d in ball_details if d["kernel"] == "fused_ball_mlp3"}
+    xyz, points = masked, None
+    for level, sa in enumerate((model.sa1, model.sa2)):
+        new_xyz = index_points(xyz, fp.fps(xyz, sa.npoint))
+        D = 0 if points is None else points.shape[-1]
+        outs = []
+        for br, (convs, bns, radius, k) in enumerate(zip(
+                sa.conv_blocks, sa.bn_blocks, sa.radius_list,
+                sa.nsample_list)):
+            (a1, b1), (a2, b2), (a3, b3) = fold_stack(convs, bns)
+            uf = None if points is None else torch.matmul(points, a1[:D])
+            w = (b1, a1[D:], a2, b2, a3, b3)
+            sl = next(chunks(xyz.shape[0], BALL_CHUNK))
+            edge = near_ball_boundary(new_xyz[sl], xyz[sl], radius)[0]
+
+            def run(mm, parts):
+                with precision_setting(mm, parts):
+                    return gr.fused_ball_mlp3(new_xyz, xyz, uf, *w,
+                                              radius=radius, k=k)
+            t_h = cuda_ms(lambda: run("highest", 2))
+            B, S, n = new_xyz.shape[0], new_xyz.shape[1], xyz.shape[1]
+            C1, C2, C3 = a2.shape[0], a2.shape[1], a3.shape[1]
+            rows_needed = needed[(level + 1, br)]
+            b_ = (B * S * 3 + B * n * 3 + (0 if uf is None else B * n * C1)
+                  + B * S * C3) * 4
+            o_ = 8.0 * B * S * n + rows_needed * (2 * 3 * C1 + 3 * C1)
+            m_ = float(rows_needed) * (2 * C1 * C2 + 2 * C2 * C3)
+            for mm, parts in PRECISION_SETTINGS:
+                got = run(mm, parts)
+                chunk = (new_xyz[sl], xyz[sl], None if uf is None else uf[sl],
+                         *w)
+                emulated = em.ball_mlp3_at(*chunk, radius=radius, k=k,
+                                           precision=mm, parts=parts)
+                exact = gr.fused_ball_mlp3_plain(*chunk, radius=radius, k=k,
+                                                 parts=parts)
+                gap, rms, share = one_pass_gap(
+                    f"fused_ball_mlp3 {mm} sa{level + 1} branch {br}",
+                    got[sl], emulated, exact, edge)
+                del got, emulated, exact
+                t_k = cuda_ms(lambda: run(mm, parts))
+                t_p = cuda_ms(lambda: [em.ball_mlp3_at(
+                    new_xyz[c], xyz[c], None if uf is None else uf[c], *w,
+                    radius=radius, k=k, precision=mm, parts=parts)
+                    for c in chunks(xyz.shape[0], BALL_CHUNK)], reps=1)
+                details.append({"kernel": "fused_ball_mlp3", "setting": mm,
+                                "gather_parts": parts, "level": level + 1,
+                                "branch": br, "ms": t_k, "highest_ms": t_h,
+                                "plain_ms": t_p,
+                                "bound_ms": bound_ms(
+                                    b_, o_, **one_pass_ops(mm, m_))[0],
+                                "max_abs_diff_to_emulation_first_chunk": gap,
+                                "gap_rms_over_rounding": rms,
+                                "beyond_f32_agreement": share})
+                tot = totals[("fused_ball_mlp3", mm)]
+                tot["ms"] += t_k
+                tot["plain_ms"] += t_p
+                tot["highest_ms"] += t_h
+                tot["nbytes"] += b_
+                tot["ops"] += o_
+                tot["one_pass"] += m_
+                tot["max_abs"] = max(tot["max_abs"], gap)
+                tot["rms"] = max(tot["rms"], rms)
+                tot["share"] = max(tot["share"], share)
+            outs.append(run("highest", 2))
+            del uf, edge
+        xyz, points = new_xyz, torch.cat(outs, dim=-1)
+        del outs
+    del model, xyz, points
+    torch.cuda.empty_cache()
+
+    model = seeded_model("pointconv", masked.device)
+    xyz, points = masked, None
+    for level, sa in enumerate((model.sa1, model.sa2)):
+        inv = 1.0 / compute_density(xyz, sa.bandwidth)
+        new_xyz = index_points(xyz, fp.fps(xyz, sa.npoint))
+        k = sa.nsample
+        idx, den, dmax = gr.knn_with_density(new_xyz, xyz, inv, k)
+        (a1, b1), (a2, b2), (a3, b3) = fold_stack(sa.mlp_convs, sa.mlp_bns)
+        src = xyz if points is None else torch.cat([xyz, points], dim=-1)
+        u = torch.matmul(src, a1) + b1
+        csw = torch.matmul(new_xyz, a1[:3])
+        dnet = fold_stack(sa.densitynet.mlp_convs, sa.densitynet.mlp_bns)
+        wnet = fold_stack(sa.weightnet.mlp_convs, sa.weightnet.mlp_bns)
+        per_cloud = (idx, den, dmax, new_xyz, u, xyz, csw)
+        w = (a2, b2, a3, b3, dnet, wnet)
+        sl = next(chunks(xyz.shape[0], PCONV_CHUNK))
+
+        def run(mm, parts):
+            with precision_setting(mm, parts):
+                return gr.fused_pointconv_sa(*per_cloud, *w, k=k)
+        t_h = cuda_ms(lambda: run("highest", 2))
+        B, S, n = new_xyz.shape[0], new_xyz.shape[1], xyz.shape[1]
+        C1, C2, C3 = a2.shape[0], a2.shape[1], a3.shape[1]
+        b_ = (B * S * k * 3 + B * S * 1 + B * S * 3 + B * n * C1 + B * n * 3
+              + B * S * C1 + B * S * C3 * 16) * 4
+        o_ = float(B * S * k * (2 * C1 + C3 + 2 * (3 * 8 + 8 * 8 + 8 * 16)))
+        # layers 2-3 one pass, the contraction three
+        m_ = float(B * S * k) * (2 * C1 * C2 + 2 * C2 * C3)
+        c_ = float(B * S * k) * 2 * 16 * C3
+        for mm, parts in PRECISION_SETTINGS:
+            got = run(mm, parts)
+            chunk = [t[sl] for t in per_cloud]
+            emulated = em.pointconv_sa_at(*chunk, *w, k=k, precision=mm,
+                                          parts=parts)
+            exact = gr.fused_pointconv_sa_plain(*chunk, *w, k=k, parts=parts)
+            gap, rms, share = one_pass_gap(
+                f"fused_pointconv_sa {mm} sa{level + 1}", got[sl], emulated,
+                exact)
+            del got, emulated, exact
+            t_k = cuda_ms(lambda: run(mm, parts))
+            t_p = cuda_ms(lambda: [em.pointconv_sa_at(
+                *[t[c] for t in per_cloud], *w, k=k, precision=mm,
+                parts=parts) for c in chunks(B, PCONV_CHUNK)], reps=1)
+            details.append({"kernel": "fused_pointconv_sa", "setting": mm,
+                            "gather_parts": parts, "level": level + 1,
+                            "ms": t_k, "highest_ms": t_h, "plain_ms": t_p,
+                            "bound_ms": bound_ms(
+                                b_, o_, c_, **one_pass_ops(mm, m_))[0],
+                            "max_abs_diff_to_emulation_first_chunk": gap,
+                            "gap_rms_over_rounding": rms,
+                            "beyond_f32_agreement": share})
+            tot = totals[("fused_pointconv_sa", mm)]
+            tot["ms"] += t_k
+            tot["plain_ms"] += t_p
+            tot["highest_ms"] += t_h
+            tot["nbytes"] += b_
+            tot["ops"] += o_
+            tot["mops"] += c_
+            tot["one_pass"] += m_
+            tot["max_abs"] = max(tot["max_abs"], gap)
+            tot["rms"] = max(tot["rms"], rms)
+            tot["share"] = max(tot["share"], share)
+        xyz, points = new_xyz, sa._head(run("highest", 2))
+        del u, per_cloud, inv, idx, den, dmax
+    for (kname, mm), tot in totals.items():
+        bound, by = bound_ms(tot["nbytes"], tot["ops"], tot["mops"],
+                             **one_pass_ops(mm, tot["one_pass"]))
+        # plain_ms: the emulation, the plain PyTorch version of the
+        # setting's arithmetic, over every chunk
+        rows[(kname, mm)] = dict(max_abs_err=tot["max_abs"], ms=tot["ms"],
+                                 plain_ms=tot["plain_ms"],
+                                 highest_ms=tot["highest_ms"],
+                                 bound_ms=bound, bound_by=by, library_ms=None,
+                                 gap_rms_over_rounding=tot["rms"],
+                                 beyond_f32_agreement=tot["share"])
+    return rows, details
+
+
+def model_from_state(name, state, device):
+    """A family's model with ``state`` loaded strictly, in eval mode."""
+    from interpret_quality_tpu_torch.models import build_model
+    model = build_model(name, 10, K)
+    model.load_state_dict(state, strict=True)
+    return model.to(device).eval()
+
+
+def trained_model(name, ck, device):
+    """The train phase's model_best.t7 of a family, in eval mode."""
+    import torch
+    from interpret_quality_tpu_torch.config import ExperimentConfig
+    path = ExperimentConfig(model=name, checkpoints_root=ck,
+                            num_points=N).default_model_path()
+    return model_from_state(name, torch.load(path, map_location="cpu"),
+                            device)
+
+
+def train_on(name, model, workdir):
+    """Train ``model`` on, in place, for PRECISION_MORE_EPOCHS epochs on the
+    train phase's synthetic clouds, as cli.train trains (batch 32, the
+    family's schedule over those epochs, seed 1); its run.log under
+    ``workdir``.  Returns the model in eval mode."""
+    from interpret_quality_tpu_torch.data.datasets import SyntheticClouds
+    from interpret_quality_tpu_torch.train import trainer
+    from interpret_quality_tpu_torch.utils.io import IOStream
+    from interpret_quality_tpu_torch.utils.rng import set_random
+    set_random(1)
+    exp = os.path.join(workdir, name)
+    os.makedirs(exp, exist_ok=True)
+    train_ds = SyntheticClouds(num_samples=TRAIN_SAMPLES, num_points=N,
+                               seed=1, train=True)
+    test_ds = SyntheticClouds(num_samples=TRAIN_TEST_SAMPLES, num_points=N,
+                              seed=2)
+    with IOStream(os.path.join(exp, "run.log")) as io:
+        trainer.fit(model, name, train_ds, test_ds, exp_dir=exp, io=io,
+                    epochs=PRECISION_MORE_EPOCHS, best_acc_gate=0.0)
+    return model.eval()
+
+
+def precision_shapley(device, ck, workdir):
+    """Per family, synthetic cloud 0's Shapley values (R FPS regions,
+    PRECISION_ORDERS orders in chunks of ORDERS) through the train phase's
+    checkpoint (under ``ck``; trained on first where its exact values' RMS
+    is below PRECISION_MIN_SHAPLEY_RMS, ``train_on``) at each setting of
+    PRECISION_SETTINGS against the exact one, on the same region ids (the
+    highest setting's) and orders: the deviation over the estimator's own
+    standard error at these orders (RMS over the regions, from the exact
+    run's per-order marginals) must stay below 1.  Each run follows a
+    one-chunk warm-up at its setting and is timed (forwards/s); the counts
+    are set to 0 just before each setting's runs and read just after.
+    Returns (record, launches by setting, the models' states, the seconds
+    spent training, the checks that failed)."""
+    import torch
+    from interpret_quality_tpu_torch.attrib.shapley import (
+        ShapleyEngine, generate_all_orders, region_id_from_fps)
+    from interpret_quality_tpu_torch.data.datasets import SyntheticClouds
+    from interpret_quality_tpu_torch.models import make_forward_fn
+    from interpret_quality_tpu_torch.ops.geometry import farthest_point_sample
+    data, label = SyntheticClouds(30, N, 10, seed=1)[0]
+    x = torch.from_numpy(data).to(device)
+    centres = farthest_point_sample(x[None], R)[0]
+    region_id = region_id_from_fps(x, centres)
+    rid = region_id.cpu().numpy()
+    orders = generate_all_orders(PRECISION_ORDERS, R,
+                                 rng=np.random.RandomState(5))
+    forwards = PRECISION_ORDERS * (R + 1)
+    launches = {mm: {} for mm, _ in PRECISION_SETTINGS}
+    out, states, failed, train_s = {}, {}, [], 0.0
+
+    def run(model):
+        engine = ShapleyEngine(make_forward_fn(model), R,
+                               batch_orders=ORDERS, device=device)
+        engine.shapley_for_pose(data, label, rid, orders[:ORDERS])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sv, per = engine.shapley_for_pose(data, label, rid, orders,
+                                          return_per_order=True)
+        return sv, per, forwards / (time.perf_counter() - t0)
+    for name in PRECISION_FAMILIES:
+        model = trained_model(name, ck, device)
+        sv_h, per_h, rate_h = run(model)
+        rec = {"epochs": TRAIN_EPOCHS,
+               "train_phase_shapley_rms": float(np.sqrt((sv_h ** 2).mean()))}
+        if rec["train_phase_shapley_rms"] < PRECISION_MIN_SHAPLEY_RMS:
+            t0 = time.perf_counter()
+            model = train_on(name, model, workdir)
+            train_s += time.perf_counter() - t0
+            rec["epochs"] += PRECISION_MORE_EPOCHS
+            sv_h, per_h, rate_h = run(model)
+        states[name] = {k: v.detach().cpu().clone()
+                        for k, v in model.state_dict().items()}
+        se = per_h.std(0, ddof=1) / np.sqrt(PRECISION_ORDERS)
+        rec.update({"highest_forwards_per_s": rate_h,
+                    "se_rms": float(np.sqrt((se ** 2).mean())),
+                    "shapley_rms": float(np.sqrt((sv_h ** 2).mean()))})
+        if not rec["shapley_rms"] >= PRECISION_MIN_SHAPLEY_RMS:
+            failed.append(f"{name}: Shapley values of RMS "
+                          f"{rec['shapley_rms']} after {rec['epochs']} "
+                          "epochs, too small to hold a setting to")
+        for mm, parts in PRECISION_SETTINGS:
+            with precision_setting(mm, parts):
+                reset_all_launches()
+                sv, per, rate = run(model)
+                ids = region_id_from_fps(x, centres)
+                for key, v in {**all_launches(), **route_launches()}.items():
+                    launches[mm][key] = launches[mm].get(key, 0) + v
+            dev = sv - sv_h
+            spread, moved = np.sqrt((se ** 2).mean()), np.sqrt((dev ** 2).mean())
+            ratio = float(moved / spread) if spread > 0 else (
+                0.0 if moved == 0 else np.inf)
+            if not ratio < 1.0:
+                failed.append(f"{name} Shapley values at {mm}: deviation "
+                              f"{ratio} of the estimator's standard error at "
+                              f"{PRECISION_ORDERS} orders")
+            rec[mm] = {"gather_parts": parts, "forwards_per_s": rate,
+                       "deviation_over_se": ratio,
+                       # per order: how much of the deviation averages out
+                       "per_order_deviation_rms": float(np.sqrt(
+                           ((per - per_h) ** 2).mean())),
+                       "max_region_deviation_over_se": float(
+                           (np.abs(dev)[se > 0] / se[se > 0]).max(
+                               initial=0.0)),
+                       "max_abs_deviation": float(np.abs(dev).max()),
+                       "region_ids_equal_share": float(
+                           (ids == region_id).float().mean())}
+        out[name] = rec
+        del model
+        torch.cuda.empty_cache()
+    need = {"default": ("gather_extrema:bf16", "fused_ball_mlp3:default",
+                        "fused_pointconv_sa:default", "knn_gather_extrema",
+                        "gather_extrema", "knn", "fps", "knn_with_density"),
+            "high": ("fused_ball_mlp3:high", "fused_pointconv_sa:high")}
+    for mm, keys in need.items():
+        own = (f":{mm}",) + ((":bf16",) if dict(PRECISION_SETTINGS)[mm] == 1
+                             else ())
+        missing = [key for key in keys if not launches[mm].get(key)]
+        stray = [key for key, v in launches[mm].items()
+                 if v and ":" in key and not key.endswith(own)]
+        if missing or stray:
+            failed.append(f"the {mm} run launched {launches[mm]}: missing "
+                          f"{missing}, other settings {stray}")
+    out["launches"] = {mm: {k: v for k, v in c.items() if v}
+                       for mm, c in launches.items()}
+    return out, launches, states, train_s, failed
+
+
+@contextlib.contextmanager
+def planted_fault(fault):
+    """``ops.precision.PrecisionMatmul``'s backward with a fault planted in
+    it for a block (None: the right one): ``no_input_grad`` drops the
+    gradient of the left operand, ``no_weight_grad`` that of the right one,
+    ``weight_grad_half_rows`` takes a 2-d right operand's gradient over the
+    first half of the rows only."""
+    import torch
+    from interpret_quality_tpu_torch.ops import precision as pr
+    right = pr.PrecisionMatmul.backward
+
+    def backward(ctx, grad):
+        gx, gw, _ = right(ctx, grad)
+        x, w = ctx.saved_tensors
+        if fault == "no_input_grad" and gx is not None:
+            gx = torch.zeros_like(gx)
+        elif fault == "no_weight_grad" and gw is not None:
+            gw = torch.zeros_like(gw)
+        elif fault == "weight_grad_half_rows" and gw is not None \
+                and w.dim() == 2:
+            rows = x.reshape(-1, x.shape[-1])
+            half = rows.shape[0] // 2
+            gw = pr._product(ctx.product, rows[:half].transpose(0, 1),
+                             grad.reshape(-1, grad.shape[-1])[:half])
+        return gx, gw, None
+    if fault is not None:
+        pr.PrecisionMatmul.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        pr.PrecisionMatmul.backward = staticmethod(right)
+
+
+def grad_cosine(got, want) -> float:
+    """Cosine of two gradients, every parameter as one float64 vector."""
+    import torch
+    a = torch.cat([got[p].flatten() for p in want]).double()
+    b = torch.cat([g.flatten() for g in want.values()]).double()
+    return float(torch.dot(a, b) / (a.norm() * b.norm()))
+
+
+def precision_train_step(device, states):
+    """One train step of each of PRECISION_STEP_MODELS from the precision
+    phase's model (``states``; dropouts off, the grid batch at N points:
+    GCNN's xyz graph, from the kNN kernel, the same at every setting) at
+    default with bf16 gathers against the same step at the exact settings:
+    the loss within PRECISION_STEP_LOSS_REL, the gradient (all parameters
+    as one vector) at a cosine of at least PRECISION_STEP_COS, and each
+    fault of PRECISION_STEP_FAULTS planted at default below it; the
+    relative gap and the worst single tensor (gap over its norm plus
+    STEP_GRAD_FLOOR of the largest norm) are reported."""
+    import torch
+    x, labels = grid_batch(N, 0)
+    out, failed = {}, []
+    for name in PRECISION_STEP_MODELS:
+        def step(mm, parts, fault=None):
+            with precision_setting(mm, parts), planted_fault(fault):
+                model = dropouts_off(model_from_state(
+                    name, states[name], device).train())
+                loss, logits = one_train_step(
+                    name, model, torch.from_numpy(x).to(device),
+                    torch.from_numpy(labels).to(device))
+                return (float(loss), logits.cpu(),
+                        {n: p.grad.cpu() for n, p in model.named_parameters()})
+        l_h, lg_h, g_h = step("highest", 2)
+        l_d, lg_d, g_d = step("default", 1)
+        loss_rel = abs(l_d - l_h) / abs(l_h)
+        floor = STEP_GRAD_FLOOR * max(float(g.norm()) for g in g_h.values())
+        worst, worst_name = 0.0, None
+        for pname, want in g_h.items():
+            err = float((g_d[pname] - want).norm())
+            rel = err / (float(want.norm()) + floor)
+            if rel > worst:
+                worst, worst_name = rel, pname
+        flat_h = torch.cat([g.flatten() for g in g_h.values()])
+        flat_d = torch.cat([g_d[p].flatten() for p in g_h])
+        grad_rel = float((flat_d - flat_h).norm() / flat_h.norm())
+        cos = grad_cosine(g_d, g_h)
+        if not (loss_rel <= PRECISION_STEP_LOSS_REL
+                and cos >= PRECISION_STEP_COS):
+            failed.append(f"{name} train step at default: loss {loss_rel} "
+                          f"apart, gradient cosine {cos}")
+        faults = {f: grad_cosine(step("default", 1, f)[2], g_h)
+                  for f in PRECISION_STEP_FAULTS}
+        for fault, c in faults.items():
+            if not c < PRECISION_STEP_COS:
+                failed.append(f"{name} train step at default with the fault "
+                              f"{fault} planted: gradient cosine {c} passes "
+                              f"the limit {PRECISION_STEP_COS}")
+        out[name] = {"loss_rel_diff": loss_rel,
+                     "logits_max_abs_diff": float((lg_d - lg_h).abs().max()),
+                     "logits_max_abs": float(lg_h.abs().max()),
+                     "grad_cosine": cos, "grad_rel_err": grad_rel,
+                     "worst_tensor_rel_err_with_floor": worst,
+                     "worst_tensor": worst_name,
+                     "planted_fault_grad_cosines": faults}
+    return out, failed
+
+
+def run_precision(device, ball_details, ck):
+    """The precision phase, after the train phase: the routes of the
+    non-exact settings against their plain versions and emulations at the
+    main path's shapes, each family's Shapley values at those settings
+    against the exact ones through the train phase's checkpoints (under
+    ``ck``), and one train step at default.  Returns (record, kernels-line
+    rows, the checks that failed)."""
+    import torch
+    from interpret_quality_tpu_torch.ops.cuda import fps as fp
+    from interpret_quality_tpu_torch.ops.cuda import groups as gr
+    from interpret_quality_tpu_torch.ops.cuda import neighbors as nb
+    t0 = time.perf_counter()
+    masked = coalition_batch(device)
+    with torch.inference_mode():
+        inputs = layer_inputs(masked, device)
+        layers, idx = inputs["gcnn"]
+        k2, d2 = check_gather_bf16(nb, layers, idx)
+        k8, d8, k8_launches = check_gather_rows_bf16(
+            gr, layers[1][0].contiguous(), idx)
+        del inputs, layers, idx
+        torch.cuda.empty_cache()
+        one_pass, d57 = check_one_pass(gr, fp, masked, ball_details)
+        del masked
+        torch.cuda.empty_cache()
+    kernel_s = time.perf_counter() - t0
+    shapley, launches, states, train_s, failed = precision_shapley(
+        device, ck, os.path.join(ck, "precision"))
+    train, step_failed = precision_train_step(device, states)
+    torch.cuda.empty_cache()
+    rows = {"gather_extrema:bf16": (k2, launches["default"].get(
+                "gather_extrema:bf16", 0)),
+            "gather_rows:bf16": (dict(k8, kernel_phase_launches=k8_launches,
+                                      off_path=OFF_PATH["gather_rows"]), 0)}
+    for (kname, mm), numbers in one_pass.items():
+        rows[f"{kname}:{mm}"] = (numbers, launches[mm].get(f"{kname}:{mm}", 0))
+    record = {"kernel_checks_s": kernel_s, "checkpoints_train_s": train_s,
+              "shapley": shapley, "train_step_default": train,
+              "details": d2 + [d8] + d57,
+              "seconds": time.perf_counter() - t0,
+              "orders": PRECISION_ORDERS, "settings": PRECISION_SETTINGS}
+    return record, rows, failed + step_failed
+
+
 # --------------------------------------------------------------- main path
 def stage_rate(log_path: str, prefix: str):
     with open(log_path) as f:
@@ -1867,6 +2571,18 @@ def feature_knn_margin(name, x):
     return worst
 
 
+def tie_free_dgcnn_batch():
+    """The first grid batch of STEP_DGCNN_POINTS points whose DGCNN
+    feature-space selections keep every k-th and (k+1)-th distance at least
+    STEP_TIE_MARGIN apart: (x, labels, seed, margin)."""
+    for seed in range(64):
+        x, labels = grid_batch(STEP_DGCNN_POINTS, seed)
+        margin = feature_knn_margin("dgcnn", x)
+        if margin >= STEP_TIE_MARGIN:
+            return x, labels, seed, margin
+    raise AssertionError("no tie-free DGCNN batch in 64 seeds")
+
+
 def check_train_step(name, device):
     """One train step on the card against the same step on the CPU (the
     plain versions), from the same weights, dropout off: loss, logits,
@@ -1875,14 +2591,7 @@ def check_train_step(name, device):
     import torch
     seed, margin = 0, None
     if name == "dgcnn":
-        while True:
-            x, labels = grid_batch(STEP_DGCNN_POINTS, seed)
-            margin = feature_knn_margin(name, x)
-            if margin >= STEP_TIE_MARGIN:
-                break
-            seed += 1
-            if seed == 64:
-                raise AssertionError("no tie-free DGCNN batch in 64 seeds")
+        x, labels, seed, margin = tie_free_dgcnn_batch()
     else:
         x, labels = grid_batch(N, seed)
     out = {}
@@ -2573,10 +3282,11 @@ def dp_batch():
             np.array([ds[i][1] for i in range(DP_BATCH)], np.int64))
 
 
-def dp_rank(group, states, x, labels, t_spawn):
+def dp_rank(group, states, x, labels, t_spawn, tie_free):
     """The data_parallel phase in one rank: per family one checked step
     (its record, the gradients and state on rank 0 only: the replicas are
-    equal) and DP_TIMED_STEPS timed ones."""
+    equal) and DP_TIMED_STEPS timed ones; then DGCNN's step on the
+    tie-free batch (x, labels), its kNN selections recorded."""
     import torch
     from interpret_quality_tpu_torch.models import build_model
     from interpret_quality_tpu_torch.parallel import make_dp_train_step
@@ -2584,6 +3294,31 @@ def dp_rank(group, states, x, labels, t_spawn):
     out = {"start_s": time.time() - t_spawn, "families": {}}
     dev = group.device
     xd, ld = torch.from_numpy(x).to(dev), torch.from_numpy(labels).to(dev)
+    model = build_model("dgcnn", 10, K)
+    model.load_state_dict(states["dgcnn"])
+    model = model.to(dev).train()
+    optimizer, scheduler, _ = make_optimizer(model, "dgcnn", 1, 1)
+    step = make_dp_train_step(model, optimizer, scheduler, "dgcnn", group,
+                              torch.Generator(device=dev).manual_seed(0))
+    with recorded_step(model, "dgcnn") as rec:
+        step(torch.from_numpy(tie_free[0]).to(dev),
+             torch.from_numpy(tie_free[1]).to(dev), STEP_VALID)
+    out["dgcnn_tie_free_knn"] = rec["knn"]
+    del model, optimizer, step
+    # PointConv's step in float64, for its gradient gap (rank 0's gradients)
+    model = build_model("pointconv", 10, K)
+    model.load_state_dict(states["pointconv"])
+    model = model.to(device=dev, dtype=torch.float64).train()
+    optimizer, scheduler, _ = make_optimizer(model, "pointconv",
+                                             1 + DP_TIMED_STEPS, 1)
+    step = make_dp_train_step(model, optimizer, scheduler, "pointconv",
+                              group, torch.Generator(device=dev).manual_seed(0))
+    with f32_fps():
+        step(xd.double(), ld, DP_VALID)
+    if group.rank == 0:
+        out["pointconv_f64_grads"] = {n: p.grad.to("cpu", copy=True)
+                                      for n, p in model.named_parameters()}
+    del model, optimizer, step
     for name in TRAIN_MODELS:
         model = build_model(name, 10, K)
         model.load_state_dict(states[name])
@@ -2614,22 +3349,39 @@ def dp_rank(group, states, x, labels, t_spawn):
     return out
 
 
-def single_dp_reference(name, state, x, labels, device):
-    """trainer.make_train_step on the whole batch, as the ranks start."""
+@contextlib.contextmanager
+def f32_fps():
+    """PointConv's FPS on an f32 copy of its float64 clouds: the kernel
+    takes f32, and clouds that were f32 give the same indices."""
+    from interpret_quality_tpu_torch.models import pointconv
+    original = pointconv.fps
+    pointconv.fps = lambda xyz, npoint: original(xyz.float().contiguous(),
+                                                 npoint)
+    try:
+        yield
+    finally:
+        pointconv.fps = original
+
+
+def single_dp_reference(name, state, x, labels, device, valid=DP_VALID,
+                        dtype=None):
+    """trainer.make_train_step on the whole batch, as the ranks start, in
+    the model's own f32 or in ``dtype``."""
     import torch
     from interpret_quality_tpu_torch.models import build_model
     from interpret_quality_tpu_torch.train.trainer import (make_optimizer,
                                                            make_train_step)
     model = build_model(name, 10, K)
     model.load_state_dict(state)
-    model = model.to(device).train()
+    model = (model.to(device) if dtype is None
+             else model.to(device=device, dtype=dtype)).train()
     optimizer, scheduler, _ = make_optimizer(model, name,
                                              1 + DP_TIMED_STEPS, 1)
     step = make_train_step(model, optimizer, scheduler, name,
                            torch.Generator(device=device).manual_seed(0))
     with recorded_step(model, name) as rec:
-        loss, preds = step(torch.from_numpy(x).to(device),
-                           torch.from_numpy(labels).to(device), DP_VALID)
+        loss, preds = step(torch.from_numpy(x).to(device=device, dtype=dtype),
+                           torch.from_numpy(labels).to(device), valid)
     return {"loss": loss.cpu(), "preds": preds.cpu(), **rec,
             "grads": {n: p.grad.cpu() for n, p in model.named_parameters()},
             "state": {k: v.cpu() for k, v in model.state_dict().items()}}
@@ -2670,6 +3422,75 @@ def dgcnn_excused_clouds(ranks, ref):
             excused.add(b)
             worst = max(worst, rel)
     return sorted(excused), worst
+
+
+def gradient_gaps(grads, ref):
+    """Each gradient's gap to ``ref``'s over the reference's norm, plus
+    STEP_GRAD_FLOOR of its largest norm (the figure STEP_* bounds): the
+    worst tensor, and the gap of DP_GAP_PARAM."""
+    largest = max(float(g.norm()) for g in ref.values())
+    floor = STEP_GRAD_FLOOR * largest
+    gaps = {}
+    for pname, want in ref.items():
+        err = float((grads[pname].double() - want.double()).norm())
+        norm = float(want.norm())
+        gaps[pname] = {"gap_norm": err, "norm": norm,
+                       "rel_gap": err / norm if norm > 0 else float(err > 0),
+                       "rel_gap_with_floor": err / (norm + floor)}
+    worst = max(gaps, key=lambda p: gaps[p]["rel_gap_with_floor"])
+    return {"worst": {"param": worst, **gaps[worst]},
+            DP_GAP_PARAM: gaps[DP_GAP_PARAM]}
+
+
+def check_tie_free_selections(ranks, ref, run):
+    """DGCNN's DP step on the tie-free batch against the single step, kNN
+    call by call: every row selects the single step's neighbour set (the
+    batch has no near tie at a k-th neighbour).  Where the features are
+    the single step's bit for bit (world 1) the index lists are equal too.
+    Where the all-reduced BatchNorm statistics move them (world 2), a list
+    may order two neighbours otherwise only where rounding can swap them:
+    each position's distances in the two lists (exact, at the single
+    step's features, over the cloud's largest |x|^2) at most twice the
+    largest change of any distance between the two steps' features.
+    Returns per call the rows listed alike, that change and the widest
+    swap."""
+    import torch
+    out = []
+    for call, (query, idx) in enumerate(ref["knn"]):
+        got_q = torch.cat([r["dgcnn_tie_free_knn"][call][0] for r in ranks])
+        got = torch.cat([r["dgcnn_tie_free_knn"][call][1] for r in ranks])
+        sets = (got.sort(-1).values != idx.sort(-1).values).any(-1)
+        if bool(sets.any()):
+            raise AssertionError(
+                f"dgcnn DP step ({run}) on the tie-free batch: "
+                f"{int(sets.sum())} rows of kNN call {call} select another "
+                "neighbour set")
+        differ = (got != idx).any(-1)                           # (B, N)
+        rec = {"call": call, "rows_listed_alike": float(
+                   (~differ).float().mean()),
+               "features_equal": bool(torch.equal(got_q, query))}
+        if bool(differ.any()):
+            q, g = query.double(), got_q.double()
+            scale = (q ** 2).sum(-1).amax(-1)                   # (B,)
+            moved = float(((((g[:, :, None] - g[:, None]) ** 2).sum(-1)
+                            - ((q[:, :, None] - q[:, None]) ** 2).sum(-1)
+                            ).abs() / scale[:, None, None]).max())
+            b, r = differ.nonzero(as_tuple=True)
+
+            def listed(ix):          # (M, k) distances in list order
+                nb_ = q[b[:, None], ix[b, r].long()]
+                return ((nb_ - q[b, r][:, None]) ** 2).sum(-1)
+            swap = float(((listed(got) - listed(idx)).abs()
+                          / scale[b, None]).max())
+            rec.update(distance_change=moved, widest_swap=swap)
+            if rec["features_equal"] or swap > 2 * moved:
+                raise AssertionError(
+                    f"dgcnn DP step ({run}) on the tie-free batch: kNN call "
+                    f"{call} orders neighbours {swap} of |x|^2 apart "
+                    f"otherwise, where the features moved distances by "
+                    f"{moved}")
+        out.append(rec)
+    return out
 
 
 def check_dp_family(name, ranks, ref, p0):
@@ -2750,20 +3571,49 @@ def run_data_parallel(device):
     x, labels = dp_batch()
     states = {name: seeded_model(name, "cpu").state_dict()
               for name in TRAIN_MODELS}
+    xt, lt, t_seed, t_margin = tie_free_dgcnn_batch()
     phase = dict.fromkeys(all_launches(), 0)
     before = all_launches()
     refs = {name: single_dp_reference(name, states[name], x, labels, device)
             for name in TRAIN_MODELS}
+    tie_ref = single_dp_reference("dgcnn", states["dgcnn"], xt, lt, device,
+                                  valid=STEP_VALID)
+    # PointConv's gradient gap: the single step once more (the same
+    # inputs; CUDA's atomics sum in another order), and in float64 on the
+    # card, the same dropout masks drawn from the same generator
+    pc_again = single_dp_reference("pointconv", states["pointconv"], x,
+                                   labels, device)
+    with f32_fps():
+        pc_f64 = single_dp_reference("pointconv", states["pointconv"], x,
+                                     labels, device, dtype=torch.float64)
     for k, v in launches_since(before).items():
         phase[k] += v
     torch.cuda.empty_cache()
     out, times = {"cuts": DP_CUTS}, {}
+    gap = {"param": DP_GAP_PARAM,
+           "single_rerun": gradient_gaps(pc_again["grads"],
+                                         refs["pointconv"]["grads"]),
+           "single_vs_f64": gradient_gaps(refs["pointconv"]["grads"],
+                                          pc_f64["grads"])}
+    out["tie_free_dgcnn"] = {"points": STEP_DGCNN_POINTS,
+                             "clouds": int(xt.shape[0]), "batch_seed": t_seed,
+                             "feature_knn_margin": t_margin}
     for backend, world in DP_RUNS:
         run = f"{backend}_world{world}"
         t0 = time.time()
         with stdout_to_stderr_fd():
             ranks = spawn(dp_rank, world, backend, [device] * world,
-                          args=(states, x, labels, t0))
+                          args=(states, x, labels, t0, (xt, lt)))
+        out["tie_free_dgcnn"][run] = check_tie_free_selections(ranks,
+                                                               tie_ref, run)
+        gap[f"{run}_vs_f64"] = gradient_gaps(
+            ranks[0]["families"]["pointconv"]["grads"], pc_f64["grads"])
+        gap[f"{run}_f64_vs_single_f64"] = gradient_gaps(
+            ranks[0]["pointconv_f64_grads"], pc_f64["grads"])
+        if not gap[f"{run}_f64_vs_single_f64"]["worst"][
+                "rel_gap_with_floor"] <= DP_F64_TOL:
+            raise AssertionError(f"pointconv DP step ({run}) in float64: "
+                                 f"{gap[f'{run}_f64_vs_single_f64']}")
         times[run] = {"spawn_to_rank_start_s": max(r["start_s"]
                                                    for r in ranks),
                       "spawn_total_s": time.time() - t0,
@@ -2797,6 +3647,7 @@ def run_data_parallel(device):
         raise AssertionError(f"dryrun_multichip(1): {lines}")
     out["dryrun_multichip_1"] = {"ok_lines": len(lines),
                                  "seconds": time.time() - t0}
+    out["pointconv_gradient_gap"] = gap
     for k, v in launches_since(before).items():
         phase[k] += v
     out["launches"] = {k: v for k, v in phase.items() if v}
@@ -3117,12 +3968,12 @@ def main() -> int:
         log("no CUDA device: this script measures the port on an NVIDIA GPU")
         return 2
     sys.path.insert(0, REPO)
-    from interpret_quality_tpu_torch.models.common import set_fp32_matmuls
     from interpret_quality_tpu_torch.ops.cuda import build
     from interpret_quality_tpu_torch.ops.cuda import fps as fp
     from interpret_quality_tpu_torch.ops.cuda import groups as gr
     from interpret_quality_tpu_torch.ops.cuda import neighbors as nb
-    set_fp32_matmuls()
+    from interpret_quality_tpu_torch.ops.precision import set_matmul_precision
+    set_matmul_precision("highest")
     device = torch.device("cuda")
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
@@ -3208,6 +4059,9 @@ def main() -> int:
             train = run_train(train_dir, device)
             train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
             torch.cuda.empty_cache()
+            precision, precision_rows, precision_failed = run_precision(
+                device, d5, os.path.join(train_dir, "ck"))
+            torch.cuda.empty_cache()
             adversarial, adv_launches = run_adversarial(
                 train_dir, device,
                 gcnn_checkpoint(os.path.join(train_dir, "ck")))
@@ -3218,6 +4072,9 @@ def main() -> int:
     shutil.rmtree(train_dir, ignore_errors=True)
     emit({"phase": "train", **train, "nvidia_smi": smi,
           "peak_memory_gb": train_peak_gb, "cuts": TRAIN_CUTS})
+    emit({"phase": "precision", **precision, "nvidia_smi": smi})
+    if precision_failed:        # after the record: every number first
+        raise AssertionError("precision phase: " + "; ".join(precision_failed))
     emit({"phase": "adversarial", **adversarial, "nvidia_smi": smi,
           "cuts": ADV_CUTS})
     emit({"phase": "adv_robustness", **robustness, "cuts": ROBUST_CUTS})
@@ -3281,7 +4138,12 @@ def main() -> int:
          "library_ms": None, **numbers,
          **({"kernel_phase_launches": k8_launches, "off_path": OFF_PATH[kname]}
             if kname in OFF_PATH else {})}
-        for kname, module, where, numbers in rows]})
+        for kname, module, where, numbers in rows] + [
+        {"name": kname, "route": "cuda",
+         "source": src(ROUTE_SOURCES[kname.split(":")[0]][0]),
+         "replaces": pallas + ROUTE_SOURCES[kname.split(":")[0]][1],
+         "launches": n, "launches_in": "precision phase", **numbers}
+        for kname, (numbers, n) in precision_rows.items()]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -14,6 +14,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from ..ops.precision import matmul
 from .coalitions import (keep_matrix_from_orders, marginals_by_region,
                          masked_coalitions)
 from .reward import reward_from_logits
@@ -22,10 +23,11 @@ from .reward import reward_from_logits
 def region_id_from_fps(data: torch.Tensor, fps_index: torch.Tensor) -> torch.Tensor:
     """Assign each point of ``data`` (N, 3) to its nearest FPS centre
     (reference final_shapley_value.py:20-35): (N,) int32, ties to the lowest
-    centre index."""
+    centre index.  The product follows the matmul precision, as the JAX
+    function's, so at ``default`` ids may differ from ``highest``'s."""
     centers = data[fps_index.long()]                         # (R, 3)
     d2 = (torch.sum(data * data, -1, keepdim=True)
-          - 2.0 * data @ centers.T
+          - 2.0 * matmul(data, centers.T)
           + torch.sum(centers * centers, -1)[None, :])       # (N, R)
     return torch.argmin(d2, dim=-1).to(torch.int32)
 

@@ -1,14 +1,18 @@
 """Shared CLI argument surface: the reference flags (e.g.
 final_shapley_value.py:178-188) plus ``--synthetic``, ``--allow_random_init``,
-``--samples``, ``--resume``, ``--mesh_devices``, ``--trace_dir`` and
-``--device``.  The JAX package's ``--matmul_precision`` and
-``--gather_precision`` have no counterpart: the port always computes what
-their exact settings give (f32 matmuls, f32 gathers)."""
+``--samples``, ``--resume``, ``--mesh_devices``, ``--trace_dir``,
+``--device`` and the JAX package's ``--matmul_precision`` and
+``--gather_precision`` with its choices.  The port's defaults for those two
+are the exact settings, ``highest`` and ``hilo`` (f32 products and gathers),
+where the JAX package's are ``default`` and ``bf16``; they govern the card
+only, as XLA:CPU computes f32 at every setting."""
 from __future__ import annotations
 
 import argparse
 
-from ..config import DEVICES, MODEL_NAMES, ExperimentConfig
+from ..config import (DEVICES, GATHER_PRECISIONS, MATMUL_PRECISIONS,
+                      MODEL_NAMES, ExperimentConfig, set_gather_value_parts,
+                      set_matmul_precision)
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
@@ -54,10 +58,28 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda", choices=DEVICES,
                    help="where the model runs; 'cuda' raises when no card is "
                         "present")
+    p.add_argument("--matmul_precision", type=str, default="highest",
+                   choices=MATMUL_PRECISIONS,
+                   help="products of the models on the card: 'highest' f32 "
+                        "(the reference's numerics), 'high' one TF32 "
+                        "product, 'default' one product of bf16-rounded "
+                        "operands with f32 accumulation (the JAX package's "
+                        "default); the CPU computes f32 at every setting")
+    p.add_argument("--gather_precision", type=str, default="hilo",
+                   choices=GATHER_PRECISIONS,
+                   help="values of the neighbour kernels' gathers on the "
+                        "card: 'hilo' exact f32, 'bf16' each value rounded "
+                        "to bf16 (the JAX package's default); the CPU "
+                        "gathers exactly at every setting")
     return p
 
 
 def config_from_args(args) -> ExperimentConfig:
+    # set unconditionally: both are process-global and must not leak from
+    # an earlier call in the same process
+    set_matmul_precision(getattr(args, "matmul_precision", "highest"))
+    set_gather_value_parts(
+        1 if getattr(args, "gather_precision", "hilo") == "bf16" else 2)
     extra = {k: v for k, v in (
         ("num_points", args.num_points),
         ("num_regions", args.num_regions),

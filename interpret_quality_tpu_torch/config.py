@@ -4,8 +4,14 @@ The port's own copy of ``interpret_quality_tpu/config.py``: the same
 constants, knob names and artifact-naming contract (reference
 ``config.py:2-17``, ``tools/final_util.py:15-68``,
 ``final_shapley_value.py:194-195``), so both packages write the same
-artifact tree.  Added: ``device``; left out: the TPU gather-precision knob
-and the pose-chunk knob of the one-dispatch enumeration.
+artifact tree.  Added: ``device``.  The two process-global precision
+settings of the JAX package are here with their choices, but the port's
+defaults are the exact ones (``highest`` products, ``hilo`` gathers: f32 on
+the card), where the JAX package's are ``default`` / ``bf16``; they govern
+the card only (``models/common.py`` lists every product and its rule).
+Left out: the pose-chunk knob of the one-dispatch enumeration (a forward
+of eight PointNet poses would need more activation memory than the card
+has); the enumeration forwards one pose at a time.
 """
 from __future__ import annotations
 
@@ -55,6 +61,8 @@ SHAPENET_ID2CAT = {
 }
 SHAPENET_CAT2ID = {v: k for k, v in SHAPENET_ID2CAT.items()}
 
+MATMUL_PRECISIONS = ("default", "high", "highest")
+GATHER_PRECISIONS = ("bf16", "hilo")
 MODEL_NAMES = ["pointnet", "pointnet2", "pointconv", "dgcnn", "gcnn", "gcnn_adv"]
 DATASET_NAMES = ["modelnet10", "shapenet"]
 DEVICES = ["cuda", "cpu"]
@@ -81,6 +89,43 @@ CONFIG = {
         "pointconv": 400,
     },
 }
+
+
+# ---------------------------------------------------------------------------
+# Precision settings (the JAX package's --matmul_precision and
+# --gather_precision; its config.py keeps the gather one as here).  Both are
+# process-global: cli.common.config_from_args sets them on every call, and a
+# data-parallel rank takes its parent's (parallel.data_parallel.spawn).
+#   matmul precision: "highest" f32 products; "high" one TF32 product;
+#     "default" one product of bf16-rounded operands, f32 accumulation.
+#   gather value parts: 2 ("hilo") gathers f32 values exactly; 1 ("bf16")
+#     gathers each value rounded to bf16, to nearest even, in the neighbour
+#     kernels whose TPU counterparts split values into bf16 planes.
+# ---------------------------------------------------------------------------
+_MATMUL_PRECISION = "highest"
+_GATHER_VALUE_PARTS = 2
+
+
+def set_matmul_precision(precision: str) -> None:
+    if precision not in MATMUL_PRECISIONS:
+        raise ValueError(f"unknown matmul precision {precision!r}")
+    global _MATMUL_PRECISION
+    _MATMUL_PRECISION = precision
+
+
+def matmul_precision() -> str:
+    return _MATMUL_PRECISION
+
+
+def set_gather_value_parts(parts: int) -> None:
+    if parts not in (1, 2):
+        raise ValueError(f"gather value parts must be 1 or 2, got {parts!r}")
+    global _GATHER_VALUE_PARTS
+    _GATHER_VALUE_PARTS = parts
+
+
+def gather_value_parts() -> int:
+    return _GATHER_VALUE_PARTS
 
 
 def shapley_batch_size(model: str) -> int:

@@ -15,20 +15,27 @@
 //                     layers 2-3, density scale, WeightNet on exact offsets,
 //                     and the contraction over the neighbours
 //                     replaces groups.py fused_pointconv_sa -> _pconv_kernel
-//   iq_gather_rows    grouped row gather, out[b, r, :] = values[b, idx[b, r], :]
+//   iq_gather_rows    grouped row gather, out[b, r, :] = values[b, idx[b, r], :],
+//                     the values f32 or bf16 (--gather_precision bf16)
 //                     replaces groups.py gather_rows -> _gather_rows_kernel
 //
 // None of the TPU workarounds are carried over: rows are gathered directly
-// in f32 (no one-hot matmuls, no bf16 hi/lo planes) and the kNN keeps exact
-// f32 distances with ties to the lowest index (the xyz route of knn_xyz.cuh
-// or the tiled select_knn, both shared with neighbors.cu).  iq_ball_mlp3 and iq_pointconv_sa run their layers 2 and 3
-// on the tensor cores with a three-product TF32 split that keeps f32
-// accuracy, through one piece of code (order_weights_kernel, WeightRing,
-// mma_layer, mlp_layers23; see iq_ball_mlp3); each brings its own front (a
-// ball query, a gather of given neighbours) and its own epilogue (a max over
-// the ball, a contraction over the neighbours).  All other arithmetic is f32
-// on the CUDA cores.  The (B, S, K, C) grouped tensors never exist in device
-// memory.
+// (no one-hot matmuls, no bf16 hi/lo planes; at the bf16 gather precision
+// the callers hand over values rounded to bf16, which is what the TPU's one
+// bf16 plane gives) and the kNN keeps exact f32 distances with ties to the
+// lowest index (the xyz route of knn_xyz.cuh or the tiled select_knn, both
+// shared with neighbors.cu).  iq_ball_mlp3 and iq_pointconv_sa run their
+// layers 2 and 3 on the tensor cores through one piece of code
+// (order_weights_kernel, WeightRing, mma_layer, mlp_layers23; see
+// iq_ball_mlp3), at the matmul precision `prec` a template parameter: at
+// kPrecHighest a three-product TF32 split that keeps f32 accuracy, at
+// kPrecHigh one product of operands rounded to TF32, at kPrecDefault one
+// product of operands rounded to bf16 (exact in TF32: one bf16 pass).  Each
+// brings its own front (a ball query, a gather of given neighbours) and its
+// own epilogue (a max over the ball, a contraction over the neighbours).
+// All other arithmetic is f32 on the CUDA cores, iq_pointconv_sa's
+// WeightNet on operands rounded for `prec`.  The (B, S, K, C) grouped
+// tensors never exist in device memory.
 //
 // Launchers run on the caller's stream, allocate nothing and return
 // cudaGetLastError() (0 on success); cudaErrorInvalidValue for arguments the
@@ -112,6 +119,11 @@ constexpr int kBallFixedFloats =
     2 * kQueueCap + kMaxBatchRows + 2 * kBallRows + 3 * kBallRows + kMaxBatch +
     (kMaxBatch + 1) + 3;
 
+// The matmul precisions (ops/cuda/groups.py PRECISION_CODES).
+constexpr int kPrecHighest = 0;             // three TF32 products: f32 accuracy
+constexpr int kPrecHigh = 1;                // one product of TF32-rounded operands
+constexpr int kPrecDefault = 2;             // one product of bf16-rounded operands
+
 __device__ __forceinline__ float tf32_hi(float x) {
   return __uint_as_float(__float_as_uint(x) & 0xffffe000u);
 }
@@ -120,6 +132,22 @@ __device__ __forceinline__ float tf32_hi(float x) {
 // slower: 7% of the whole kernel on an H100)
 __device__ __forceinline__ float tf32_lo(float x, float hi) {
   return __uint_as_float((__float_as_uint(__fsub_rn(x, hi)) + 0x1000u) & 0xffffe000u);
+}
+// x rounded to TF32, to nearest with ties away from zero (cvt.rna.tf32.f32)
+__device__ __forceinline__ float tf32_rna(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+// x rounded to bf16, to nearest even, as an f32 (torch's and XLA's rounding)
+__device__ __forceinline__ float bf16_rne(float x) {
+  const unsigned u = __float_as_uint(x);
+  return __uint_as_float((u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u);
+}
+// an operand of a one-pass product at precision prec (kPrecHighest: x)
+__host__ __device__ __forceinline__ constexpr bool one_pass(int prec) {
+  return prec != kPrecHighest;
+}
+__device__ __forceinline__ float round_operand(int prec, float x) {
+  return prec == kPrecHigh ? tf32_rna(x) : prec == kPrecDefault ? bf16_rne(x) : x;
 }
 
 // d += a (16x8, row) * b (8x8, col), TF32 operands, f32 accumulate
@@ -134,16 +162,17 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const float (&a)[4], flo
 
 // w (cin, cout) row-major -> the order the B fragments are read in: float2
 // number (ks * (cout / 8) + nt) * 32 + lane holds w[ks*8 + lane%4][nt*8 +
-// lane/4] and the value four rows below it.
+// lane/4] and the value four rows below it; rounded for a one-pass product
+// at precision prec, whole f32 at kPrecHighest (mma_layer splits them).
 __global__ void order_weights_kernel(const float* __restrict__ w, int cin, int cout,
-                                     float2* __restrict__ frag) {
+                                     float2* __restrict__ frag, int prec) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= (cin / 8) * (cout / 8) * 32) return;
   const int lane = e & 31, tile = e >> 5;
   const int nt = tile % (cout / 8), ks = tile / (cout / 8);
   const int col = nt * 8 + (lane >> 2), row = ks * 8 + (lane & 3);
   const float x0 = w[(size_t)row * cout + col], x1 = w[(size_t)(row + 4) * cout + col];
-  frag[e] = make_float2(x0, x1);
+  frag[e] = make_float2(round_operand(prec, x0), round_operand(prec, x1));
 }
 
 // k-steps of one slab: the largest power of two that fits a ring buffer and
@@ -202,8 +231,10 @@ struct WeightRing {
 
 // acc = x @ w for this warp's 64 rows x NT column tiles, w from the ring.
 // x is [kBallRows][xs] in shared memory (xs = cin + 4: conflict-free
-// fragment loads); rows rg*64.., column tiles cq*NT...
-template <int NT>
+// fragment loads); rows rg*64.., column tiles cq*NT...  At kPrecHighest
+// three products of the TF32 halves; else one product of x rounded here
+// and w as order_weights_kernel rounded it.
+template <int NT, int PREC>
 __device__ __forceinline__ void mma_layer(const float* x, int xs, int cin, int cout,
                                           int nslabs, WeightRing& wr,
                                           float (&acc)[4][NT][4]) {
@@ -230,8 +261,12 @@ __device__ __forceinline__ void mma_layer(const float* x, int xs, int cin, int c
         const float v[4] = {p[0], p[8 * xs], p[4], p[8 * xs + 4]};
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          ahi[mt][i] = tf32_hi(v[i]);
-          alo[mt][i] = tf32_lo(v[i], ahi[mt][i]);
+          if (one_pass(PREC)) {
+            ahi[mt][i] = round_operand(PREC, v[i]);
+          } else {
+            ahi[mt][i] = tf32_hi(v[i]);
+            alo[mt][i] = tf32_lo(v[i], ahi[mt][i]);
+          }
         }
       }
       // two column tiles at a time, pass by pass: 8 independent
@@ -243,21 +278,28 @@ __device__ __forceinline__ void mma_layer(const float* x, int xs, int cin, int c
         for (int j = 0; j < 2; ++j)
           if (nt + j < NT) {
             const float2 b = wb[(kk * ntc + nt + j) * 32];
-            bh[j][0] = tf32_hi(b.x);
-            bh[j][1] = tf32_hi(b.y);
-            bl[j][0] = tf32_lo(b.x, bh[j][0]);
-            bl[j][1] = tf32_lo(b.y, bh[j][1]);
+            if (one_pass(PREC)) {       // rounded already
+              bh[j][0] = b.x;
+              bh[j][1] = b.y;
+            } else {
+              bh[j][0] = tf32_hi(b.x);
+              bh[j][1] = tf32_hi(b.y);
+              bl[j][0] = tf32_lo(b.x, bh[j][0]);
+              bl[j][1] = tf32_lo(b.y, bh[j][1]);
+            }
           }
+        if (!one_pass(PREC)) {
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
+          for (int j = 0; j < 2; ++j)
 #pragma unroll
-          for (int mt = 0; mt < 4; ++mt)
-            if (nt + j < NT) mma_tf32(acc[mt][nt + j], alo[mt], bh[j][0], bh[j][1]);
+            for (int mt = 0; mt < 4; ++mt)
+              if (nt + j < NT) mma_tf32(acc[mt][nt + j], alo[mt], bh[j][0], bh[j][1]);
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
+          for (int j = 0; j < 2; ++j)
 #pragma unroll
-          for (int mt = 0; mt < 4; ++mt)
-            if (nt + j < NT) mma_tf32(acc[mt][nt + j], ahi[mt], bl[j][0], bl[j][1]);
+            for (int mt = 0; mt < 4; ++mt)
+              if (nt + j < NT) mma_tf32(acc[mt][nt + j], ahi[mt], bl[j][0], bl[j][1]);
+        }
 #pragma unroll
         for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -275,7 +317,7 @@ __device__ __forceinline__ void mma_layer(const float* x, int xs, int cin, int c
 // left in shared memory over h1 and h2 (both dead by then) at row stride xs3
 // (kBallRows * xs3 floats must fit in h1 and h2 together), visible to every
 // thread on return.  Each caller brings its own epilogue from there.
-template <int NT2, int NT3, bool SCALE>
+template <int NT2, int NT3, bool SCALE, int PREC>
 __device__ __forceinline__ float* mlp_layers23(const float* h1, float* h2, int C1, int C2,
                                                int C3, int xs3, WeightRing& wr,
                                                const float* __restrict__ b2,
@@ -286,7 +328,7 @@ __device__ __forceinline__ float* mlp_layers23(const float* h1, float* h2, int C
   const int rg = warp >> 2, cq = warp & 3;
   {
     float acc[4][NT2][4];
-    mma_layer<NT2>(h1, C1 + 4, C1, C2, wr.n2, wr, acc);
+    mma_layer<NT2, PREC>(h1, C1 + 4, C1, C2, wr.n2, wr, acc);
 #pragma unroll
     for (int nt = 0; nt < NT2; ++nt) {
       const int c = (cq * NT2 + nt) * 8 + 2 * t;
@@ -305,7 +347,7 @@ __device__ __forceinline__ float* mlp_layers23(const float* h1, float* h2, int C
   }
   __syncthreads();
   float acc[4][NT3][4];
-  mma_layer<NT3>(h2, C2 + 4, C2, C3, wr.n3, wr, acc);
+  mma_layer<NT3, PREC>(h2, C2 + 4, C2, C3, wr.n3, wr, acc);
   __syncthreads();                    // every warp is done reading h2
   float* o3 = const_cast<float*>(h1);
   float s0[4], s1[4];                 // the scales of this thread's rows
@@ -339,14 +381,14 @@ __device__ __forceinline__ float* mlp_layers23(const float* h1, float* h2, int C
 
 // iq_ball_mlp3's layers 2 and 3 of one tile and its epilogue: a thread per
 // four columns folds each centre's run of rows into `out`.
-template <int NT2, int NT3>
+template <int NT2, int NT3, int PREC>
 __device__ __forceinline__ void ball_layers23(const float* h1, float* h2, int C1, int C2,
                                               int C3, WeightRing& wr,
                                               const float* __restrict__ b2,
                                               const float* __restrict__ b3,
                                               const int* row_c, float* __restrict__ out) {
   const float* o3 =
-      mlp_layers23<NT2, NT3, false>(h1, h2, C1, C2, C3, C3 + 4, wr, b2, b3, nullptr);
+      mlp_layers23<NT2, NT3, false, PREC>(h1, h2, C1, C2, C3, C3 + 4, wr, b2, b3, nullptr);
   // a thread takes four columns of a stretch of 128 / parts rows
   const int cg = C3 / 4, rows_per = kBallRows / (kThreads / cg);
   const int c = (threadIdx.x % cg) * 4, r0 = (threadIdx.x / cg) * rows_per;
@@ -391,7 +433,7 @@ first_copy_kernel(const float* __restrict__ xyz, int* __restrict__ first_copy, i
   }
 }
 
-template <bool HAS_UF>
+template <bool HAS_UF, int PREC>
 __global__ void __launch_bounds__(kThreads, 1)
 ball_mlp3_kernel(const float* __restrict__ new_xyz, const float* __restrict__ xyz,
                  const float* __restrict__ uf, const float* __restrict__ b1,
@@ -555,16 +597,16 @@ ball_mlp3_kernel(const float* __restrict__ new_xyz, const float* __restrict__ xy
     __syncthreads();
     switch ((C2 / 32) * 16 + C3 / 32) {
       case 1 * 16 + 2:
-        ball_layers23<1, 2>(h1, h2, C1, C2, C3, wr, b2, b3, row_c, out);
+        ball_layers23<1, 2, PREC>(h1, h2, C1, C2, C3, wr, b2, b3, row_c, out);
         break;
       case 2 * 16 + 4:
-        ball_layers23<2, 4>(h1, h2, C1, C2, C3, wr, b2, b3, row_c, out);
+        ball_layers23<2, 4, PREC>(h1, h2, C1, C2, C3, wr, b2, b3, row_c, out);
         break;
       case 3 * 16 + 4:
-        ball_layers23<3, 4>(h1, h2, C1, C2, C3, wr, b2, b3, row_c, out);
+        ball_layers23<3, 4, PREC>(h1, h2, C1, C2, C3, wr, b2, b3, row_c, out);
         break;
       default:
-        ball_layers23<4, 8>(h1, h2, C1, C2, C3, wr, b2, b3, row_c, out);
+        ball_layers23<4, 8, PREC>(h1, h2, C1, C2, C3, wr, b2, b3, row_c, out);
         break;
     }
     __syncthreads();
@@ -725,10 +767,22 @@ __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
 }
 
+// Is packed WeightNet float e a weight (not a bias)?  wn packs (w1, f1, w2,
+// f2, w3, f3): the weights are rounded for a one-pass precision when staged.
+__device__ __forceinline__ bool wnet_weight(int e) {
+  constexpr int f1 = 3 * kWH, w2 = f1 + kWH, f2 = w2 + kWH * kWH, w3 = f2 + kWH,
+                f3 = w3 + kWH * kWO;
+  return e < f1 || (e >= w2 && e < f2) || (e >= w3 && e < f3);
+}
+
 // Half of WeightNet 3 -> 8 -> 8 -> 16 (BN folded, ReLU after every layer) on
 // one neighbour's exact f32 offset: outputs o0 .. o0 + 7 (o0 = 0 or 8).  wn
 // packs (w1, f1, w2, f2, w3, f3) with each w as (in, out) row-major, on a
 // 16-byte boundary in shared memory; every row there is 8 or 16 floats.
+// At a one-pass precision PREC the weights in wn are rounded for it and
+// each layer's input is rounded here: every product is exact in f32 and the
+// sums are f32, the TPU's one-pass product on the f32 units.
+template <int PREC>
 __device__ __forceinline__ void weightnet_half(const float (&off)[3], const float* wn,
                                                int o0, float (&o)[kWO / 2]) {
   static_assert(kWH == 8 && kWO == 16, "rows are read as two float4s");
@@ -742,12 +796,13 @@ __device__ __forceinline__ void weightnet_half(const float (&off)[3], const floa
   load8(w1, w);
   load8(w1 + kWH, x);
   load8(w1 + 2 * kWH, y);
+  const float r0 = round_operand(PREC, off[0]), r1 = round_operand(PREC, off[1]),
+              r2 = round_operand(PREC, off[2]);
 #pragma unroll
-  for (int n = 0; n < kWH; ++n)
-    h[n] = fmaf(off[2], y[n], fmaf(off[1], x[n], __fmul_rn(off[0], w[n])));
+  for (int n = 0; n < kWH; ++n) h[n] = fmaf(r2, y[n], fmaf(r1, x[n], __fmul_rn(r0, w[n])));
   load8(f1, w);
 #pragma unroll
-  for (int n = 0; n < kWH; ++n) h[n] = fmaxf(__fadd_rn(h[n], w[n]), 0.f);
+  for (int n = 0; n < kWH; ++n) h[n] = round_operand(PREC, fmaxf(__fadd_rn(h[n], w[n]), 0.f));
 #pragma unroll
   for (int n = 0; n < kWH; ++n) g[n] = 0.f;
 #pragma unroll
@@ -758,7 +813,7 @@ __device__ __forceinline__ void weightnet_half(const float (&off)[3], const floa
   }
   load8(f2, w);
 #pragma unroll
-  for (int n = 0; n < kWH; ++n) g[n] = fmaxf(__fadd_rn(g[n], w[n]), 0.f);
+  for (int n = 0; n < kWH; ++n) g[n] = round_operand(PREC, fmaxf(__fadd_rn(g[n], w[n]), 0.f));
 #pragma unroll
   for (int n = 0; n < kWO / 2; ++n) o[n] = 0.f;
 #pragma unroll
@@ -855,7 +910,7 @@ __device__ __forceinline__ void contract_mma(const float* h3, int xs3, const flo
 }
 
 // Layers 2 and 3 of one tile and iq_pointconv_sa's epilogue.
-template <int NT2, int NT3>
+template <int NT2, int NT3, int PREC>
 __device__ __forceinline__ void pconv_layers_contract(const float* h1, float* h2, int C1,
                                                       int C2, int C3, WeightRing& wr,
                                                       const float* __restrict__ b2,
@@ -864,10 +919,11 @@ __device__ __forceinline__ void pconv_layers_contract(const float* h1, float* h2
                                                       float* __restrict__ out_tile, int nc,
                                                       int K) {
   const float* h3 =
-      mlp_layers23<NT2, NT3, true>(h1, h2, C1, C2, C3, C3 + 8, wr, b2, b3, dsr);
+      mlp_layers23<NT2, NT3, true, PREC>(h1, h2, C1, C2, C3, C3 + 8, wr, b2, b3, dsr);
   contract_mma(h3, C3 + 8, wt, out_tile, nc, K, C3);
 }
 
+template <int PREC>
 __global__ void __launch_bounds__(kThreads, 1)
 pointconv_sa_kernel(const int32_t* __restrict__ idx, const float* __restrict__ ds,
                     const float* __restrict__ new_xyz, const float* __restrict__ u,
@@ -918,7 +974,8 @@ pointconv_sa_kernel(const int32_t* __restrict__ idx, const float* __restrict__ d
   wr.s3 = slab_ksteps(C2, C3) * C3 * 8;
   wr.nbuf = nbuf;
   wr.start();
-  for (int e = threadIdx.x; e < kWnetFloats; e += kThreads) wn[e] = wnet[e];
+  for (int e = threadIdx.x; e < kWnetFloats; e += kThreads)
+    wn[e] = wnet_weight(e) ? round_operand(PREC, wnet[e]) : wnet[e];
 
   // layer 1's four columns of this thread (C1 / 4 divides kThreads) and its rows
   const int c1 = (threadIdx.x % (C1 / 4)) * 4;
@@ -952,7 +1009,7 @@ pointconv_sa_kernel(const int32_t* __restrict__ idx, const float* __restrict__ d
         const float* pt = xyz + ((size_t)b * N + p) * 3;
         const float off[3] = {__fsub_rn(pt[0], c[0]), __fsub_rn(pt[1], c[1]),
                               __fsub_rn(pt[2], c[2])};
-        weightnet_half(off, wn, half * (kWO / 2), o);
+        weightnet_half<PREC>(off, wn, half * (kWO / 2), o);
       } else {
 #pragma unroll
         for (int w = 0; w < kWO / 2; ++w) o[w] = 0.f;
@@ -996,34 +1053,52 @@ pointconv_sa_kernel(const int32_t* __restrict__ idx, const float* __restrict__ d
     float* out_tile = out + ((size_t)b * S + s0) * C3 * kWO;
     switch ((C2 / 32) * 16 + C3 / 32) {
       case 1 * 16 + 2:
-        pconv_layers_contract<1, 2>(h1, h2, C1, C2, C3, wr, b2, b3, dsr, wt, out_tile, nc, K);
+        pconv_layers_contract<1, 2, PREC>(h1, h2, C1, C2, C3, wr, b2, b3, dsr, wt, out_tile, nc,
+                                         K);
         break;
       case 2 * 16 + 4:
-        pconv_layers_contract<2, 4>(h1, h2, C1, C2, C3, wr, b2, b3, dsr, wt, out_tile, nc, K);
+        pconv_layers_contract<2, 4, PREC>(h1, h2, C1, C2, C3, wr, b2, b3, dsr, wt, out_tile, nc,
+                                         K);
         break;
       case 3 * 16 + 4:
-        pconv_layers_contract<3, 4>(h1, h2, C1, C2, C3, wr, b2, b3, dsr, wt, out_tile, nc, K);
+        pconv_layers_contract<3, 4, PREC>(h1, h2, C1, C2, C3, wr, b2, b3, dsr, wt, out_tile, nc,
+                                         K);
         break;
       default:
-        pconv_layers_contract<4, 8>(h1, h2, C1, C2, C3, wr, b2, b3, dsr, wt, out_tile, nc, K);
+        pconv_layers_contract<4, 8, PREC>(h1, h2, C1, C2, C3, wr, b2, b3, dsr, wt, out_tile, nc,
+                                         K);
         break;
     }
   }
   cp_async_wait<0>();
 }
 
+// A loaded unit of values as f32 output: f32 as it is, bf16 bits widened
+// exactly (a bf16 is the high half of an f32); uint2 holds four bf16.
+using bf16_bits = unsigned short;
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float4 widen(float4 v) { return v; }
+__device__ __forceinline__ float widen(bf16_bits v) { return __uint_as_float((unsigned)v << 16); }
+__device__ __forceinline__ float4 widen(uint2 u) {
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
 // out[b, r, :] = values[b, idx[b, r], :] over the R = S * K rows of each
-// cloud; T is float4 where F % 4 == 0 (FT = F / 4), else float (FT = F).
-// A pure copy, so bound by bytes: the output, K times the values, dominates.
-// The TPU kernel gathered by one-hot matmuls against bf16 hi/lo planes with F
-// padded to 128; here each row is copied exactly in f32.  The tx threads of
-// a row (a power of two up to 32, inside one warp) walk it along F, so a
-// warp's stores are contiguous; the row's first thread reads its index once
-// and shuffles it to the others.
-template <typename T>
+// cloud; T is a unit of four values where F % 4 == 0 (float4 of f32, uint2
+// of bf16; FT = F / 4), else one value (FT = F), and O the matching f32
+// unit.  A pure copy, so bound by bytes: the output, K times the values,
+// dominates.  The TPU kernel gathered by one-hot matmuls against bf16
+// planes with F padded to 128; here each row is copied directly, exact f32
+// or, at the bf16 gather precision, the bf16 values the caller rounded,
+// widened to f32 (the TPU's one-plane result).  The tx threads of a row (a
+// power of two up to 32, inside one warp) walk it along F, so a warp's
+// stores are contiguous; the row's first thread reads its index once and
+// shuffles it to the others.
+template <typename T, typename O>
 __global__ void __launch_bounds__(kThreads)
 gather_rows_kernel(const T* __restrict__ values, const int32_t* __restrict__ idx,
-                   T* __restrict__ out, int N, long long R, long long rows, int FT) {
+                   O* __restrict__ out, int N, long long R, long long rows, int FT) {
   const int tx = blockDim.x;
   const long long row = (long long)blockIdx.x * blockDim.y + threadIdx.y;
   const bool live = row < rows;
@@ -1032,8 +1107,8 @@ gather_rows_kernel(const T* __restrict__ values, const int32_t* __restrict__ idx
   src = __shfl_sync(0xffffffffu, src, 0, tx);   // every lane of the warp takes part
   if (!live) return;
   const T* in = values + ((size_t)(row / R) * N + src) * FT;
-  T* o = out + (size_t)row * FT;
-  for (int c = threadIdx.x; c < FT; c += tx) o[c] = __ldg(in + c);
+  O* o = out + (size_t)row * FT;
+  for (int c = threadIdx.x; c < FT; c += tx) o[c] = widen(__ldg(in + c));
 }
 
 }  // namespace
@@ -1042,13 +1117,15 @@ extern "C" {
 
 // scratch: 4 + C1*C2 + C2*C3 floats of device memory on a 16-byte boundary
 // (the batch counter, then both layers' weights in fragment order), and
-// without uf B*N more (each point's first copy).
+// without uf B*N more (each point's first copy).  prec: the matmul precision
+// of layers 2-3 (kPrecHighest, kPrecHigh or kPrecDefault).
 int iq_ball_mlp3(const float* new_xyz, const float* xyz, const float* uf, const float* b1,
                  const float* a1x, const float* a2, const float* b2, const float* a3,
                  const float* b3, float* out, float* scratch, int B, int S, int N, int K,
-                 int C1, int C2, int C3, float r2, void* stream) {
+                 int C1, int C2, int C3, float r2, int prec, void* stream) {
   if (B <= 0 || S <= 0) return cudaSuccess;
   const int widths = (C2 / 32) * 16 + C3 / 32;
+  if (prec < kPrecHighest || prec > kPrecDefault) return cudaErrorInvalidValue;
   if (N < 1 || K < 1 || K > kMaxBatchRows || C1 < 8 || kThreads % C1 || C2 % 32 ||
       C3 % 32 || C1 + C2 + 4 < C3 ||
       (widths != 1 * 16 + 2 && widths != 2 * 16 + 4 && widths != 3 * 16 + 4 &&
@@ -1080,23 +1157,22 @@ int iq_ball_mlp3(const float* new_xyz, const float* xyz, const float* uf, const 
   if (uf == nullptr)
     first_copy_kernel<<<(unsigned)B, kThreads, 0, s>>>(xyz, first_copy, N);
   order_weights_kernel<<<(C1 * C2 / 2 + 255) / 256, 256, 0, s>>>(
-      a2, C1, C2, reinterpret_cast<float2*>(frag2));
+      a2, C1, C2, reinterpret_cast<float2*>(frag2), prec);
   order_weights_kernel<<<(C2 * C3 / 2 + 255) / 256, 256, 0, s>>>(
-      a3, C2, C3, reinterpret_cast<float2*>(frag3));
+      a3, C2, C3, reinterpret_cast<float2*>(frag3), prec);
   const long long units = (long long)B * ((S + CB - 1) / CB);
   const unsigned grid = (unsigned)(units < sms ? units : sms);
-  if (uf != nullptr) {
-    if ((err = prepare(ball_mlp3_kernel<true>, smem)) != cudaSuccess) return err;
-    ball_mlp3_kernel<true><<<grid, kThreads, smem, s>>>(new_xyz, xyz, uf, b1, a1x, frag2, b2,
-                                                         b3, out, counter, nullptr, B, S, N,
-                                                         K, C1, C2, C3, r2, CB, nbuf);
-  } else {
-    if ((err = prepare(ball_mlp3_kernel<false>, smem)) != cudaSuccess) return err;
-    ball_mlp3_kernel<false><<<grid, kThreads, smem, s>>>(new_xyz, xyz, uf, b1, a1x, frag2,
-                                                          b2, b3, out, counter, first_copy,
-                                                          B, S, N, K, C1, C2, C3, r2, CB,
-                                                          nbuf);
-  }
+  using Kernel = decltype(&ball_mlp3_kernel<true, kPrecHighest>);
+  static const Kernel kernels[2][3] = {
+      {ball_mlp3_kernel<false, kPrecHighest>, ball_mlp3_kernel<false, kPrecHigh>,
+       ball_mlp3_kernel<false, kPrecDefault>},
+      {ball_mlp3_kernel<true, kPrecHighest>, ball_mlp3_kernel<true, kPrecHigh>,
+       ball_mlp3_kernel<true, kPrecDefault>}};
+  const Kernel kernel = kernels[uf != nullptr][prec];
+  if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, s>>>(new_xyz, xyz, uf, b1, a1x, frag2, b2, b3, out, counter,
+                                      uf != nullptr ? nullptr : first_copy, B, S, N, K, C1,
+                                      C2, C3, r2, CB, nbuf);
   return cudaGetLastError();
 }
 
@@ -1163,12 +1239,15 @@ int iq_knn_density_route(int N, int C, int k, int* info) {
 
 // scratch: C1*C2 + C2*C3 floats of device memory on a 16-byte boundary (both
 // layers' weights in fragment order).  u and csw rows are read as float4s.
+// prec: the matmul precision of layers 2-3 and WeightNet (kPrecHighest,
+// kPrecHigh or kPrecDefault); the contraction keeps three products.
 int iq_pointconv_sa(const int32_t* idx, const float* ds, const float* new_xyz,
                     const float* u, const float* xyz, const float* csw, const float* a2,
                     const float* b2, const float* a3, const float* b3, const float* wnet,
                     float* out, float* scratch, int B, int S, int N, int K, int C1, int C2,
-                    int C3, void* stream) {
+                    int C3, int prec, void* stream) {
   if (B <= 0 || S <= 0) return cudaSuccess;
+  if (prec < kPrecHighest || prec > kPrecDefault) return cudaErrorInvalidValue;
   const int widths = (C2 / 32) * 16 + C3 / 32;
   if (N < 1 || K < 1 || K > kMaxPconvK || C1 < 8 || kThreads % C1 || C2 % 32 || C3 % 32 ||
       C1 + C2 < C3 ||
@@ -1195,23 +1274,28 @@ int iq_pointconv_sa(const int32_t* idx, const float* ds, const float* new_xyz,
   float* frag2 = scratch;
   float* frag3 = frag2 + C1 * C2;
   order_weights_kernel<<<(C1 * C2 / 2 + 255) / 256, 256, 0, s>>>(
-      a2, C1, C2, reinterpret_cast<float2*>(frag2));
+      a2, C1, C2, reinterpret_cast<float2*>(frag2), prec);
   order_weights_kernel<<<(C2 * C3 / 2 + 255) / 256, 256, 0, s>>>(
-      a3, C2, C3, reinterpret_cast<float2*>(frag3));
+      a3, C2, C3, reinterpret_cast<float2*>(frag3), prec);
   const long long tiles = (long long)B * nqb;
   const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
-  if ((err = prepare(pointconv_sa_kernel, smem)) != cudaSuccess) return err;
-  pointconv_sa_kernel<<<grid, kThreads, smem, s>>>(idx, ds, new_xyz, u, xyz, csw, frag2, b2,
-                                                   b3, wnet, out, B, S, N, K, C1, C2, C3, G,
-                                                   nqb, nbuf);
+  using Kernel = decltype(&pointconv_sa_kernel<kPrecHighest>);
+  static const Kernel kernels[3] = {pointconv_sa_kernel<kPrecHighest>,
+                                    pointconv_sa_kernel<kPrecHigh>,
+                                    pointconv_sa_kernel<kPrecDefault>};
+  const Kernel kernel = kernels[prec];
+  if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, s>>>(idx, ds, new_xyz, u, xyz, csw, frag2, b2, b3, wnet, out,
+                                      B, S, N, K, C1, C2, C3, G, nqb, nbuf);
   return cudaGetLastError();
 }
 
-int iq_gather_rows(const float* values, const int32_t* idx, float* out, int B, int N, int R,
-                   int F, void* stream) {
+// bf16 != 0: values holds bf16 values (B * N * F of 2 bytes), else f32.
+int iq_gather_rows(const void* values, const int32_t* idx, float* out, int B, int N, int R,
+                   int F, int bf16, void* stream) {
   if (B <= 0 || R <= 0) return cudaSuccess;
   if (N < 1 || F < 1) return cudaErrorInvalidValue;
-  const bool vec = F % 4 == 0 && reinterpret_cast<uintptr_t>(values) % 16 == 0 &&
+  const bool vec = F % 4 == 0 && reinterpret_cast<uintptr_t>(values) % (bf16 ? 8 : 16) == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const int FT = vec ? F / 4 : F;
   int tx = 1;
@@ -1221,13 +1305,19 @@ int iq_gather_rows(const float* values, const int32_t* idx, float* out, int B, i
   const long long nblocks = (rows + block.y - 1) / block.y;
   if (nblocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec) {
-    gather_rows_kernel<float4><<<(unsigned)nblocks, block, 0, s>>>(
-        reinterpret_cast<const float4*>(values), idx, reinterpret_cast<float4*>(out), N, R,
-        rows, FT);
+  float4* out4 = reinterpret_cast<float4*>(out);
+  if (bf16 && vec) {
+    gather_rows_kernel<<<(unsigned)nblocks, block, 0, s>>>(static_cast<const uint2*>(values),
+                                                           idx, out4, N, R, rows, FT);
+  } else if (bf16) {
+    gather_rows_kernel<<<(unsigned)nblocks, block, 0, s>>>(
+        static_cast<const bf16_bits*>(values), idx, out, N, R, rows, FT);
+  } else if (vec) {
+    gather_rows_kernel<<<(unsigned)nblocks, block, 0, s>>>(static_cast<const float4*>(values),
+                                                           idx, out4, N, R, rows, FT);
   } else {
-    gather_rows_kernel<float><<<(unsigned)nblocks, block, 0, s>>>(values, idx, out, N, R,
-                                                                   rows, FT);
+    gather_rows_kernel<<<(unsigned)nblocks, block, 0, s>>>(static_cast<const float*>(values),
+                                                           idx, out, N, R, rows, FT);
   }
   return cudaGetLastError();
 }

@@ -6,7 +6,8 @@
 //   iq_knn                 exact k-nearest-neighbour indices
 //                          replaces interpret_quality_tpu/ops/pallas/neighbors.py:482
 //                          knn_pallas -> _knn_kernel
-//   iq_gather_extrema      per-point max/min of value rows over given indices
+//   iq_gather_extrema      per-point max/min of value rows over given indices,
+//                          the rows f32 or bf16 (--gather_precision bf16)
 //                          replaces neighbors.py gather_extrema -> _idx_extrema_kernel
 //   iq_knn_gather_extrema  kNN over features fused with the gather-extrema
 //                          replaces neighbors.py knn_gather_extrema -> _extrema_kernel
@@ -24,9 +25,14 @@
 // of the cloud in shared memory (gather_extrema_slice_kernel) and takes
 // gather_extrema_rows only for clouds whose slice does not fit.  Max and min
 // are exact, so every route gives bit-equal results on equal indices.
+// iq_gather_extrema takes the rows of `a` in f32 or, at the bf16 gather
+// precision, as bf16 values (each f32 rounded to nearest even by the caller,
+// the TPU's one bf16 value plane): both routes then read half the bytes,
+// widen each value exactly to f32 and take max and min in f32, so the result
+// is the f32 route's on the rounded values, bit for bit.
 //
 // None of the TPU workarounds are carried over: rows of `a` are gathered
-// directly in f32 (no one-hot matmuls, no bf16 hi/lo planes) and the
+// directly (no one-hot matmuls, no bf16 hi/lo planes) and the
 // selection keeps exact f32 distances (no packed-mantissa indices): a blocked
 // product on the f32 units and a warp-cooperative sorted list per query.
 //
@@ -54,17 +60,36 @@ constexpr int kPassQueries = 64;     // queries whose index rows one pass stages
 constexpr int kGatherThreads = 256;  // threads per block of the row route
 constexpr int kGatherQueries = 32;   // queries per block of the row route
 
+// A value of `a` as f32: an f32, or a bf16's bits (a bf16 is the high half
+// of an f32, so widening is exact).
+using bf16_bits = unsigned short;
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16_bits v) { return __uint_as_float((unsigned)v << 16); }
+
+// four consecutive values of a row in shared memory, as f32 (16 bytes of
+// f32 or 8 of bf16, on their own boundary)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16_bits* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
 // Elementwise max and min of rows a[idx[r, j]] over j < k, for the nq query
 // rows whose indices sit in shared memory (row stride idx_stride); query r
-// writes output row out_rows[q0 + r] (nullptr: row q0 + r).
+// writes output row out_rows[q0 + r] (nullptr: row q0 + r).  T: float or
+// bf16_bits.
 //
 // Threads run over (query, feature) with features innermost, so each of the
 // k row reads is coalesced along F and the index is a shared-memory
 // broadcast.  Every read goes through L2 (k times the bytes of `a`: 69 GB
 // per GCNN forward on the main path), which bounds iq_gather_extrema on
 // this route; in kernel 3 the selection dominates.
+template <typename T>
 __device__ __forceinline__ void gather_extrema_rows(
-    const int* idx_s, int idx_stride, int k, const float* __restrict__ a, int F,
+    const int* idx_s, int idx_stride, int k, const T* __restrict__ a, int F,
     const int* __restrict__ out_rows, int q0, int nq, float* __restrict__ omax,
     float* __restrict__ omin) {
   for (int e = threadIdx.x; e < nq * F; e += blockDim.x) {
@@ -72,7 +97,7 @@ __device__ __forceinline__ void gather_extrema_rows(
     const int* row = idx_s + r * idx_stride;
     float mx = -CUDART_INF_F, mn = CUDART_INF_F;
     for (int j = 0; j < k; ++j) {
-      const float v = __ldg(a + (size_t)row[j] * F + f);
+      const float v = widen(__ldg(a + (size_t)row[j] * F + f));
       mx = fmaxf(mx, v);
       mn = fminf(mn, v);
     }
@@ -170,8 +195,9 @@ knn_gather_extrema_kernel(const float* __restrict__ xs, const float* __restrict_
 // 371-442), the row route: gather_extrema_rows over kGatherQueries queries a
 // block, every row read through L2.  Taken for clouds whose column slice
 // does not fit shared memory.
+template <typename T>
 __global__ void __launch_bounds__(kGatherThreads)
-gather_extrema_kernel(const int32_t* __restrict__ idx, const float* __restrict__ a,
+gather_extrema_kernel(const int32_t* __restrict__ idx, const T* __restrict__ a,
                       float* __restrict__ omax, float* __restrict__ omin,
                       int S, int N, int F, int k, int nqb) {
   __shared__ int idx_s[kGatherQueries * kMaxK];
@@ -191,14 +217,15 @@ __host__ __device__ __forceinline__ int slice_cols(int F) {
   return round_up4(F) < kSliceCols ? round_up4(F) : kSliceCols;
 }
 
-// Shared memory of a slice block: the slice (N rows of slice_cols(F) floats)
-// and two passes of index rows (kPassQueries rows of k ints each).
-__host__ __device__ __forceinline__ size_t slice_smem_bytes(int N, int F, int k) {
-  return ((size_t)N * slice_cols(F) + (size_t)2 * kPassQueries * k) * sizeof(float);
+// Shared memory of a slice block: the slice (N rows of slice_cols(F) values
+// of `esize` bytes, 4 for f32 and 2 for bf16) and two passes of index rows
+// (kPassQueries rows of k ints each).
+__host__ __device__ __forceinline__ size_t slice_smem_bytes(int N, int F, int k, int esize) {
+  return (size_t)N * slice_cols(F) * esize + (size_t)2 * kPassQueries * k * sizeof(int);
 }
 
-inline int gather_route(int N, int F, int k) {
-  return slice_smem_bytes(N, F, k) <= (size_t)kMaxSmem ? kSliceRoute : kRowRoute;
+inline int gather_route(int N, int F, int k, int esize) {
+  return slice_smem_bytes(N, F, k, esize) <= (size_t)kMaxSmem ? kSliceRoute : kRowRoute;
 }
 
 __device__ __forceinline__ void stage_index_rows(int* dst, const int32_t* __restrict__ src,
@@ -222,35 +249,39 @@ __device__ __forceinline__ void stage_index_rows(int* dst, const int32_t* __rest
 // where rows are 16-byte aligned), then walks the cloud's queries in passes
 // of kPassQueries, the next pass's index rows (contiguous in idx) copied by
 // cp.async while the current one computes.  A thread takes one query and 4
-// columns: k float4 reads from shared memory, max and min, two float4
-// stores.  A cloud's slices are neighbouring blocks, so its index rows,
-// read once per slice, come from L2.  At Ft = 16, k = 20, N = 1024 a block
-// holds 74 KB: three blocks a SM.
+// columns: k reads of four values from shared memory (16 bytes, or 8 at
+// bf16, widened to f32), max and min, two float4 stores.  A cloud's slices
+// are neighbouring blocks, so its index rows, read once per slice, come
+// from L2.  At Ft = 16, k = 20, N = 1024 a block holds 74 KB in f32 (42 KB
+// at bf16): three blocks a SM.
+template <typename T>
 __global__ void __launch_bounds__(kSliceThreads, 3)
-gather_extrema_slice_kernel(const int32_t* __restrict__ idx, const float* __restrict__ a,
+gather_extrema_slice_kernel(const int32_t* __restrict__ idx, const T* __restrict__ a,
                             float* __restrict__ omax, float* __restrict__ omin, int S,
                             int N, int F, int k, int nslices, bool vec) {
   extern __shared__ __align__(16) float smem[];
+  constexpr int per16 = 16 / sizeof(T);                        // values in 16 bytes
   const int ft = slice_cols(F);
-  float* vals = smem;                                          // [N][ft]
-  int* rows_s = reinterpret_cast<int*>(smem + (size_t)N * ft);  // [2][kPassQueries * k]
+  T* vals = reinterpret_cast<T*>(smem);                        // [N][ft]
+  int* rows_s = reinterpret_cast<int*>(vals + (size_t)N * ft);  // [2][kPassQueries * k]
   const int b = blockIdx.x / nslices;
   const int f0 = (blockIdx.x - b * nslices) * ft;
   const int fw = min(ft, F - f0);                              // live columns
-  const float* ab = a + (size_t)b * N * F + f0;
+  const T* ab = a + (size_t)b * N * F + f0;
   const int32_t* ib = idx + (size_t)b * S * k;
 
-  if (vec) {             // F % 4 == 0 and `a` 16-byte aligned: whole float4s
-    const int per_row = ft >> 2;
+  if (vec) {    // F and ft multiples of per16, `a` 16-byte aligned: whole 16 bytes
+    const int per_row = ft / per16;
     for (int e = threadIdx.x; e < N * per_row; e += blockDim.x) {
-      const int n = e / per_row, c = (e - n * per_row) * 4;
+      const int n = e / per_row, c = (e - n * per_row) * per16;
       const bool live = c < fw;
-      cp_async16(vals + (size_t)n * ft + c, live ? ab + (size_t)n * F + c : ab, live);
+      cp_async16(reinterpret_cast<float*>(vals + (size_t)n * ft + c),
+                 reinterpret_cast<const float*>(live ? ab + (size_t)n * F + c : ab), live);
     }
   } else {
     for (int e = threadIdx.x; e < N * ft; e += blockDim.x) {
       const int n = e / ft, c = e - n * ft;
-      vals[e] = c < fw ? __ldg(ab + (size_t)n * F + c) : 0.f;
+      vals[e] = c < fw ? __ldg(ab + (size_t)n * F + c) : T(0);
     }
   }
   stage_index_rows(rows_s, ib, min(kPassQueries, S) * k);
@@ -279,7 +310,7 @@ gather_extrema_slice_kernel(const int32_t* __restrict__ idx, const float* __rest
         float4 mn = make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, CUDART_INF_F);
 #pragma unroll 4
         for (int j = 0; j < k; ++j) {
-          const float4 v = *reinterpret_cast<const float4*>(vals + (size_t)row[j] * ft + c);
+          const float4 v = load4(vals + (size_t)row[j] * ft + c);
           mx.x = fmaxf(mx.x, v.x);
           mx.y = fmaxf(mx.y, v.y);
           mx.z = fmaxf(mx.z, v.z);
@@ -304,6 +335,47 @@ gather_extrema_slice_kernel(const int32_t* __restrict__ idx, const float* __rest
     }
     __syncthreads();                         // the next copy reuses this buffer
   }
+}
+
+template <typename T>
+cudaError_t gather_extrema_launch(const int32_t* idx, const T* a, float* omax, float* omin,
+                                  int B, int S, int N, int F, int k, int route,
+                                  cudaStream_t s) {
+  if (route == 0) route = gather_route(N, F, k, sizeof(T));
+  if (route == kSliceRoute) {
+    const size_t smem = slice_smem_bytes(N, F, k, sizeof(T));
+    cudaError_t err;
+    if ((err = prepare(gather_extrema_slice_kernel<T>, smem)) != cudaSuccess) return err;
+    const int nslices = (F + slice_cols(F) - 1) / slice_cols(F);
+    constexpr int per16 = 16 / sizeof(T);
+    const bool vec = F % per16 == 0 && slice_cols(F) % per16 == 0 &&
+                     reinterpret_cast<uintptr_t>(a) % 16 == 0;
+    gather_extrema_slice_kernel<T><<<(unsigned)B * nslices, kSliceThreads, smem, s>>>(
+        idx, a, omax, omin, S, N, F, k, nslices, vec);
+    return cudaGetLastError();
+  }
+  const int nqb = (S + kGatherQueries - 1) / kGatherQueries;
+  gather_extrema_kernel<T><<<(unsigned)B * nqb, kGatherThreads, 0, s>>>(idx, a, omax, omin, S,
+                                                                        N, F, k, nqb);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int gather_extrema_route_info(int N, int F, int k, int* info) {
+  info[0] = gather_route(N, F, k, sizeof(T));
+  if (info[0] == kSliceRoute) {
+    const size_t smem = slice_smem_bytes(N, F, k, sizeof(T));
+    cudaError_t err;
+    if ((err = prepare(gather_extrema_slice_kernel<T>, smem)) != cudaSuccess) return err;
+    info[1] = slice_cols(F);
+    info[2] = kSliceThreads;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &info[3], gather_extrema_slice_kernel<T>, kSliceThreads, smem);
+  }
+  info[1] = 0;
+  info[2] = kGatherThreads;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[3], gather_extrema_kernel<T>,
+                                                       kGatherThreads, 0);
 }
 
 }  // namespace
@@ -373,49 +445,28 @@ int iq_knn_gather_extrema(const float* xs, const float* a, float* omax, float* o
 }
 
 // route: 0 chooses by shape (gather_route), kSliceRoute or kRowRoute forces
-// one (a forced slice route whose slice does not fit is refused).
-int iq_gather_extrema(const int32_t* idx, const float* a, float* omax, float* omin,
-                      int B, int S, int N, int F, int k, int route, void* stream) {
+// one (a forced slice route whose slice does not fit is refused).  bf16 != 0:
+// `a` holds bf16 values (B * N * F of 2 bytes), else f32.
+int iq_gather_extrema(const int32_t* idx, const void* a, float* omax, float* omin,
+                      int B, int S, int N, int F, int k, int route, int bf16, void* stream) {
   if (B <= 0 || S <= 0) return cudaSuccess;
   if (k < 1 || k > kMaxK || N < 1 || F < 1 || route < 0 || route > kRowRoute)
     return cudaErrorInvalidValue;
-  if (route == 0) route = gather_route(N, F, k);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == kSliceRoute) {
-    const size_t smem = slice_smem_bytes(N, F, k);
-    cudaError_t err;
-    if ((err = prepare(gather_extrema_slice_kernel, smem)) != cudaSuccess) return err;
-    const int nslices = (F + slice_cols(F) - 1) / slice_cols(F);
-    const bool vec = F % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
-    gather_extrema_slice_kernel<<<(unsigned)B * nslices, kSliceThreads, smem, s>>>(
-        idx, a, omax, omin, S, N, F, k, nslices, vec);
-    return cudaGetLastError();
-  }
-  const int nqb = (S + kGatherQueries - 1) / kGatherQueries;
-  gather_extrema_kernel<<<(unsigned)B * nqb, kGatherThreads, 0, s>>>(idx, a, omax, omin, S, N,
-                                                                     F, k, nqb);
-  return cudaGetLastError();
+  if (bf16)
+    return gather_extrema_launch(idx, static_cast<const bf16_bits*>(a), omax, omin, B, S, N, F,
+                                 k, route, s);
+  return gather_extrema_launch(idx, static_cast<const float*>(a), omax, omin, B, S, N, F, k,
+                               route, s);
 }
 
-// The route iq_gather_extrema takes for (N, F, k), for the record (it
-// launches nothing): info = {route, slice columns (0 on the row route),
-// threads a block, blocks a SM holds}.
-int iq_gather_extrema_route(int N, int F, int k, int* info) {
+// The route iq_gather_extrema takes for (N, F, k) and its value type, for
+// the record (it launches nothing): info = {route, slice columns (0 on the
+// row route), threads a block, blocks a SM holds}.
+int iq_gather_extrema_route(int N, int F, int k, int bf16, int* info) {
   if (k < 1 || k > kMaxK || N < 1 || F < 1) return cudaErrorInvalidValue;
-  info[0] = gather_route(N, F, k);
-  if (info[0] == kSliceRoute) {
-    const size_t smem = slice_smem_bytes(N, F, k);
-    cudaError_t err;
-    if ((err = prepare(gather_extrema_slice_kernel, smem)) != cudaSuccess) return err;
-    info[1] = slice_cols(F);
-    info[2] = kSliceThreads;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[3], gather_extrema_slice_kernel,
-                                                         kSliceThreads, smem);
-  }
-  info[1] = 0;
-  info[2] = kGatherThreads;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[3], gather_extrema_kernel,
-                                                       kGatherThreads, 0);
+  return bf16 ? gather_extrema_route_info<bf16_bits>(N, F, k, info)
+              : gather_extrema_route_info<float>(N, F, k, info);
 }
 
 }  // extern "C"

@@ -11,6 +11,42 @@ the running statistics as the JAX package does.  The edge-conv family
 activates with LeakyReLU(0.2), the other families with ReLU.  ``fold_stack``
 turns a ConvBN stack into the explicit affine maps the set-abstraction
 kernels take.
+
+Products and the matmul precision (``--matmul_precision``,
+``config.matmul_precision``).  The JAX package leaves some products'
+precision to its process-global setting and pins others to HIGHEST; the
+port's counterparts follow the same rule on the card, through
+``ops.precision.matmul`` (which says what each setting computes; on the
+CPU every setting computes f32, as XLA:CPU does).
+
+Following the setting (JAX leaves them unpinned):
+  * ``pointwise``: every 1x1 convolution and Linear of the five families,
+    eval and training (JAX ``nn.Dense``, ``models/common.py:34-39`` there);
+  * DGCNN's hoisted ``x @ W1`` and ``x @ (W2 - W1)`` (``models/dgcnn.py``);
+  * the hoisted layer-1 rows: PointConv's ``u`` and ``csw``, PointNet++'s
+    ``uf`` (``models/pointconv.py``, ``models/pointnet2.py``);
+  * PointNet's input and feature transforms (``models/pointnet.py``);
+  * ``ops.geometry.square_distance`` (PointConv's KDE density) and
+    ``attrib.shapley.region_id_from_fps``'s ``data @ centers.T``, so at
+    ``default`` region ids may differ from ``highest``'s, as on the TPU;
+  * inside kernels 5 and 7 (``ops/cuda/groups.py``): layers 2-3 on the
+    tensor cores and kernel 7's WeightNet on the f32 units, at ``high`` on
+    TF32-rounded and at ``default`` on bf16-rounded operands.
+Pinned to f32 at every setting (JAX pins them to HIGHEST, or computes them
+elementwise on the VPU):
+  * the kNN distances of kernels 1, 3 and 6 and their plain versions, and
+    the ball query of kernel 5;
+  * kernel 7's contraction over the neighbours (three TF32 products) and
+    every elementwise product.
+Left f32 though the JAX package leaves them unpinned (a difference of the
+port): kernel 5's layer-1 product of the xyz offsets, DensityNet's
+products in kernel 7's wrapper, the rotations of the perturbations
+(``ops/transforms.py``), PointConv's un-fused contraction (``einsum``),
+PointNet's feature-transform regulariser, and the smoothness engine's
+projections.
+
+``ops.precision.matmul`` is differentiable, its backward products at the
+same setting, so training and the smoothness step see the setting too.
 """
 from __future__ import annotations
 
@@ -20,6 +56,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..ops.precision import matmul, set_matmul_precision
 from ..parallel import data_parallel
 
 BN_EPS = 1e-5
@@ -33,9 +70,10 @@ def leaky_relu02(x: torch.Tensor) -> torch.Tensor:
 
 def pointwise(x: torch.Tensor, layer: nn.Module) -> torch.Tensor:
     """Apply a 1x1 Conv1d/Conv2d or a Linear over the channel axis of a
-    channels-last tensor: x (..., in) -> (..., out)."""
+    channels-last tensor: x (..., in) -> (..., out), the product at the
+    matmul precision (``ops.precision.matmul``)."""
     w = layer.weight.reshape(layer.weight.shape[0], -1)         # (out, in)
-    y = torch.matmul(x, w.T)
+    y = matmul(x, w.T)
     return y if layer.bias is None else y + layer.bias
 
 
@@ -170,12 +208,6 @@ def fold_stack(convs, bns):
     return folded
 
 
-def set_fp32_matmuls() -> None:
-    """Full-f32 matmuls and convolutions on the card (no TF32)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-
 def resolve_device(name: str) -> torch.device:
     """The torch device for a config's ``device``.  Asking for CUDA on a
     machine without it raises; nothing continues on the CPU."""
@@ -183,7 +215,7 @@ def resolve_device(name: str) -> torch.device:
         if not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' was asked for but CUDA is not "
                                "available; pass --device cpu to run on the CPU")
-        set_fp32_matmuls()
+        set_matmul_precision()
         return torch.device("cuda")
     if name == "cpu":
         return torch.device("cpu")

@@ -42,6 +42,7 @@ from torch import nn
 
 from ..ops.cuda.neighbors import gather_extrema, knn, knn_gather_extrema
 from ..ops.geometry import index_points
+from ..ops.precision import matmul
 from .common import Dropout, bn_affine, bn_apply, leaky_relu02, pointwise
 
 EDGE_WIDTHS = (64, 64, 128, 256)
@@ -59,8 +60,8 @@ def edge_conv(x: torch.Tensor, block: nn.Sequential, k: int,
     C = x.shape[-1]
     w = conv.weight.reshape(conv.weight.shape[0], 2 * C)        # (F, 2C)
     w1, w2 = w[:, :C], w[:, C:]
-    a = torch.matmul(x, w1.T).contiguous()                     # (B, N, F)
-    b = torch.matmul(x, (w2 - w1).T)
+    a = matmul(x, w1.T).contiguous()                           # (B, N, F)
+    b = matmul(x, (w2 - w1).T)
     if idx is None:
         amax, amin = knn_gather_extrema(x.contiguous(), a, k)
     else:

@@ -43,6 +43,7 @@ from torch import nn
 from ..ops.cuda.fps import fps
 from ..ops.cuda.groups import fused_pointconv_sa, knn_with_density
 from ..ops.geometry import compute_density, index_points, knn_point
+from ..ops.precision import matmul
 from .common import (Dropout, bn_apply, conv_bn_stack, fold_stack, mlp_stack,
                      pointwise)
 
@@ -108,8 +109,8 @@ class PointConvDensitySA(nn.Module):
         (a1, b1), (a2, b2), (a3, b3) = fold_stack(self.mlp_convs, self.mlp_bns)
         # input order [xyz offsets, features] (reference pointconv.py:137)
         src = xyz if points is None else torch.cat([xyz, points], dim=-1)
-        u = torch.matmul(src, a1) + b1                          # (B, N, C1)
-        csw = torch.matmul(new_xyz, a1[:3])                     # (B, S, C1)
+        u = matmul(src, a1) + b1                                # (B, N, C1)
+        csw = matmul(new_xyz, a1[:3])                           # (B, S, C1)
         dnet = fold_stack(self.densitynet.mlp_convs, self.densitynet.mlp_bns)
         wnet = fold_stack(self.weightnet.mlp_convs, self.weightnet.mlp_bns)
         out = fused_pointconv_sa(idx, den, dmax, new_xyz, u, xyz, csw,

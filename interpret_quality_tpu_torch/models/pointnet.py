@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..ops.precision import matmul
 from ..parallel import data_parallel
 from .common import Dropout, bn_apply, conv_bn_relu, pointwise
 
@@ -69,9 +70,9 @@ class PointNetFeat(nn.Module):
         trans_feat (B, 64, 64), crt_points (B, 1024): the point that
         attains each channel's max)."""
         trans = self.stn(x)
-        x = conv_bn_relu(torch.matmul(x, trans), self.conv1, self.bn1)
+        x = conv_bn_relu(matmul(x, trans), self.conv1, self.bn1)
         trans_feat = self.fstn(x)
-        x = conv_bn_relu(torch.matmul(x, trans_feat), self.conv2, self.bn2)
+        x = conv_bn_relu(matmul(x, trans_feat), self.conv2, self.bn2)
         x = bn_apply(pointwise(x, self.conv3), self.bn3)       # no activation
         return x.amax(dim=1), trans, trans_feat, torch.argmax(x, dim=1)
 

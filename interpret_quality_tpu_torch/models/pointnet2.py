@@ -34,6 +34,7 @@ from torch import nn
 from ..ops.cuda.fps import fps
 from ..ops.cuda.groups import fused_ball_mlp3
 from ..ops.geometry import index_points, query_ball_point
+from ..ops.precision import matmul
 from .common import (Dropout, bn_apply, conv_bn_stack, fold_stack, mlp_stack,
                      pointwise)
 
@@ -79,7 +80,7 @@ class SetAbstractionMsg(nn.Module):
                                          self.radius_list, self.nsample_list):
             (a1, b1), (a2, b2), (a3, b3) = fold_stack(convs, bns)
             # input order [features, xyz offsets]: A1 rows [0:D] features
-            uf = None if points is None else torch.matmul(points, a1[:D])
+            uf = None if points is None else matmul(points, a1[:D])
             outs.append(fused_ball_mlp3(new_xyz, xyz, uf, b1, a1[D:], a2, b2,
                                         a3, b3, radius=radius, k=k))
         return new_xyz, torch.cat(outs, dim=-1)

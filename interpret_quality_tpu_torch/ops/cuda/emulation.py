@@ -1,18 +1,26 @@
 """The arithmetic of the redesigned kernels, emulated in plain PyTorch: the
-three-product TF32 split of ``csrc/groups.cu``'s tensor-core layers (both
-``fused_ball_mlp3``'s and ``fused_pointconv_sa``'s, the latter with its
-contraction), the distance chain of ``csrc/knn_select.cuh``, the selection
-of the kNN kernels' xyz route (``csrc/knn_xyz.cuh``) and the argmax of
+tensor-core products of ``csrc/groups.cu`` at each matmul precision (both
+``fused_ball_mlp3``'s and ``fused_pointconv_sa``'s layers, the latter's
+WeightNet and contraction), the rounding of gathered values to bf16, the
+distance chain of ``csrc/knn_select.cuh``, the selection of the kNN
+kernels' xyz route (``csrc/knn_xyz.cuh``) and the argmax of
 ``csrc/fps.cu``'s register route.
 
-The kernels that run a matrix product on the tensor cores keep f32 accuracy
-by splitting every f32 operand into two TF32 values, x = hi + lo, and
-summing three products in f32: lo @ w_hi + hi @ w_lo + hi @ w_hi.  Only
-lo @ w_lo, about 2**-22 of a product, is dropped.  A single TF32 (or bf16)
-pass keeps about three decimal digits and is never used in these kernels.
+At the ``highest`` matmul precision the kernels that run a matrix product on
+the tensor cores keep f32 accuracy by splitting every f32 operand into two
+TF32 values, x = hi + lo, and summing three products in f32:
+lo @ w_hi + hi @ w_lo + hi @ w_hi.  Only lo @ w_lo, about 2**-22 of a
+product, is dropped.  At ``high`` they take one product of the operands
+rounded to TF32 (to nearest, ties away from zero, as ``cvt.rna.tf32.f32``);
+at ``default`` one product of the operands rounded to bf16 (to nearest
+even), which a TF32 product takes exactly: one bf16 pass with f32
+accumulation.  Either keeps about three decimal digits.  Kernel 7's
+WeightNet runs on the f32 units on the same rounded operands, and its
+contraction keeps the three products at every setting.
 
-Nothing on the main path calls this module: the tests and ``chip_smoke.py``
-use it as a second reference for the kernels' arithmetic.
+Everything here is a second reference for the kernels' arithmetic, for the
+tests and ``chip_smoke.py``; the rounding of bf16 operands and of gathered
+values is ``ops.precision``'s, which the main path runs.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from ..geometry import index_points
+from ..precision import gather_values, round_bf16
 
 _LOW13 = 0x1FFF          # the 13 mantissa bits that TF32 does not keep
 
@@ -37,6 +46,15 @@ def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, lo
 
 
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """A float32 tensor rounded to TF32 (10 mantissa bits), to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32`` and the kernels round."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"expected float32, got {x.dtype}")
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + (_LOW13 + 1) // 2) & ~_LOW13).view(torch.float32)
+
+
 def matmul_3xtf32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w as the kernels compute it: three products of the TF32 halves,
     the small ones first, summed in f32."""
@@ -46,29 +64,94 @@ def matmul_3xtf32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             + torch.matmul(x_hi, w_hi))
 
 
+def matmul_tf32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One TF32 product: both operands rounded to TF32 (``round_tf32``),
+    their products exact in f32, summed in f32."""
+    return torch.matmul(round_tf32(x), round_tf32(w))
+
+
+def matmul_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One bf16 product: both operands rounded to bf16 (``round_bf16``),
+    their products exact in x's dtype, summed in it."""
+    return torch.matmul(round_bf16(x), round_bf16(w))
+
+
+def matmul_rounded(x: torch.Tensor, w: torch.Tensor,
+                   precision: str) -> torch.Tensor:
+    """A product on the f32 units of operands rounded for ``precision``
+    (kernel 7's WeightNet): f32 at ``highest``, TF32 operands at ``high``,
+    bf16 operands at ``default``."""
+    if precision == "highest":
+        return torch.matmul(x, w)
+    if precision == "high":
+        return matmul_tf32(x, w)
+    if precision == "default":
+        return matmul_bf16(x, w)
+    raise ValueError(f"unknown matmul precision {precision!r}")
+
+
+def matmul_at(x: torch.Tensor, w: torch.Tensor, precision: str) -> torch.Tensor:
+    """A tensor-core product of the kernels at ``precision``: the three
+    TF32 products at ``highest``, else one product of rounded operands."""
+    if precision == "highest":
+        return matmul_3xtf32(x, w)
+    return matmul_rounded(x, w, precision)
+
+
+def mlp23_at(h: torch.Tensor, a2, b2, a3, b3, precision: str) -> torch.Tensor:
+    """Layers 2 and 3 of ``fused_ball_mlp3`` and ``fused_pointconv_sa`` as
+    their kernels compute them at ``precision``:
+    relu(relu(h @ a2 + b2) @ a3 + b3)."""
+    h = torch.relu(matmul_at(h, a2, precision) + b2)
+    return torch.relu(matmul_at(h, a3, precision) + b3)
+
+
 def mlp23_3xtf32(h: torch.Tensor, a2, b2, a3, b3) -> torch.Tensor:
-    """Layers 2 and 3 of ``fused_ball_mlp3`` and ``fused_pointconv_sa`` on
-    the split products: relu(relu(h @ a2 + b2) @ a3 + b3)."""
-    h = torch.relu(matmul_3xtf32(h, a2) + b2)
-    return torch.relu(matmul_3xtf32(h, a3) + b3)
+    """Layers 2 and 3 on the split products (``mlp23_at`` at ``highest``)."""
+    return mlp23_at(h, a2, b2, a3, b3, "highest")
+
+
+def ball_mlp3_at(new_xyz, xyz, uf, b1, a1x, a2, b2, a3, b3, *, radius: float,
+                 k: int, precision: str, parts: int = 2) -> torch.Tensor:
+    """``fused_ball_mlp3`` as its kernel computes it: the plain version
+    (``ops.cuda.groups.fused_ball_mlp3_plain``: the ball, layer 1 in f32 on
+    the feature rows at ``parts``) with layers 2-3 at ``precision``."""
+    from .groups import fused_ball_mlp3_plain
+    return fused_ball_mlp3_plain(
+        new_xyz, xyz, uf, b1, a1x, a2, b2, a3, b3, radius=radius, k=k,
+        parts=parts, layers=lambda h: mlp23_at(h, a2, b2, a3, b3, precision))
+
+
+def pointconv_sa_at(idx, den, dmax, new_xyz, u, xyz, csw, a2, b2, a3, b3,
+                    dnet: Sequence, wnet: Sequence, *, k: int, precision: str,
+                    parts: int = 2) -> torch.Tensor:
+    """``fused_pointconv_sa`` as its kernel computes it: layer 1 on the
+    gathered rows of u at ``parts`` and the density scale in f32, layers
+    2-3 at ``precision``, WeightNet on the f32 units on operands rounded for
+    ``precision``, and the scaled rows h3 contracted against the WeightNet
+    outputs as the (C3, K) @ (K, 16) product per centre on the split
+    products at every setting.  Arguments and result are those of
+    ``ops.cuda.groups.fused_pointconv_sa_plain``."""
+    from .groups import density_scale, weightnet
+    B, S = idx.shape[:2]
+    h = torch.relu(index_points(gather_values(u, parts), idx)
+                   - csw[:, :, None, :])
+    h3 = (mlp23_at(h, a2, b2, a3, b3, precision)
+          * density_scale(den, dmax, dnet)[..., None])          # (B, S, K, C3)
+    wt = weightnet(index_points(xyz, idx) - new_xyz[:, :, None, :], wnet,
+                   product=lambda x, w: matmul_rounded(x, w, precision))
+    return matmul_3xtf32(h3.transpose(-1, -2).contiguous(),
+                         wt).reshape(B, S, -1)
 
 
 def pointconv_sa_3xtf32(idx, den, dmax, new_xyz, u, xyz, csw, a2, b2, a3, b3,
                         dnet: Sequence, wnet: Sequence, *,
                         k: int) -> torch.Tensor:
-    """``fused_pointconv_sa`` as its kernel computes it: layer 1, the density
-    scale and WeightNet in f32, layers 2-3 on the split products, the scaled
-    rows h3 contracted against the WeightNet outputs as the (C3, K) @ (K, 16)
-    product per centre, on the split as well.  Arguments and result are
-    those of ``ops.cuda.groups.fused_pointconv_sa_plain``."""
-    from .groups import density_scale, weightnet
-    B, S = idx.shape[:2]
-    h = torch.relu(index_points(u, idx) - csw[:, :, None, :])
-    h3 = (mlp23_3xtf32(h, a2, b2, a3, b3)
-          * density_scale(den, dmax, dnet)[..., None])          # (B, S, K, C3)
-    wt = weightnet(index_points(xyz, idx) - new_xyz[:, :, None, :], wnet)
-    return matmul_3xtf32(h3.transpose(-1, -2).contiguous(),
-                         wt).reshape(B, S, -1)
+    """``pointconv_sa_at`` at ``highest`` with exact gathers: layer 1, the
+    density scale and WeightNet in f32, layers 2-3 and the contraction on
+    the split products."""
+    return pointconv_sa_at(idx, den, dmax, new_xyz, u, xyz, csw, a2, b2, a3,
+                           b3, dnet, wnet, k=k, precision="highest")
 
 
 def fps_register_route(xyz: torch.Tensor, npoint: int,

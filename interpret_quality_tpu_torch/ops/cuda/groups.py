@@ -16,11 +16,22 @@ wrapper                     replaces (interpret_quality_tpu/ops/pallas/)
 ==========================  ==============================================
 
 Signatures and layouts are the JAX functions' (without their TPU knobs
-``parts``, ``select``, ``block_q`` and ``interpret``): gathers are exact f32
-and kNN ties go to the lowest index.  The kernels of ``fused_ball_mlp3`` and
-``fused_pointconv_sa`` run their layers 2-3 (and the latter its contraction)
-on the tensor cores as three TF32 products that keep f32 accuracy, through
-one piece of code.  ``knn_with_density`` takes ``neighbors.knn``'s two
+``select``, ``block_q`` and ``interpret``): kNN ties go to the lowest index,
+and gathers are exact f32 unless ``parts`` (the JAX package's value planes,
+``--gather_precision``) is 1: then the gathered feature values (kernel 5's
+``uf`` rows, kernel 7's ``u`` rows, kernel 8's values) are each rounded to
+bf16, to nearest even; xyz offsets are exact at every setting, as in the JAX
+package.  ``parts=None`` takes the process's setting on the card and exact
+gathers on the CPU (``precision.value_parts``).  The kernels of
+``fused_ball_mlp3`` and ``fused_pointconv_sa`` run their layers 2-3 (and the
+latter its contraction) on the tensor cores, through one piece of code: at
+the ``highest`` matmul precision as three TF32 products that keep f32
+accuracy, at ``high`` as one product of TF32-rounded operands, at
+``default`` as one product of bf16-rounded operands, as the process's
+``--matmul_precision`` says (``ops/cuda/emulation.py`` repeats each).
+Kernel 7's WeightNet takes the same rounded operands on the f32 units, and
+its contraction keeps the three products at every setting.  On the CPU the
+plain versions compute f32 products at every setting.  ``knn_with_density`` takes ``neighbors.knn``'s two
 routes by the same rule (``knn_density_route``), and ``_knn_with_density``
 forces one, for the checks; on the xyz route it selects for the distinct
 query rows only (FPS repeats a centre once a masked cloud has fewer
@@ -31,19 +42,23 @@ in, and the DensityNet scale (``density_scale``).
 A wrapper takes its plain version only for tensors on the CPU.  For CUDA
 tensors it launches its kernel or raises; there is no fallback.  Each launch
 adds one to ``LAUNCHES[name]`` and runs inside a profiler span named after
-its launcher (``iq_ball_mlp3``, ...).
+its launcher (``iq_ball_mlp3``, ...); a launch at another setting than the
+exact one counts in ``ROUTE_LAUNCHES`` as well (``gather_rows:bf16``,
+``fused_ball_mlp3:default``, ...).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 from torch.profiler import record_function
 
+from ... import config
 from ..geometry import (index_points, query_ball_point, sorted_topk_indices,
                         square_distance)
+from ..precision import gather_values, value_parts
 from . import build
 from .launch import F, I, P, check, on_cpu, raise_on, stream
 from .neighbors import (KNN_ROUTES, MAX_QUERY_ROWS, _distinct_rows_scratch,
@@ -52,6 +67,13 @@ from .neighbors import (KNN_ROUTES, MAX_QUERY_ROWS, _distinct_rows_scratch,
 # launches of each kernel since the last reset_launches()
 LAUNCHES = {"fused_ball_mlp3": 0, "knn_with_density": 0,
             "fused_pointconv_sa": 0, "gather_rows": 0}
+# launches at a precision setting other than the exact one, counted here as
+# well as in LAUNCHES
+ROUTE_LAUNCHES = {"gather_rows:bf16": 0, "fused_ball_mlp3:high": 0,
+                  "fused_ball_mlp3:default": 0, "fused_pointconv_sa:high": 0,
+                  "fused_pointconv_sa:default": 0}
+# the prec argument of iq_ball_mlp3 and iq_pointconv_sa (kPrec* in the source)
+PRECISION_CODES = {"highest": 0, "high": 1, "default": 2}
 
 MAX_DENSITY_K = 64   # largest k of knn_with_density (kMaxDensityK)
 MAX_BALL_K = 1024    # largest k of fused_ball_mlp3 (kMaxBatchRows)
@@ -66,18 +88,19 @@ Affine = Tuple[torch.Tensor, torch.Tensor]
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ROUTE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load("groups")
-    lib.iq_ball_mlp3.argtypes = [P] * 11 + [I] * 7 + [F, P]
+    lib.iq_ball_mlp3.argtypes = [P] * 11 + [I] * 7 + [F, I, P]
     lib.iq_knn_density.argtypes = [P] * 7 + [I] * 6 + [P]
     lib.iq_knn_density_route.argtypes = [I, I, I, P]
-    lib.iq_pointconv_sa.argtypes = [P] * 13 + [I] * 7 + [P]
-    lib.iq_gather_rows.argtypes = [P] * 3 + [I] * 4 + [P]
+    lib.iq_pointconv_sa.argtypes = [P] * 13 + [I] * 8 + [P]
+    lib.iq_gather_rows.argtypes = [P] * 3 + [I] * 5 + [P]
     for fn in (lib.iq_ball_mlp3, lib.iq_knn_density, lib.iq_knn_density_route,
                lib.iq_pointconv_sa,
                lib.iq_gather_rows):
@@ -100,22 +123,34 @@ def _mlp23(h: torch.Tensor, a2, b2, a3, b3) -> torch.Tensor:
     return torch.relu(torch.matmul(h, a3) + b3)
 
 
+def _record_route(name: str, precision: str) -> None:
+    """Count a launch at a matmul precision other than the exact one."""
+    if precision != "highest":
+        ROUTE_LAUNCHES[f"{name}:{precision}"] += 1
+
+
 # --------------------------------------------------------- fused_ball_mlp3
 def fused_ball_mlp3_plain(new_xyz, xyz, uf, b1, a1x, a2, b2, a3, b3, *,
-                          radius: float, k: int) -> torch.Tensor:
+                          radius: float, k: int, parts: int = 2,
+                          layers: Optional[Callable] = None) -> torch.Tensor:
     """Plain version of ``fused_ball_mlp3``: the ball's rows gathered into a
-    (B, S, K, C) tensor, three folded layers, max over the slots."""
-    idx = query_ball_point(radius, k, xyz, new_xyz)           # (B, S, K)
+    (B, S, K, C) tensor (the feature rows at ``parts`` value planes), three
+    folded layers in f32, max over the slots.  ``layers`` replaces layers
+    2-3 (``emulation.ball_mlp3_at``)."""
+    idx = query_ball_point(radius, k, xyz, new_xyz, "highest")  # (B, S, K)
     off = index_points(xyz, idx) - new_xyz[:, :, None, :]
     pre = torch.matmul(off, a1x) + b1
     if uf is not None:
-        pre = pre + index_points(uf, idx)
-    return _mlp23(torch.relu(pre), a2, b2, a3, b3).amax(dim=2)
+        pre = pre + index_points(gather_values(uf, parts), idx)
+    h = torch.relu(pre)
+    h = _mlp23(h, a2, b2, a3, b3) if layers is None else layers(h)
+    return h.amax(dim=2)
 
 
 def fused_ball_mlp3(new_xyz: torch.Tensor, xyz: torch.Tensor,
                     uf: Optional[torch.Tensor], b1, a1x, a2, b2, a3, b3, *,
-                    radius: float, k: int) -> torch.Tensor:
+                    radius: float, k: int,
+                    parts: Optional[int] = None) -> torch.Tensor:
     """One PointNet++ MSG branch: max over the K ball slots of
     relu(relu(relu(layer1) @ a2 + b2) @ a3 + b3), where
     layer1 = (xyz_j - new_xyz_s) @ a1x + b1 + uf_j.
@@ -128,19 +163,25 @@ def fused_ball_mlp3(new_xyz: torch.Tensor, xyz: torch.Tensor,
       a2 (C1, C2), b2, a3 (C2, C3), b3: folded layers 2 and 3.
       radius, k: the ball (in-ball: squared distance <= radius**2 in f32)
         and its slot count (the first k in-ball points in index order).
+      parts: the value planes of the uf rows (``precision.value_parts``).
     Returns:
       (B, S, C3) float32.
 
-    On a CUDA tensor layers 2 and 3 run on the tensor cores as three TF32
-    products that keep f32 accuracy (``ops/cuda/emulation.py`` repeats the
-    arithmetic), so the result is within rtol 1e-4 / atol 1e-5 of the plain
-    version, not bit-equal.  The kernel takes C1 a power of two in [8, 256],
-    (C2, C3) in ``BALL_TILES`` times 32 and k <= ``MAX_BALL_K``.
+    On a CUDA tensor layers 2 and 3 run on the tensor cores at the
+    process's ``--matmul_precision`` (``config.matmul_precision``;
+    ``ops/cuda/emulation.py`` repeats the arithmetic); at
+    ``highest``, as three TF32 products that keep f32 accuracy, the result
+    is within rtol 1e-4 / atol 1e-5 of the plain version, not bit-equal.
+    The kernel takes C1 a power of two in [8, 256], (C2, C3) in
+    ``BALL_TILES`` times 32 and k <= ``MAX_BALL_K``.
     """
     tensors = [new_xyz, xyz] + ([] if uf is None else [uf])
-    if on_cpu(*tensors):
+    cpu = on_cpu(*tensors)
+    parts = value_parts(parts, cpu)
+    if cpu:
         return fused_ball_mlp3_plain(new_xyz, xyz, uf, b1, a1x, a2, b2, a3, b3,
-                                     radius=radius, k=k)
+                                     radius=radius, k=k, parts=parts)
+    precision = config.matmul_precision()
     check(new_xyz, "new_xyz", torch.float32, 3)
     check(xyz, "xyz", torch.float32, 3)
     B, S, _ = new_xyz.shape
@@ -153,6 +194,7 @@ def fused_ball_mlp3(new_xyz: torch.Tensor, xyz: torch.Tensor,
         check(uf, "uf", torch.float32, 3)
         if uf.shape != (B, N, C1):
             raise ValueError(f"uf {tuple(uf.shape)} != {(B, N, C1)}")
+        uf = gather_values(uf, parts)
         if uf.data_ptr() % 16:              # the kernel reads its rows as float4s
             uf = uf.clone()
     w = [_weight(b1, "b1", (C1,)), _weight(a1x, "a1x", (3, C1)),
@@ -177,16 +219,18 @@ def fused_ball_mlp3(new_xyz: torch.Tensor, xyz: torch.Tensor,
                                  None if uf is None else uf.data_ptr(),
                                  *[t.data_ptr() for t in w], out.data_ptr(),
                                  scratch.data_ptr(), B, S, N, k, C1, C2, C3,
-                                 radius ** 2, stream(xyz))
+                                 radius ** 2, PRECISION_CODES[precision],
+                                 stream(xyz))
     raise_on(rc, "iq_ball_mlp3")
     LAUNCHES["fused_ball_mlp3"] += 1
+    _record_route("fused_ball_mlp3", precision)
     return out
 
 
 # -------------------------------------------------------- knn_with_density
 def knn_with_density_plain(query, database, inv_density, k: int):
     """Plain version of ``knn_with_density``."""
-    idx = sorted_topk_indices(square_distance(query, database), k)
+    idx = sorted_topk_indices(square_distance(query, database, "highest"), k)
     den = index_points(inv_density[..., None], idx)[..., 0]
     return idx, den, den.amax(dim=-1, keepdim=True)
 
@@ -261,18 +305,24 @@ def density_scale(den: torch.Tensor, dmax: torch.Tensor,
     return torch.relu(torch.matmul(x, d3) + e3)[..., 0]
 
 
-def weightnet(off: torch.Tensor, wnet: Sequence[Affine]) -> torch.Tensor:
-    """WeightNet 3 -> 8 -> 8 -> 16 (folded, ReLU after every layer)."""
+def weightnet(off: torch.Tensor, wnet: Sequence[Affine],
+              product: Callable = torch.matmul) -> torch.Tensor:
+    """WeightNet 3 -> 8 -> 8 -> 16 (folded, ReLU after every layer), its
+    products by ``product`` (``emulation.matmul_rounded`` for the kernel's
+    at another precision)."""
     for a, b in wnet:
-        off = torch.relu(torch.matmul(off, a) + b)
+        off = torch.relu(product(off, a) + b)
     return off
 
 
 def fused_pointconv_sa_plain(idx, den, dmax, new_xyz, u, xyz, csw,
-                             a2, b2, a3, b3, dnet, wnet, *, k: int):
-    """Plain version of ``fused_pointconv_sa``."""
+                             a2, b2, a3, b3, dnet, wnet, *, k: int,
+                             parts: int = 2):
+    """Plain version of ``fused_pointconv_sa``, the rows of u gathered at
+    ``parts`` value planes."""
     B, S = idx.shape[:2]
-    h = torch.relu(index_points(u, idx) - csw[:, :, None, :])
+    h = torch.relu(index_points(gather_values(u, parts), idx)
+                   - csw[:, :, None, :])
     h = _mlp23(h, a2, b2, a3, b3) * density_scale(den, dmax, dnet)[..., None]
     wt = weightnet(index_points(xyz, idx) - new_xyz[:, :, None, :], wnet)
     return torch.einsum("bskc,bskw->bscw", h, wt).reshape(B, S, -1)
@@ -280,7 +330,7 @@ def fused_pointconv_sa_plain(idx, den, dmax, new_xyz, u, xyz, csw,
 
 def fused_pointconv_sa(idx, den, dmax, new_xyz, u, xyz, csw, a2, b2, a3, b3,
                        dnet: Sequence[Affine], wnet: Sequence[Affine], *,
-                       k: int) -> torch.Tensor:
+                       k: int, parts: Optional[int] = None) -> torch.Tensor:
     """PointConv SA grouped compute, after ``knn_with_density``:
     out[s, c*16 + w] = sum_j h[j, c] * wt[j, w] with
     h = relu(relu(relu(u[idx_j] - csw_s) @ a2 + b2) @ a3 + b3) * ds_j and
@@ -293,23 +343,30 @@ def fused_pointconv_sa(idx, den, dmax, new_xyz, u, xyz, csw, a2, b2, a3, b3,
       a2/b2/a3/b3: folded layers 2-3.
       dnet / wnet: three folded (A, b) affines each, DensityNet (1->16->8->1)
         and WeightNet (3->8->8->16).
+      parts: the value planes of the u rows (``precision.value_parts``).
     Returns:
       (B, S, C3*16) float32, the reference's C-major flattened
       einsum("bskc,bskw->bscw").
 
-    On a CUDA tensor layers 2 and 3 and the contraction run on the tensor
-    cores as three TF32 products that keep f32 accuracy
-    (``ops/cuda/emulation.py`` repeats the arithmetic), so the result is
-    within rtol 1e-4 / atol 1e-5 of the plain version, not bit-equal.  The
+    On a CUDA tensor layers 2 and 3 run on the tensor cores and WeightNet
+    on the f32 units at the process's ``--matmul_precision``
+    (``config.matmul_precision``), the contraction on the tensor cores
+    as three TF32 products at every setting (``ops/cuda/emulation.py``
+    repeats the arithmetic); at ``highest`` the result is within rtol 1e-4
+    / atol 1e-5 of the plain version, not bit-equal.  The
     kernel takes C1 a power of two in [8, 256], (C2, C3) in ``BALL_TILES``
     times 32 with C3 <= C1 + C2 (the model's (64, 64, 128) and
     (128, 128, 256) among them) and any k in [1, ``MAX_PCONV_K``] (the
     model's 32 and 64; 128 // k whole centres make a tile); anything else
     raises ``ValueError``.
     """
-    if on_cpu(idx, den, dmax, new_xyz, u, xyz, csw):
+    cpu = on_cpu(idx, den, dmax, new_xyz, u, xyz, csw)
+    parts = value_parts(parts, cpu)
+    if cpu:
         return fused_pointconv_sa_plain(idx, den, dmax, new_xyz, u, xyz, csw,
-                                        a2, b2, a3, b3, dnet, wnet, k=k)
+                                        a2, b2, a3, b3, dnet, wnet, k=k,
+                                        parts=parts)
+    precision = config.matmul_precision()
     check(idx, "idx", torch.int32, 3)
     for t, name in ((new_xyz, "new_xyz"), (u, "u"), (xyz, "xyz"),
                     (csw, "csw")):
@@ -338,6 +395,7 @@ def fused_pointconv_sa(idx, den, dmax, new_xyz, u, xyz, csw, a2, b2, a3, b3,
                    _weight(b, "wnet bias", (cout,))]
     packed = torch.cat(packed)
     ds = density_scale(den, dmax, dnet).contiguous()
+    u = gather_values(u, parts)
     if u.data_ptr() % 16:                   # the kernel reads rows as float4s
         u = u.clone()
     if csw.data_ptr() % 16:
@@ -353,21 +411,27 @@ def fused_pointconv_sa(idx, den, dmax, new_xyz, u, xyz, csw, a2, b2, a3, b3,
                                     *[t.data_ptr() for t in w],
                                     packed.data_ptr(), out.data_ptr(),
                                     scratch.data_ptr(), B, S, N, K,
-                                    C1, C2, C3, stream(u))
+                                    C1, C2, C3, PRECISION_CODES[precision],
+                                    stream(u))
     raise_on(rc, "iq_pointconv_sa")
     LAUNCHES["fused_pointconv_sa"] += 1
+    _record_route("fused_pointconv_sa", precision)
     return out
 
 
 # ------------------------------------------------------------- gather_rows
-def gather_rows_plain(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``gather_rows``: ``index_points`` (``torch.gather``)."""
-    return index_points(values, idx)
+def gather_rows_plain(values: torch.Tensor, idx: torch.Tensor,
+                      parts: int = 2) -> torch.Tensor:
+    """Plain version of ``gather_rows``: ``index_points`` (``torch.gather``)
+    of the values at ``parts`` value planes."""
+    return index_points(gather_values(values, parts), idx)
 
 
-def gather_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_rows(values: torch.Tensor, idx: torch.Tensor,
+                parts: Optional[int] = None) -> torch.Tensor:
     """Grouped row gather: out[b, s, j, :] = values[b, idx[b, s, j], :],
-    an exact f32 copy.
+    an exact f32 copy, or at ``parts`` 1 each value rounded to bf16 (the
+    kernel then reads a bf16 copy of the values: half their bytes).
 
     Every index must lie in [0, N).  The JAX package's Pallas kernel writes
     zeros for one outside (its one-hot row is empty), the plain version
@@ -376,23 +440,34 @@ def gather_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
     Args:
       values: (B, N, F) float32; idx: (B, S, K) int32.
+      parts: 2 exact values, 1 values rounded to bf16; None follows
+        ``precision.value_parts``.
     Returns:
       (B, S, K, F) float32.
     """
-    if on_cpu(values, idx):
-        return gather_rows_plain(values, idx)
-    check(values, "values", torch.float32, 3)
+    cpu = on_cpu(values, idx)
+    parts = value_parts(parts, cpu)
+    if cpu:
+        return gather_rows_plain(values, idx, parts)
+    # values in bf16 are the rounded copy already (the checks time the
+    # kernel apart from the rounding)
+    check(values, "values", torch.bfloat16 if values.dtype == torch.bfloat16
+          else torch.float32, 3)
     check(idx, "idx", torch.int32, 3)
     B, N, F = values.shape
     S, K = idx.shape[1], idx.shape[2]
     if idx.shape[0] != B:
         raise ValueError(f"values {tuple(values.shape)} and idx "
                          f"{tuple(idx.shape)} disagree on B")
+    bf16 = parts == 1 or values.dtype == torch.bfloat16
+    src = values.to(torch.bfloat16) if bf16 else values
     out = torch.empty((B, S, K, F), dtype=torch.float32, device=values.device)
     with record_function("iq_gather_rows"):
-        rc = _lib().iq_gather_rows(values.data_ptr(), idx.data_ptr(),
-                                   out.data_ptr(), B, N, S * K, F,
+        rc = _lib().iq_gather_rows(src.data_ptr(), idx.data_ptr(),
+                                   out.data_ptr(), B, N, S * K, F, int(bf16),
                                    stream(values))
     raise_on(rc, "iq_gather_rows")
     LAUNCHES["gather_rows"] += 1
+    if bf16:
+        ROUTE_LAUNCHES["gather_rows:bf16"] += 1
     return out

@@ -28,30 +28,46 @@ database fits shared memory, else the tiled selection that
 (``gather_extrema_route``): a column slice of the cloud staged in shared
 memory, and for clouds whose slice does not fit, rows read through the
 cache.  ``_knn`` and ``_gather_extrema`` force a route, for the checks.
+
+The gathers follow ``--gather_precision`` where their TPU counterparts
+split the values into bf16 planes (``parts``): at ``bf16`` (parts 1) each
+value is rounded to bf16, to nearest even, and max and min are taken in
+f32 on the rounded values, which is what the TPU's one bf16 plane gives.
+``gather_extrema`` then reads a bf16 copy of the values (half the bytes of
+the f32 rows; the launch counts in ``ROUTE_LAUNCHES["gather_extrema:bf16"]``
+beside ``LAUNCHES``); ``knn_gather_extrema``, bound by its selection, reads
+the rounded values in f32.  ``parts=None`` takes the process's setting on
+the card and exact gathers on the CPU (``precision.value_parts``).  The kNN
+distances stay f32 at every setting: the JAX package pins them to HIGHEST.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch.profiler import record_function
 
 from ..geometry import index_points, sorted_topk_indices, square_distance
+from ..precision import gather_values, value_parts
 from . import build
 from .launch import I, P, check, on_cpu, raise_on, stream
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES = {"knn": 0, "gather_extrema": 0, "knn_gather_extrema": 0}
+# launches of the routes of a non-default precision setting, counted here
+# as well as in LAUNCHES: "gather_extrema:bf16"
+ROUTE_LAUNCHES = {"gather_extrema:bf16": 0}
 
 MAX_K = 32      # largest neighbourhood the kernels take (kMaxK in the source)
 MAX_QUERY_ROWS = 12288    # most query rows of a cloud (kMaxDistinctRows)
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ROUTE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -59,8 +75,8 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("neighbors")
     lib.iq_knn.argtypes = [P, P, P, P, I, I, I, I, I, I, P]
     lib.iq_knn_route.argtypes = [I, I, I, P]
-    lib.iq_gather_extrema.argtypes = [P, P, P, P, I, I, I, I, I, I, P]
-    lib.iq_gather_extrema_route.argtypes = [I, I, I, P]
+    lib.iq_gather_extrema.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P]
+    lib.iq_gather_extrema_route.argtypes = [I, I, I, I, P]
     lib.iq_knn_gather_extrema.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
     for fn in (lib.iq_knn, lib.iq_knn_route, lib.iq_gather_extrema,
                lib.iq_gather_extrema_route, lib.iq_knn_gather_extrema):
@@ -96,8 +112,9 @@ def route_info(info) -> dict:
 
 
 def knn_plain(query: torch.Tensor, database: torch.Tensor, k: int) -> torch.Tensor:
-    """Plain version of ``knn``: (B, S, C), (B, N, C) -> (B, S, k) int32."""
-    return sorted_topk_indices(square_distance(query, database), k)
+    """Plain version of ``knn``: (B, S, C), (B, N, C) -> (B, S, k) int32,
+    the distances in f32 at every matmul precision, as the kernel's."""
+    return sorted_topk_indices(square_distance(query, database, "highest"), k)
 
 
 def knn(query: torch.Tensor, database: torch.Tensor, k: int) -> torch.Tensor:
@@ -154,20 +171,23 @@ def knn_route(N: int, C: int, k: int) -> dict:
 ROUTES = {"shape": 0, "slice": 1, "rows": 2}
 
 
-def gather_extrema_plain(idx: torch.Tensor, a: torch.Tensor
+def gather_extrema_plain(idx: torch.Tensor, a: torch.Tensor, parts: int = 2
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of ``gather_extrema``."""
-    g = index_points(a, idx)                                   # (B, S, k, F)
+    """Plain version of ``gather_extrema`` at ``parts`` value planes."""
+    g = index_points(gather_values(a, parts), idx)             # (B, S, k, F)
     return g.amax(dim=2), g.amin(dim=2)
 
 
-def gather_extrema(idx: torch.Tensor, a: torch.Tensor
+def gather_extrema(idx: torch.Tensor, a: torch.Tensor,
+                   parts: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-point elementwise max and min of value rows over given neighbours.
 
     Args:
       idx: (B, S, k) int32 indices into the N rows of ``a``, each in [0, N).
       a:   (B, N, F) float32 value rows.
+      parts: 2 exact values, 1 values rounded to bf16; None follows
+        ``precision.value_parts``.
     Returns:
       (amax, amin), each (B, S, F) float32.
 
@@ -177,42 +197,54 @@ def gather_extrema(idx: torch.Tensor, a: torch.Tensor
     bounds; the plain version on the CPU raises instead.  The main path's
     indices come from ``knn``, which keeps them in range.
     """
-    if on_cpu(idx, a):
-        return gather_extrema_plain(idx, a)
-    return _gather_extrema(idx, a, ROUTES["shape"])
+    cpu = on_cpu(idx, a)
+    parts = value_parts(parts, cpu)
+    if cpu:
+        return gather_extrema_plain(idx, a, parts)
+    return _gather_extrema(idx, a, ROUTES["shape"], parts)
 
 
-def _gather_extrema(idx: torch.Tensor, a: torch.Tensor, route: int
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _gather_extrema(idx: torch.Tensor, a: torch.Tensor, route: int,
+                    parts: int = 2) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch iq_gather_extrema on ``route`` (``ROUTES``): by shape, as
     ``gather_extrema`` does, or one route forced, to hold both routes
-    against the plain version at the same shapes."""
+    against the plain version at the same shapes.  At ``parts`` 1 the
+    kernel reads a bf16 copy of ``a`` (rounded to nearest even); an ``a``
+    in bf16 is that copy already, which the checks use to time the kernel
+    apart from the rounding."""
     check(idx, "idx", torch.int32, 3)
-    check(a, "a", torch.float32, 3)
+    check(a, "a", torch.bfloat16 if a.dtype == torch.bfloat16
+          else torch.float32, 3)
     B, S, k = idx.shape
     N, F = a.shape[1], a.shape[2]
     if a.shape[0] != B:
         raise ValueError(f"idx {tuple(idx.shape)} and a {tuple(a.shape)} "
                          "disagree on the batch")
     _check_k(k, MAX_K)
+    bf16 = parts == 1 or a.dtype == torch.bfloat16
+    values = a.to(torch.bfloat16) if bf16 else a
     amax = torch.empty((B, S, F), dtype=torch.float32, device=a.device)
     amin = torch.empty_like(amax)
     with record_function("iq_gather_extrema"):
-        rc = _lib().iq_gather_extrema(idx.data_ptr(), a.data_ptr(),
+        rc = _lib().iq_gather_extrema(idx.data_ptr(), values.data_ptr(),
                                       amax.data_ptr(), amin.data_ptr(),
-                                      B, S, N, F, k, route, stream(a))
+                                      B, S, N, F, k, route, int(bf16),
+                                      stream(a))
     raise_on(rc, "iq_gather_extrema")
     LAUNCHES["gather_extrema"] += 1
+    if bf16:
+        ROUTE_LAUNCHES["gather_extrema:bf16"] += 1
     return amax, amin
 
 
-def gather_extrema_route(N: int, F: int, k: int) -> dict:
+def gather_extrema_route(N: int, F: int, k: int, parts: int = 2) -> dict:
     """The route ``gather_extrema`` takes for clouds of N rows of F values
-    at k neighbours, and how many of its blocks one SM of the current card
-    holds (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).  Launches
+    at k neighbours and ``parts`` value planes, and how many of its blocks
+    one SM of the current card holds
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).  Launches
     nothing."""
     info = (ctypes.c_int * 4)()
-    raise_on(_lib().iq_gather_extrema_route(N, F, k, info),
+    raise_on(_lib().iq_gather_extrema_route(N, F, k, int(parts == 1), info),
              "iq_gather_extrema_route")
     route, cols, threads, blocks = info
     return {"route": "slice" if route == ROUTES["slice"] else "rows",
@@ -220,13 +252,15 @@ def gather_extrema_route(N: int, F: int, k: int) -> dict:
 
 
 # ------------------------------------------------------ knn_gather_extrema
-def knn_gather_extrema_plain(xs: torch.Tensor, a: torch.Tensor, k: int
+def knn_gather_extrema_plain(xs: torch.Tensor, a: torch.Tensor, k: int,
+                             parts: int = 2
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of ``knn_gather_extrema``."""
-    return gather_extrema_plain(knn_plain(xs, xs, k), a)
+    """Plain version of ``knn_gather_extrema`` at ``parts`` value planes."""
+    return gather_extrema_plain(knn_plain(xs, xs, k), a, parts)
 
 
-def knn_gather_extrema(xs: torch.Tensor, a: torch.Tensor, k: int
+def knn_gather_extrema(xs: torch.Tensor, a: torch.Tensor, k: int,
+                       parts: Optional[int] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-point extrema of value rows over the k nearest neighbours in
     feature space; the (N, N) distances and the indices stay on chip.
@@ -234,11 +268,15 @@ def knn_gather_extrema(xs: torch.Tensor, a: torch.Tensor, k: int
     Args:
       xs: (B, N, C) float32 features defining the graph (self included).
       a:  (B, N, F) float32 value rows.
+      parts: 2 exact values, 1 values rounded to bf16 (the kernel reads
+        them rounded, in f32); None follows ``precision.value_parts``.
     Returns:
       (amax, amin), each (B, N, F) float32.
     """
-    if on_cpu(xs, a):
-        return knn_gather_extrema_plain(xs, a, k)
+    cpu = on_cpu(xs, a)
+    parts = value_parts(parts, cpu)
+    if cpu:
+        return knn_gather_extrema_plain(xs, a, k, parts)
     check(xs, "xs", torch.float32, 3)
     check(a, "a", torch.float32, 3)
     B, N, C = xs.shape
@@ -249,6 +287,7 @@ def knn_gather_extrema(xs: torch.Tensor, a: torch.Tensor, k: int
     _check_k(k, N)
     if N > MAX_QUERY_ROWS:
         raise ValueError(f"N={N} rows per cloud (at most {MAX_QUERY_ROWS})")
+    a = gather_values(a, parts)
     amax = torch.empty((B, N, F), dtype=torch.float32, device=a.device)
     amin = torch.empty_like(amax)
     scratch = _distinct_rows_scratch(B, N, xs.device)

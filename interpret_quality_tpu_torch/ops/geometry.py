@@ -3,7 +3,9 @@
 Counterpart of ``interpret_quality_tpu/ops/geometry.py`` with the same
 semantics:
 
-  * squared distances as ``|x|^2 - 2 x.y + |y|^2`` in the tensors' dtype;
+  * squared distances as ``|x|^2 - 2 x.y + |y|^2`` in the tensors' dtype,
+    the product at the matmul precision (``ops.precision.matmul``; the JAX
+    function leaves it unpinned) unless the caller pins one;
   * kNN in ascending distance with ties to the lowest index (the order of
     ``jax.lax.top_k`` on negated distances).  ``torch.topk`` promises no tie
     order, so selection is a stable sort;
@@ -14,12 +16,18 @@ semantics:
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from .precision import matmul
 
-def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
-    """Pairwise squared Euclidean distance, (..., N, C) x (..., M, C) -> (..., N, M)."""
-    inner = torch.matmul(src, dst.transpose(-1, -2))
+
+def square_distance(src: torch.Tensor, dst: torch.Tensor,
+                    precision: Optional[str] = None) -> torch.Tensor:
+    """Pairwise squared Euclidean distance, (..., N, C) x (..., M, C) -> (..., N, M),
+    the product at ``precision`` (None: the process's matmul precision)."""
+    inner = matmul(src, dst.transpose(-1, -2), precision)
     s2 = torch.sum(src * src, dim=-1, keepdim=True)            # (..., N, 1)
     d2 = torch.sum(dst * dst, dim=-1, keepdim=True)            # (..., M, 1)
     return s2 - 2.0 * inner + d2.transpose(-1, -2)
@@ -70,7 +78,8 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
 
 
 def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,
-                     new_xyz: torch.Tensor) -> torch.Tensor:
+                     new_xyz: torch.Tensor,
+                     precision: Optional[str] = None) -> torch.Tensor:
     """Ball query with sort-and-clamp semantics.
 
     Args:
@@ -79,10 +88,10 @@ def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,
       (B, S, min(nsample, N)) int32: the first in-ball indices in index
       order; slots beyond the ball repeat the first in-ball index, and an
       empty ball gives index 0.  In-ball is ``square_distance <= radius**2``
-      in the tensors' dtype.
+      in the tensors' dtype, the product at ``precision``.
     """
     N = xyz.shape[1]
-    sqrdists = square_distance(new_xyz, xyz)                   # (B, S, N)
+    sqrdists = square_distance(new_xyz, xyz, precision)        # (B, S, N)
     arange = torch.arange(N, dtype=torch.int64, device=xyz.device)
     group_idx = torch.where(sqrdists > radius ** 2, N, arange)
     group_idx = torch.sort(group_idx, dim=-1).values[..., :nsample]

@@ -1,0 +1,153 @@
+"""The JAX package's two precision settings as the port computes them: the
+products of ``--matmul_precision`` and the gathered values of
+``--gather_precision``.
+
+Both settings are process-global (``config``) and govern the card only.
+On the CPU every product is f32 and every gather exact, as the JAX package
+computes there (XLA:CPU ignores the matmul precision, and its CPU path
+never reaches the kernels whose values the gather setting splits).
+
+Products (``matmul``; ``models/common.py`` lists which products follow the
+setting and which stay f32):
+
+  ``highest`` (the port's default) f32, cuBLAS with TF32 off, the
+  reference's numerics; ``high`` one TF32 product (cuBLAS's own TF32,
+  torch's ``high``: coarser than the TPU's three bf16 passes);
+  ``default`` both operands rounded to bf16, to nearest even, then one
+  TF32 product with f32 accumulation, which is exact for bf16 operands:
+  one bf16 pass, as the TPU's default.  A float64 product is exact at
+  every setting.  ``matmul`` is differentiable: its backward products (the
+  gradient against the other operand) take the same setting, as
+  ``jax.grad`` of a dot keeps its precision, so training and the
+  smoothness step see the setting too.
+
+Gathers (``gather_values``): at 2 value parts (``hilo``) the f32 values
+exactly, at 1 (``bf16``) each value rounded to bf16, to nearest even, which
+is what the TPU kernels' one bf16 plane copies through a one-hot product.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from .. import config
+
+
+def set_matmul_precision(precision: Optional[str] = None) -> None:
+    """Set the process's matmul precision (None keeps it) and the card's
+    f32 flags: cuBLAS and cuDNN never take TF32 by themselves (``matmul``
+    takes it for one product where the setting asks)."""
+    if precision is not None:
+        config.set_matmul_precision(precision)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """Each value rounded to bf16 (7 mantissa bits), to nearest even, as
+    ``astype(jnp.bfloat16)`` rounds it, and returned in x's dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def value_parts(parts: Optional[int], cpu: bool) -> int:
+    """The value planes a gather reads: the caller's ``parts`` where it
+    names one; else on the card the process's ``--gather_precision``
+    (``config.gather_value_parts``), and on the CPU 2, exact f32."""
+    if parts is not None:
+        if parts not in (1, 2):
+            raise ValueError(f"parts must be 1 or 2, got {parts!r}")
+        return parts
+    return 2 if cpu else config.gather_value_parts()
+
+
+def gather_values(a: torch.Tensor, parts: int) -> torch.Tensor:
+    """The values a gather reads at ``parts`` value planes: ``a`` itself at
+    2, each value rounded to bf16 (``round_bf16``) at 1."""
+    if parts == 2:
+        return a
+    if parts == 1:
+        return round_bf16(a)
+    raise ValueError(f"parts must be 1 or 2, got {parts!r}")
+
+
+def _sum_to(t: torch.Tensor, shape: torch.Size) -> torch.Tensor:
+    """Sum a broadcast gradient back to an operand's shape."""
+    lead = t.dim() - len(shape)
+    if lead > 0:
+        t = t.sum(dim=tuple(range(lead)))
+    dims = tuple(i for i, n in enumerate(shape) if n == 1 and t.shape[i] != 1)
+    return t.sum(dim=dims, keepdim=True) if dims else t
+
+
+class PrecisionMatmul(torch.autograd.Function):
+    """x @ w (``torch.matmul`` broadcasting, both at least 2-d) whose
+    float32 products, forward and backward, are ``product``'s; products of
+    any other dtype are exact ``torch.matmul``.  The backward products are
+    grad @ w^T and x^T @ grad, each summed to its operand's shape."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor,
+                product: Callable) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        ctx.product = product
+        return _product(product, x, w)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = _sum_to(_product(ctx.product, grad, w.transpose(-1, -2)),
+                         x.shape)
+        if ctx.needs_input_grad[1]:
+            if w.dim() == 2:        # one product over every row of the batch
+                gw = _product(ctx.product,
+                              x.reshape(-1, x.shape[-1]).transpose(0, 1),
+                              grad.reshape(-1, grad.shape[-1]))
+            else:
+                gw = _sum_to(_product(ctx.product, x.transpose(-1, -2), grad),
+                             w.shape)
+        return gx, gw, None
+
+
+def _product(product: Callable, a: torch.Tensor, b: torch.Tensor):
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return product(a, b)
+    return torch.matmul(a, b)
+
+
+def _tf32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One TF32 product through cuBLAS (torch's ``high``).  torch has no
+    per-call TF32 switch: the process's flag is set for this product and
+    restored after it."""
+    flags = torch.backends.cuda.matmul
+    allowed = flags.allow_tf32
+    flags.allow_tf32 = True
+    try:
+        return torch.matmul(a, b)
+    finally:
+        flags.allow_tf32 = allowed
+
+
+def _bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One bf16 pass: the operands rounded to bf16, one TF32 product (exact
+    for bf16 operands), f32 accumulation."""
+    return _tf32_matmul(round_bf16(a), round_bf16(b))
+
+
+CARD_PRODUCTS = {"high": _tf32_matmul, "default": _bf16_matmul}
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor,
+           precision: Optional[str] = None) -> torch.Tensor:
+    """x @ w at ``precision`` (None: ``config.matmul_precision()``) on the
+    card; f32 on the CPU and at ``highest``, where it is ``torch.matmul``
+    itself.  Differentiable in both operands."""
+    if precision is None:
+        precision = config.matmul_precision()
+    elif precision not in config.MATMUL_PRECISIONS:
+        raise ValueError(f"unknown matmul precision {precision!r}")
+    if precision == "highest" or x.device.type != "cuda":
+        return torch.matmul(x, w)
+    return PrecisionMatmul.apply(x, w, CARD_PRODUCTS[precision])

@@ -35,10 +35,13 @@ import datetime
 import os
 import tempfile
 from dataclasses import dataclass
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from .. import config
+from ..ops.precision import set_matmul_precision
 
 INIT_TIMEOUT = datetime.timedelta(minutes=10)
 
@@ -210,17 +213,18 @@ def make_dp_train_step(model: torch.nn.Module, optimizer, scheduler,
 
 
 def _rank_main(rank: int, fn: Callable, world: int, backend: str,
-               devices: Sequence[torch.device], folder: str) -> None:
+               devices: Sequence[torch.device], folder: str,
+               precision: Tuple[str, int]) -> None:
     args = torch.load(os.path.join(folder, "args.pt"), weights_only=False)
     store = dist.FileStore(os.path.join(folder, "store"), world)
     dist.init_process_group(backend, store=store, rank=rank,
                             world_size=world, timeout=INIT_TIMEOUT)
     try:
         device = devices[rank]
+        set_matmul_precision(precision[0])      # the parent's settings
+        config.set_gather_value_parts(precision[1])
         if device.type == "cuda":
-            from ..models.common import set_fp32_matmuls
             torch.cuda.set_device(device)
-            set_fp32_matmuls()
         else:               # the ranks share the process's threads
             torch.set_num_threads(max(1, torch.get_num_threads() // world))
         group = DPGroup(rank, world, dist.group.WORLD, device)
@@ -240,7 +244,8 @@ def spawn(fn: Callable, world: int, backend: str = "gloo",
     context is unusable), and meet through a file store in a temporary
     folder, with no network.  A rank that raises makes the call raise;
     the group is destroyed in every rank.  ``fn`` and ``args`` must pickle
-    (a module-level function)."""
+    (a module-level function).  Each rank takes this process's matmul and
+    gather precision settings (``config``)."""
     devices = [torch.device(d) for d in (devices or ["cpu"] * world)]
     devices = [torch.device("cuda", d.index or 0) if d.type == "cuda" else d
                for d in devices]
@@ -258,7 +263,9 @@ def spawn(fn: Callable, world: int, backend: str = "gloo",
         # pipes would make each process wait for the one before it
         torch.save(args, os.path.join(folder, "args.pt"))
         torch.multiprocessing.spawn(
-            _rank_main, args=(fn, world, backend, devices, folder),
+            _rank_main, args=(fn, world, backend, devices, folder,
+                              (config.matmul_precision(),
+                               config.gather_value_parts())),
             nprocs=world, join=True)
         return [torch.load(os.path.join(folder, f"result{r}.pt"),
                            map_location="cpu", weights_only=False)

@@ -85,15 +85,15 @@ def main() -> int:
         print("no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke as cs
-    from interpret_quality_tpu_torch.models.common import (fold_stack,
-                                                           set_fp32_matmuls)
+    from interpret_quality_tpu_torch.models.common import fold_stack
     from interpret_quality_tpu_torch.ops.cuda import build
     from interpret_quality_tpu_torch.ops.cuda import fps as fp
     from interpret_quality_tpu_torch.ops.cuda import groups as gr
     from interpret_quality_tpu_torch.ops.cuda import neighbors as nb
     from interpret_quality_tpu_torch.ops.geometry import (compute_density,
                                                           index_points)
-    set_fp32_matmuls()
+    from interpret_quality_tpu_torch.ops.precision import set_matmul_precision
+    set_matmul_precision("highest")
     only = set(args.only.split(","))
     device = torch.device("cuda")
     variants = args.csrc or [build.CSRC]

@@ -5,6 +5,8 @@ file imports no JAX, so it also runs on a machine that has only PyTorch:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 """
+import contextlib
+
 import pytest
 import torch
 
@@ -17,8 +19,8 @@ from interpret_quality_tpu_torch.ops.cuda import neighbors as nb
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
-    from interpret_quality_tpu_torch.models.common import set_fp32_matmuls
-    set_fp32_matmuls()
+    from interpret_quality_tpu_torch.ops.precision import set_matmul_precision
+    set_matmul_precision("highest")
     return torch.device("cuda")
 
 
@@ -801,3 +803,148 @@ def test_dryrun_on_the_visible_cards(cuda):
     """dryrun_multichip over every visible card (one card: world 1)."""
     from interpret_quality_tpu_torch.parallel.dryrun import dryrun_multichip
     dryrun_multichip(torch.cuda.device_count(), "cuda")
+
+
+# ------------------------------------------- the non-exact precision settings
+# A one-pass setting against its emulation: f32 sums in another order, and a
+# value at a rounding boundary of the one-pass operand may round the other
+# way on one side, so the gap is held to a share of the setting's own
+# rounding (the emulation against the exact f32 version; see chip_smoke.py's
+# ONE_PASS_RMS_SHARE)
+ONE_PASS_RMS_SHARE, ONE_PASS_MAX_SHARE = 0.1, 0.5
+
+
+@contextlib.contextmanager
+def _matmul_precision(precision):
+    """The process's --matmul_precision for a block, highest after it."""
+    from interpret_quality_tpu_torch import config
+    config.set_matmul_precision(precision)
+    try:
+        yield
+    finally:
+        config.set_matmul_precision("highest")
+
+
+def _one_pass_close(got, emulated, exact):
+    gap, rounding = (got - emulated).double(), (emulated - exact).double()
+    assert float(gap.square().mean().sqrt()) <= ONE_PASS_RMS_SHARE * float(
+        rounding.square().mean().sqrt())
+    assert float(gap.abs().max()) <= ONE_PASS_MAX_SHARE * float(
+        rounding.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,F,offset", [(64, 64, 0), (1024, 64, 0),
+                                        (1024, 20, 0), (100, 9, 1),
+                                        (16384, 16, 0)])
+def test_gather_extrema_bf16_routes_bit_equal_to_plain(cuda, N, F, offset):
+    """Kernel 2's bf16 route (a bf16 copy of the values) bit-equal to the
+    plain version on the rounded values, on the route the shape takes and
+    each route forced; F not a multiple of 8 takes the scalar copy; the
+    launch counts in ROUTE_LAUNCHES too."""
+    idx, a = _gather_case(cuda, 2, min(N, 512), N, F, 20, seed=N + F,
+                          offset=offset)
+    want = nb.gather_extrema_plain(idx, a, parts=1)
+    assert not torch.equal(want[0], nb.gather_extrema_plain(idx, a)[0])
+    info = nb.gather_extrema_route(N, F, 20, parts=1)
+    assert info["route"] == ("rows" if N == 16384 else "slice")
+    nb.reset_launches()
+    routes = ("shape", "rows") if N == 16384 else ("shape", "slice", "rows")
+    for route in routes:
+        got = nb._gather_extrema(idx, a, nb.ROUTES[route], parts=1)
+        torch.cuda.synchronize()
+        for g_, w_ in zip(got, want):
+            assert torch.equal(g_, w_), route
+    for g_, w_ in zip(nb.gather_extrema(idx, a, parts=1), want):
+        assert torch.equal(g_, w_)
+    assert nb.ROUTE_LAUNCHES["gather_extrema:bf16"] == len(routes) + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,offset", [(64, 0), (7, 0), (16, 1)])
+def test_gather_rows_bf16_bit_equal_to_plain(cuda, F, offset):
+    g = torch.Generator().manual_seed(F)
+    buf = torch.randn(offset + 3 * 1024 * F, generator=g).to(cuda)
+    values = buf[offset:].view(3, 1024, F)
+    idx = torch.randint(0, 1024, (3, 256, 20), generator=g,
+                        dtype=torch.int32).to(cuda)
+    gr.reset_launches()
+    got = gr.gather_rows(values, idx, parts=1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gr.gather_rows_plain(values, idx, parts=1))
+    assert gr.ROUTE_LAUNCHES["gather_rows:bf16"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,parts", [("high", 2), ("default", 1)])
+@pytest.mark.parametrize("with_uf", [False, True])
+@pytest.mark.parametrize("widths,k,radius", [BALL_BRANCHES[1], BALL_BRANCHES[4]])
+def test_ball_mlp3_one_pass_matches_emulation(cuda, widths, k, radius,
+                                              with_uf, precision, parts):
+    """Kernel 5 at a one-pass setting against ``emulation.ball_mlp3_at``;
+    resident (64, 128) and streamed (128, 256) weights."""
+    from interpret_quality_tpu_torch.ops.cuda import emulation as em
+    g = torch.Generator().manual_seed(k + widths[0])
+    xyz = _cloud(cuda, 2, 512, k, collapse=False)
+    new_xyz = xyz[:, :128].contiguous()
+    w, a1f = _ball_weights(g, widths, with_uf, cuda)
+    uf = (3.0 * torch.randn(2, 512, 5, generator=g).to(cuda) @ a1f
+          if with_uf else None)
+    gr.reset_launches()
+    with _matmul_precision(precision):
+        got = gr.fused_ball_mlp3(new_xyz, xyz, uf, *w, radius=radius, k=k,
+                                 parts=parts)
+    _one_pass_close(got, em.ball_mlp3_at(new_xyz, xyz, uf, *w, radius=radius,
+                                         k=k, precision=precision,
+                                         parts=parts),
+                    gr.fused_ball_mlp3_plain(new_xyz, xyz, uf, *w,
+                                             radius=radius, k=k, parts=parts))
+    exact = gr.fused_ball_mlp3(new_xyz, xyz, uf, *w, radius=radius, k=k)
+    assert not torch.allclose(got, exact, rtol=1e-5, atol=1e-6)
+    assert gr.ROUTE_LAUNCHES[f"fused_ball_mlp3:{precision}"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,parts", [("high", 2), ("default", 1)])
+@pytest.mark.parametrize("widths,k,D,B,S", [
+    ((64, 64, 128), 32, 0, 2, 64), ((128, 128, 256), 64, 128, 2, 64)])
+def test_pointconv_sa_one_pass_matches_emulation(cuda, widths, k, D, B, S,
+                                                 precision, parts):
+    """Kernel 7 at a one-pass setting against
+    ``emulation.pointconv_sa_at`` (layers 2-3 and WeightNet at the setting,
+    the contraction three products)."""
+    from interpret_quality_tpu_torch.ops.cuda import emulation as em
+    args = _pconv_args(cuda, widths, k, D, B, S)
+    gr.reset_launches()
+    with _matmul_precision(precision):
+        got = gr.fused_pointconv_sa(*args, k=k, parts=parts)
+    _one_pass_close(got, em.pointconv_sa_at(*args, k=k, precision=precision,
+                                            parts=parts),
+                    gr.fused_pointconv_sa_plain(*args, k=k, parts=parts))
+    assert gr.ROUTE_LAUNCHES[f"fused_pointconv_sa:{precision}"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_precision_product_on_the_card(cuda, precision):
+    """The models' product at a one-pass setting: coarser than f32; at
+    default the f32 sums of exact products of the bf16-rounded operands
+    (forward and backward); cuBLAS left in f32 after it."""
+    from interpret_quality_tpu_torch.ops import precision as pr
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(4, 300, 256, generator=g).to(cuda).requires_grad_()
+    w = torch.randn(256, 128, generator=g).to(cuda).requires_grad_()
+    y = pr.matmul(x, w, precision)
+    y.backward(torch.ones_like(y))
+    exact = torch.matmul(x.detach().double(), w.detach().double())
+    assert float((y.double() - exact).abs().max()) > 1e-4
+    if precision == "default":
+        rx, rw = pr.round_bf16(x.detach()).double(), pr.round_bf16(
+            w.detach()).double()
+        bound = 256 * 2.0 ** -24 * (rx.abs() @ rw.abs())
+        assert bool(((y.double() - rx @ rw).abs() <= bound).all())
+        ones = torch.ones(4, 300, 128, dtype=torch.float64, device=cuda)
+        assert bool(((x.grad.double() - ones @ rw.T).abs()
+                     <= 128 * 2.0 ** -24 * (ones @ rw.abs().T)).all())
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.equal(pr.matmul(x, w, "highest"), torch.matmul(x, w))

@@ -107,6 +107,33 @@ Phases, each of which raises on failure (the script then exits non-zero):
              PRECISION_STEP_FAULTS planted in the precision product's
              backward, whose gradient must fall below that cosine.  The phase's
              record is emitted before any of its failures is raised.
+  7c. selection  the JAX package's kNN selection settings on the card
+             (IQTPU_KNN_SELECT, IQTPU_KNN_LAYOUT; the port's default is the
+             exact class, the JAX package's packed) at the settings packed
+             and bf16 (SELECTION_SETTINGS), one for each class other than
+             exact (config.knn_select_class): kernels 1, 3 and 6 at the kernel
+             phase's shapes at each class, both kNN routes forced bit-equal
+             to each other and to the route the shape takes (kernels 1 and
+             6), kernel 3 bit-equal to the gather of kernel 1's indices at
+             the class, each equal to its plain version at the class on an
+             exact-duplicate cloud and within selection_gap's row limit of
+             it on the masked batch (derived from the class's width: see
+             selection_width), a planted fault (the plain version's
+             neighbours 2..k+1) beyond that limit, the
+             share of rows that differ from the exact class, each timed
+             with its bound; JAX's truncation example through kernels 1
+             and 6 on both routes (TRUNCATION_ORDER); kernel 3 at
+             IQTPU_KNN_LAYOUT=nq the packed class whatever the setting;
+             per family of SELECTION_FAMILIES the Shapley values at each
+             class against the exact ones through the precision phase's
+             models (deviation over the estimator's standard error below
+             1), the engine's forwards/s, and every kNN route of the class
+             launched there (the counts set to 0 just before each class's
+             runs and read just after); a DGCNN train step with
+             IQTPU_KNN_SELECT=packed bit-equal to the step without it, no
+             route of another class launched.  The variables are unset at
+             the start of the script, so every other phase runs at the
+             defaults.
   8. adversarial  cli.train_adv resumed from the train phase's GCNN .t7
              (ADV_CUTS), then cli.shapley_value --model gcnn_adv by the
              default path (the run's model_best.t7 stands in for
@@ -193,7 +220,9 @@ rows carry each kernel's launches on the main path, in the train,
 adversarial, adv_robustness and data_parallel phases, and in the bench
 phase's first bench_torch.py run; the rows of the precision phase's routes
 ("gather_extrema:bf16", "fused_ball_mlp3:default", ...) follow, their
-launches those of that phase's Shapley runs.
+launches those of that phase's Shapley runs, then those of the selection
+phase's classes ("knn:packed", "knn_gather_extrema:bf16", ...), their
+launches those of the selection phase's Shapley runs.
 The run uses one card: the first that CUDA_VISIBLE_DEVICES names, else card 0.
 Artifacts go to build/chip_smoke/ in the checkout.
 """
@@ -415,13 +444,40 @@ PRECISION_STEP_MODELS = ("gcnn", "pointnet")
 PRECISION_STEP_LOSS_REL, PRECISION_STEP_COS = 1e-2, 0.95
 PRECISION_STEP_FAULTS = ("no_input_grad", "no_weight_grad",
                          "weight_grad_half_rows")
+# The selection phase: the JAX package's kNN selection settings
+# (IQTPU_KNN_SELECT, IQTPU_KNN_LAYOUT) on the card, at one setting of each
+# of their two classes other than exact (config.knn_select_class; the
+# kernel phase checks the exact class): kernels 1, 3 and 6 at the main
+# path's shapes, the JAX package's truncation example, the nq layout, the
+# Shapley values of the families whose kernels select neighbours through
+# the precision phase's models, and a DGCNN train step with the variable
+# set.  SELECTION_ENV is unset for the whole script (IQTPU_ENUM_PLAN too:
+# the main path runs the plan path).
+SELECTION_SETTINGS = ("packed", "bf16")
+SELECTION_FAMILIES = ("dgcnn", "gcnn", "pointconv")
+SELECTION_ORDERS = PRECISION_ORDERS
+SELECTION_ENV = ("IQTPU_KNN_SELECT", "IQTPU_KNN_LAYOUT", "IQTPU_ENUM_PLAN")
+# operations a key adds to a distance (packed: clamp, mask; bf16: round,
+# widen), counted in the bound of a class's route
+SELECTION_KEY_OPS = 2
+# JAX's truncation example (tests/test_knn_select.py:69-84): database points
+# on the x axis, queried from the origin; the two first ones lie one ulp
+# apart in distance, and only the exact class tells them apart
+TRUNCATION_X = (float(np.nextafter(np.float32(5.0), np.float32(6.0))), 5.0,
+                1.0, 2.0, 7.0, 8.0, 9.0, 10.0)
+TRUNCATION_ORDER = {"exact": [2, 3, 1, 0], "packed": [2, 3, 0, 1],
+                    "bf16": [2, 3, 0, 1]}
 # Kernels that no entry point reaches, so the main path cannot launch them:
 # they are held in the kernel phase alone.
-# the kernels-line source and TPU kernel of the precision phase's routes
+# the kernels-line source and TPU kernel of the precision and selection
+# phases' routes
 ROUTE_SOURCES = {"gather_extrema": ("neighbors", "neighbors.py:424"),
                  "gather_rows": ("groups", "groups.py:171"),
                  "fused_ball_mlp3": ("groups", "groups.py:250"),
-                 "fused_pointconv_sa": ("groups", "groups.py:469")}
+                 "fused_pointconv_sa": ("groups", "groups.py:469"),
+                 "knn": ("neighbors", "neighbors.py:482"),
+                 "knn_gather_extrema": ("neighbors", "neighbors.py:353"),
+                 "knn_with_density": ("groups", "groups.py:337")}
 OFF_PATH = {"gather_rows": "no entry point of the JAX package calls "
                            "gather_rows (only its kernel test does), so none "
                            "of the port's does"}
@@ -565,24 +621,28 @@ def distinct_row_count(x) -> int:
     return int(x.shape[0] + (h[:, 1:] != h[:, :-1]).sum())
 
 
-def selection_gap(query, db, idx_k, idx_p):
+def selection_gap(query, db, idx_k, idx_p, width: float = 0.0):
     """Compare two kNN selections of the same queries (B, S, C) among the
-    same database rows (B, N, C).
+    same database rows (B, N, C), made at a selection class of ``width``
+    (selection_width; 0 at exact).
 
     Returns (rows whose index lists differ, rows whose index sets differ,
-    max abs and max relative gap between the two selections' distances).
-    The distances of each differing row are recomputed exactly (f64) and
-    sorted, and the gap is taken relative to the cloud's largest |x|^2,
-    the scale of the f32 rounding error of |q|^2 - 2 q.d + |d|^2.  Rows that
-    agree have a gap of 0.  A gap within REL_LIMIT means the selections
-    differ only where candidates lie at f32 noise from each other."""
+    max abs and max relative gap between the two selections' distances,
+    the largest gap over its row's limit).  The distances of each
+    differing row are recomputed exactly (f64) and sorted; the relative gap
+    is taken against the cloud's largest |x|^2, the scale of the f32
+    rounding error of |q|^2 - 2 q.d + |d|^2.  A row's limit is
+    2 * width * d_k + REL_LIMIT * |x|^2 (d_k: the row's largest selected
+    distance on either side; selection_width says why): a gap over it
+    above 1 means a selection the class does not explain.  Rows that agree
+    have a gap of 0."""
     import torch
     differ = (idx_k != idx_p).any(-1)                            # (B, S)
     sets_differ = (idx_k.sort(-1).values != idx_p.sort(-1).values).any(-1)
     scale = torch.maximum((db.double() ** 2).sum(-1).amax(-1),
                           (query.double() ** 2).sum(-1).amax(-1))   # (B,)
     bs, qs = differ.nonzero(as_tuple=True)
-    max_abs = max_rel = 0.0
+    max_abs = max_rel = over = 0.0
     for s in range(0, bs.numel(), 1 << 16):
         b, q = bs[s:s + (1 << 16)], qs[s:s + (1 << 16)]
         xq = query[b, q].double()                                # (M, C)
@@ -590,10 +650,114 @@ def selection_gap(query, db, idx_k, idx_p):
         def sel_dist(ix):
             xn = db[b[:, None], ix[b, q].long()].double()        # (M, k, C)
             return torch.sort(((xn - xq[:, None]) ** 2).sum(-1), -1).values
-        gap = (sel_dist(idx_k) - sel_dist(idx_p)).abs()
+        dk, dp = sel_dist(idx_k), sel_dist(idx_p)
+        gap = (dk - dp).abs()
+        limit = (2 * width * torch.maximum(dk[:, -1], dp[:, -1])
+                 + REL_LIMIT * scale[b])                         # (M,)
         max_abs = max(max_abs, float(gap.max()))
         max_rel = max(max_rel, float((gap / scale[b, None]).max()))
-    return differ, sets_differ, max_abs, max_rel
+        over = max(over, float((gap.amax(-1) / limit).max()))
+    return differ, sets_differ, max_abs, max_rel, over
+
+
+def selection_width(cls: str, n: int) -> float:
+    """The width of the kNN selection class ``cls`` over n database rows:
+    how far apart, relative to the larger, two distances whose keys compare
+    one way may lie in the other order.
+
+    A class is an exact (key, index) selection on keys made from the f32
+    distances, so a kernel and its plain version (an fmaf chain against a
+    cuBLAS product) part only where their distances give other keys.
+    Where the kernel selects a candidate A and the plain version a
+    candidate B in its place, A's key is at most B's on one side and B's
+    at most A's on the other.  Packed clears the low b = bit_length(n - 1)
+    bits of a distance's pattern, so its key lies less than 2^b ulps, a
+    share 2^(b - 23) (1.2e-4 at n = 1024), below it: A lies at most that
+    share of itself above B.  bf16 rounds to 8 significant bits, to
+    nearest, so its key lies within 2^-8 of it either way: A and B lie
+    within 2^-7 of the larger.  So A and B lie within one width of the
+    row's largest selected distance d_k, plus the f32 noise of the two
+    sides' distances, REL_LIMIT of the cloud's largest |x|^2 (the exact
+    class's limit, width 0); sorted, the two selections' distances differ
+    position by position by no more.  selection_gap's row limit takes two
+    widths, so that only a selection the class does not explain passes
+    it: dropping the nearest neighbour moves the first sorted distance by
+    d_2, far beyond (selection_fault)."""
+    if cls == "exact":
+        return 0.0
+    return {"packed": 2.0 ** ((n - 1).bit_length() - 23),
+            "bf16": 2.0 ** -7}[cls]
+
+
+def selection_fault(query, db, k: int, cls: str) -> float:
+    """selection_gap's gap over the row limit of a planted fault, on the
+    first chunk: knn_plain's neighbours 2..k+1 at the class (the nearest
+    dropped, the list shifted by one) against its neighbours 1..k.  The
+    check's limit must catch it: its callers fail where this is not above
+    1."""
+    from interpret_quality_tpu_torch.ops.cuda.neighbors import knn_plain
+    sl = slice(0, min(CHUNK, query.shape[0]))
+    idx = knn_plain(query[sl], db[sl], k + 1, cls)
+    return selection_gap(query[sl], db[sl], idx[..., 1:], idx[..., :-1],
+                         selection_width(cls, db.shape[1]))[4]
+
+
+def check_gap_limit(what: str, over: float, fault: float) -> None:
+    """Fail where a kernel's selections lie beyond selection_gap's row
+    limit (over > 1) or the planted fault within it (fault <= 1)."""
+    if over > 1.0:
+        raise AssertionError(f"{what}: selected distances differ from the "
+                             f"plain version's by {over} of the row limit")
+    if not fault > 1.0:
+        raise AssertionError(f"{what}: a planted fault (neighbours 2..k+1) "
+                             f"stays within the row limit ({fault})")
+
+
+def duplicate_cloud(B: int, n: int, c: int, seed: int, device):
+    """B clouds of n rows of c channels, each row one of 8 exact copies."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(B, n // 8, c, generator=g).repeat(1, 8, 1)
+    return x.contiguous().to(device)
+
+
+def selection_rows(query, db, idx, plain_fn, exact, cls):
+    """Kernel indices ``idx`` against ``plain_fn(sl)`` chunk by chunk:
+    every row within selection_gap's row limit at the class, a planted
+    fault beyond it (check_gap_limit), and the rows that differ from the
+    plain version and from the exact kernel's ``exact``.  Returns (max abs
+    gap, max rel gap, largest gap over the row limit, the fault's, share of
+    rows differing from the plain version, share differing from exact, the
+    rows that equal the plain version's, per chunk)."""
+    import torch
+    width = selection_width(cls, db.shape[1])
+    max_abs = max_rel = over = 0.0
+    plain_rows = exact_rows = rows = 0
+    same = []
+    for sl in chunks(query.shape[0]):
+        differ, _, g_abs, g_rel, g_over = selection_gap(
+            query[sl], db[sl], idx[sl], plain_fn(sl), width)
+        max_abs, max_rel = max(max_abs, g_abs), max(max_rel, g_rel)
+        over = max(over, g_over)
+        plain_rows += int(differ.sum())
+        exact_rows += int((idx[sl] != exact[sl]).any(-1).sum())
+        rows += differ.numel()
+        same.append(~differ)
+    fault = selection_fault(query, db, idx.shape[-1], cls)
+    check_gap_limit(f"k={idx.shape[-1]} at {cls}", over, fault)
+    torch.cuda.synchronize()
+    return (max_abs, max_rel, over, fault, plain_rows / rows,
+            exact_rows / rows, same)
+
+
+def key_ops(cls: str) -> int:
+    """Operations a kNN selection class's key adds to a distance."""
+    return 0 if cls == "exact" else SELECTION_KEY_OPS
+
+
+def row_name(kernel: str, cls: str) -> str:
+    """A kernel's name on the kernels line at a kNN selection class."""
+    return kernel if cls == "exact" else f"{kernel}:{cls}"
 
 
 def route_outputs(run, what):
@@ -614,53 +778,56 @@ def route_times(run):
             for name in ("xyz", "tiled")}
 
 
-def check_knn(nb, masked, device):
-    """Kernel 1 at GCNN's graph: the route the shape takes (the main path's)
-    and both routes forced, bit-equal to each other, so the selection gap
-    against knn_plain (within REL_LIMIT) holds for each; on an
-    exact-duplicate cloud each route equals knn_plain."""
+def check_knn(nb, masked, device, select="two_pass"):
+    """Kernel 1 at GCNN's graph at the selection setting ``select``: the
+    route the shape takes (the main path's) and both routes forced,
+    bit-equal to each other, so the selection gap against knn_plain at the
+    setting's class (within selection_gap's row limit: REL_LIMIT at exact)
+    holds for each; on an exact-duplicate cloud each route equals
+    knn_plain.  At another class than exact, also the share of rows whose
+    indices differ from the exact class's."""
     import torch
-    g = torch.Generator(device="cpu").manual_seed(0)
-    base = torch.randn(33, N // 8, 3, generator=g)
-    dup = base.repeat(1, 8, 1).contiguous().to(device)     # exact ties
-    want = nb.knn_plain(dup, dup, K)
+    from interpret_quality_tpu_torch.config import knn_select_class
+    cls = knn_select_class(select)
+    dup = duplicate_cloud(33, N, 3, 0, device)             # exact ties
+    want = nb.knn_plain(dup, dup, K, cls)
     for name, route in nb.KNN_ROUTES.items():
-        if not torch.equal(nb._knn(dup, dup, K, route), want):
-            raise AssertionError(f"knn ({name} route): indices differ from "
-                                 "knn_plain on an exact-duplicate cloud")
-    idx = nb.knn(masked, masked, K)
+        if not torch.equal(nb._knn(dup, dup, K, route, cls), want):
+            raise AssertionError(f"knn ({name} route) at {cls}: indices "
+                                 "differ from knn_plain on an "
+                                 "exact-duplicate cloud")
+    idx = nb.knn(masked, masked, K, select=select)
     if not torch.equal(route_outputs(
-            lambda r: (nb._knn(masked, masked, K, r),), "knn")[0], idx):
-        raise AssertionError("knn: the route the shape takes differs from "
-                             "the same route forced")
-    torch.cuda.synchronize()
-    differ_rows, rows, max_abs, max_rel = 0, 0, 0.0, 0.0
-    for sl in chunks(masked.shape[0]):
-        plain = nb.knn_plain(masked[sl], masked[sl], K)
-        differ, _, gap_abs, gap_rel = selection_gap(masked[sl], masked[sl],
-                                                    idx[sl], plain)
-        differ_rows += int(differ.sum())
-        rows += differ.numel()
-        max_abs, max_rel = max(max_abs, gap_abs), max(max_rel, gap_rel)
-    if max_rel > REL_LIMIT:
-        raise AssertionError(f"knn: selected distances differ by {max_rel} "
-                             f"relative to |x|^2 (limit {REL_LIMIT})")
-    t_k = cuda_ms(lambda: nb.knn(masked, masked, K))
-    t_p = cuda_ms(lambda: [nb.knn_plain(masked[sl], masked[sl], K)
+            lambda r: (nb._knn(masked, masked, K, r, cls),), "knn")[0], idx):
+        raise AssertionError(f"knn at {cls}: the route the shape takes "
+                             "differs from the same route forced")
+    exact = idx if cls == "exact" else nb.knn(masked, masked, K,
+                                              select="two_pass")
+    max_abs, max_rel, over, fault, differ_share, exact_share, _ = \
+        selection_rows(masked, masked, idx,
+                       lambda sl: nb.knn_plain(masked[sl], masked[sl], K, cls),
+                       exact, cls)
+    t_k = cuda_ms(lambda: nb.knn(masked, masked, K, select=select))
+    t_p = cuda_ms(lambda: [nb.knn_plain(masked[sl], masked[sl], K, cls)
                            for sl in chunks(masked.shape[0])], reps=1)
     B, C = masked.shape[0], masked.shape[2]
     queries = distinct_row_count(masked)
     bound, by = bound_ms(B * N * C * 4 * 2 + B * N * K * 4,
-                         queries * N * (2 * C + 3))
-    detail = {"kernel": "knn", "B": B, "N": N, "C": C, "k": K,
+                         queries * N * (2 * C + 3 + key_ops(cls)))
+    detail = {"kernel": row_name("knn", cls), "B": B, "N": N, "C": C, "k": K,
               "route": nb.knn_route(N, C, K), "ms": t_k, "plain_ms": t_p,
               "bound_ms": bound,
-              "route_ms": route_times(lambda r: nb._knn(masked, masked, K, r)),
+              "route_ms": route_times(lambda r: nb._knn(masked, masked, K, r,
+                                                        cls)),
               "routes_bit_equal": True,
               "distinct_query_rows": queries / (B * N),
-              "identical_index_rows": 1 - differ_rows / rows,
+              "identical_index_rows": 1 - differ_share,
               "max_rel_selected_dist_err": max_rel,
+              "width": selection_width(cls, N), "gap_over_limit": over,
+              "fault_gap_over_limit": fault,
               "duplicate_cloud_indices_equal": True}
+    if cls != "exact":
+        detail["rows_differing_from_two_pass"] = exact_share
     return idx, dict(max_abs_err=max_abs, ms=t_k, plain_ms=t_p,
                      bound_ms=bound, bound_by=by,
                      main_path_route=detail["route"]["route"]), [detail]
@@ -709,70 +876,101 @@ def check_gather(nb, layers, idx):
                 bound_by=by), details
 
 
-def check_fused(nb, layers):
-    """Kernel 3 at each DGCNN layer, every chunk of the batch:
-      1. bit-equal to the plain gather of kernel 1's indices (one selection
-         function serves both kernels);
-      2. kernel 1's indices against knn_plain's: selected distances within
-         REL_LIMIT of |x|^2 (selection_gap);
-      3. against knn_gather_extrema_plain: a row may differ only where the
-         two neighbour sets differ, which 2 shows to be near ties; the
-         largest such difference is kernel 3's max_abs_err."""
+def check_fused(nb, layers, select="two_pass"):
+    """Kernel 3 at each DGCNN layer at the selection setting ``select``
+    (its class ``cls``), every chunk of the batch:
+      1. bit-equal to the plain gather of kernel 1's indices at the class
+         (one selection function serves both kernels);
+      2. kernel 1's indices against knn_plain's at the class: every row
+         within selection_gap's row limit, and a planted fault beyond it
+         (check_gap_limit);
+      3. against knn_gather_extrema_plain at the class: a row may differ
+         only where the two neighbour sets differ, which 2 shows to be near
+         ties; the largest such difference is kernel 3's max_abs_err;
+      4. on an exact-duplicate 64-wide cloud equal to
+         knn_gather_extrema_plain.
+    At another class than exact, also the share of rows whose indices
+    differ from the exact class's."""
     import torch
+    from interpret_quality_tpu_torch.config import knn_select_class
+    cls = knn_select_class(select)
+    device = layers[0][0].device
+    dup = duplicate_cloud(33, N, 64, 1, device)
+    a_dup = torch.randn(33, N, 64, device=device)
+    for got, want in zip(nb.knn_gather_extrema(dup, a_dup, K, select=select),
+                         nb.knn_gather_extrema_plain(dup, a_dup, K, 2, cls)):
+        if not torch.equal(got, want):
+            raise AssertionError(f"knn_gather_extrema at {cls}: differs from "
+                                 "its plain version on an exact-duplicate "
+                                 "cloud")
+    del dup, a_dup
     ms = plain = 0.0
     ops = all_ops = nbytes = 0.0
     max_abs, details = 0.0, []
     for xs, a in layers:
-        kmax, kmin = nb.knn_gather_extrema(xs, a, K)
-        idx = nb.knn(xs, xs, K)               # the same selection function
+        kmax, kmin = nb.knn_gather_extrema(xs, a, K, select=select)
+        # the same selection function
+        idx = nb.knn(xs, xs, K, select=select)
+        exact = idx if cls == "exact" else nb.knn(xs, xs, K, select="two_pass")
         torch.cuda.synchronize()
-        out_rows = set_rows = rows = 0
-        layer_abs = layer_rel = 0.0
+        out_rows = set_rows = exact_rows = rows = 0
+        layer_abs = layer_rel = layer_over = 0.0
+        width = selection_width(cls, N)
         for sl in chunks(a.shape[0]):
             pmax, pmin = nb.gather_extrema_plain(idx[sl], a[sl])
             if not (torch.equal(kmax[sl], pmax) and torch.equal(kmin[sl], pmin)):
-                raise AssertionError("knn_gather_extrema: kernel differs from "
-                                     "the gather of the knn kernel's indices")
-            pidx = nb.knn_plain(xs[sl], xs[sl], K)
-            _, sets_differ, _, gap_rel = selection_gap(xs[sl], xs[sl], idx[sl], pidx)
-            layer_rel = max(layer_rel, gap_rel)
-            qmax, qmin = nb.knn_gather_extrema_plain(xs[sl], a[sl], K)
+                raise AssertionError(f"knn_gather_extrema at {cls}: kernel "
+                                     "differs from the gather of the knn "
+                                     "kernel's indices")
+            pidx = nb.knn_plain(xs[sl], xs[sl], K, cls)
+            _, sets_differ, _, gap_rel, gap_over = selection_gap(
+                xs[sl], xs[sl], idx[sl], pidx, width)
+            layer_rel, layer_over = max(layer_rel, gap_rel), max(layer_over,
+                                                                 gap_over)
+            qmax, qmin = nb.knn_gather_extrema_plain(xs[sl], a[sl], K, 2, cls)
             out_differ = ((qmax != kmax[sl]).any(-1) |
                           (qmin != kmin[sl]).any(-1))
             if bool((out_differ & ~sets_differ).any()):
-                raise AssertionError("knn_gather_extrema: rows differ from the "
-                                     "all-plain version where both select "
-                                     "the same neighbours")
+                raise AssertionError(f"knn_gather_extrema at {cls}: rows "
+                                     "differ from the all-plain version where "
+                                     "both select the same neighbours")
             out_rows += int(out_differ.sum())
             set_rows += int(sets_differ.sum())
+            exact_rows += int((idx[sl] != exact[sl]).any(-1).sum())
             rows += out_differ.numel()
             layer_abs = max(layer_abs, float((qmax - kmax[sl]).abs().max()),
                             float((qmin - kmin[sl]).abs().max()))
+        del idx, exact
         C = xs.shape[2]
-        if layer_rel > REL_LIMIT:
-            raise AssertionError(f"knn at C={C}: selected distances differ by "
-                                 f"{layer_rel} relative to |x|^2 "
-                                 f"(limit {REL_LIMIT})")
+        fault = selection_fault(xs, xs, K, cls)
+        check_gap_limit(f"knn at C={C} at {cls}", layer_over, fault)
         max_abs = max(max_abs, layer_abs)
-        t_k = cuda_ms(lambda: nb.knn_gather_extrema(xs, a, K))
-        t_p = cuda_ms(lambda: [nb.knn_gather_extrema_plain(xs[sl], a[sl], K)
-                               for sl in chunks(a.shape[0])], reps=1)
+        t_k = cuda_ms(lambda: nb.knn_gather_extrema(xs, a, K, select=select))
+        t_p = cuda_ms(lambda: [nb.knn_gather_extrema_plain(
+            xs[sl], a[sl], K, 2, cls) for sl in chunks(a.shape[0])],
+            reps=1)
         B, F = xs.shape[0], a.shape[2]
         b_ = B * N * C * 4 + B * N * F * 4 + 2 * B * N * F * 4
         # the work the data needs: a row that is a bit-for-bit copy of an
         # earlier row of its cloud takes that row's result
         queries = distinct_row_count(xs)
-        o_ = queries * (N * (2 * C + 3) + 2 * K * F)
-        every_ = B * N * (N * (2 * C + 3) + 2 * K * F)
-        details.append({"kernel": "knn_gather_extrema", "B": B, "N": N,
-                        "C": C, "F": F, "k": K, "ms": t_k, "plain_ms": t_p,
-                        "distinct_query_rows": queries / (B * N),
-                        "bound_ms": bound_ms(b_, o_)[0],
-                        "bound_f32_cores_ms": bound_ms(b_, every_)[0],
-                        "knn_max_rel_selected_dist_err": layer_rel,
-                        "rows_with_other_neighbour_set": set_rows / rows,
-                        "rows_differing_from_all_plain": out_rows / rows,
-                        "max_abs_diff_to_all_plain": layer_abs})
+        per_row = N * (2 * C + 3 + key_ops(cls)) + 2 * K * F
+        o_, every_ = queries * per_row, B * N * per_row
+        detail = {"kernel": row_name("knn_gather_extrema", cls), "B": B,
+                  "N": N, "C": C, "F": F, "k": K, "ms": t_k, "plain_ms": t_p,
+                  "distinct_query_rows": queries / (B * N),
+                  "bound_ms": bound_ms(b_, o_)[0],
+                  "bound_f32_cores_ms": bound_ms(b_, every_)[0],
+                  "knn_max_rel_selected_dist_err": layer_rel,
+                  "width": width, "gap_over_limit": layer_over,
+                  "fault_gap_over_limit": fault,
+                  "rows_with_other_neighbour_set": set_rows / rows,
+                  "rows_differing_from_all_plain": out_rows / rows,
+                  "max_abs_diff_to_all_plain": layer_abs,
+                  "duplicate_cloud_equal": True}
+        if cls != "exact":
+            detail["rows_differing_from_two_pass"] = exact_rows / rows
+        details.append(detail)
         ms, plain, nbytes, ops = ms + t_k, plain + t_p, nbytes + b_, ops + o_
         all_ops += every_
     # the distances are a blocked product on the f32 units (so that exact
@@ -988,7 +1186,7 @@ def check_pointconv_kernels(gr, fp, model, masked):
         for sl in chunks(xyz.shape[0]):
             pidx, pden, pdmax = gr.knn_with_density_plain(new_xyz[sl],
                                                           xyz[sl], inv[sl], k)
-            differ, sets_differ, g_abs, g_rel = selection_gap(
+            differ, sets_differ, g_abs, g_rel, _ = selection_gap(
                 new_xyz[sl], xyz[sl], idx[sl], pidx)
             same = ~differ
             if not (torch.equal(den[sl][same], pden[same]) and torch.equal(
@@ -2037,7 +2235,7 @@ def run_precision(device, ball_details, ck):
     main path's shapes, each family's Shapley values at those settings
     against the exact ones through the train phase's checkpoints (under
     ``ck``), and one train step at default.  Returns (record, kernels-line
-    rows, the checks that failed)."""
+    rows, the checks that failed, the models' states)."""
     import torch
     from interpret_quality_tpu_torch.ops.cuda import fps as fp
     from interpret_quality_tpu_torch.ops.cuda import groups as gr
@@ -2071,6 +2269,311 @@ def run_precision(device, ball_details, ck):
               "details": d2 + [d8] + d57,
               "seconds": time.perf_counter() - t0,
               "orders": PRECISION_ORDERS, "settings": PRECISION_SETTINGS}
+    return record, rows, failed + step_failed, states
+
+
+# --------------------------------------------------------------- selection
+@contextlib.contextmanager
+def knn_env(**settings):
+    """The kNN selection variables set for a block, unset after it."""
+    for key, value in settings.items():
+        os.environ[key] = value
+    try:
+        yield
+    finally:
+        for key in settings:
+            os.environ.pop(key, None)
+
+
+def check_truncation(nb, gr, device):
+    """JAX's truncation example through kernels 1 (one channel, as there)
+    and 6 (padded to 3 channels with zeros, which leaves every distance as
+    it was), each route forced, at every class: TRUNCATION_ORDER."""
+    import torch
+    x = torch.tensor(TRUNCATION_X, device=device)[None, :, None]
+    db3 = torch.cat([x, torch.zeros(1, 8, 2, device=device)], -1)
+    inv = torch.ones(1, 8, device=device)
+    got = {}
+    for cls, want in TRUNCATION_ORDER.items():
+        for rname in ("xyz", "tiled"):
+            route = nb.KNN_ROUTES[rname]
+            for kernel, idx in (
+                    ("knn", nb._knn(torch.zeros_like(x), x, 4, route, cls)),
+                    ("knn_with_density", gr._knn_with_density(
+                        torch.zeros_like(db3), db3, inv, 4, route, cls)[0])):
+                got[f"{kernel}:{cls}:{rname}"] = idx[0, 0].tolist()
+                if idx[0, 0].tolist() != want:
+                    raise AssertionError(f"{kernel} ({rname} route) at {cls} "
+                                         f"on the truncation example: "
+                                         f"{idx[0, 0].tolist()}, not {want}")
+    return got
+
+
+def check_nq_layout(nb, xs, a):
+    """IQTPU_KNN_LAYOUT=nq: kernel 3 through its wrapper takes the packed
+    class whatever IQTPU_KNN_SELECT says (the JAX package's nq twin sweeps
+    packed keys only), bit-equal to the packed launch, and counts as it."""
+    import torch
+    want = nb._knn_gather_extrema(xs, a, K, 2, "packed")
+    out = {}
+    for select in ("two_pass", "bf16", "packed"):
+        with knn_env(IQTPU_KNN_SELECT=select, IQTPU_KNN_LAYOUT="nq"):
+            before = nb.ROUTE_LAUNCHES["knn_gather_extrema:packed"]
+            got = nb.knn_gather_extrema(xs, a, K)
+            counted = nb.ROUTE_LAUNCHES["knn_gather_extrema:packed"] - before
+        if not (all(torch.equal(g, w) for g, w in zip(got, want))
+                and counted == 1):
+            raise AssertionError(f"knn_gather_extrema at layout nq with "
+                                 f"IQTPU_KNN_SELECT={select}: not the packed "
+                                 f"class ({counted} packed launches)")
+        out[select] = "packed"
+    return out
+
+
+def check_density_selection(gr, fp, model, masked, select, device):
+    """Kernel 6 at both PointConv levels at the setting ``select`` (its
+    class ``cls``): both routes forced bit-equal to each other and to the
+    route the shape takes; on an exact-duplicate cloud equal to its plain
+    version at the class; on the masked batch within selection_gap's row
+    limit of it, a planted fault beyond that limit, densities bit-equal
+    where the index rows are."""
+    import torch
+    from interpret_quality_tpu_torch.config import knn_select_class
+    from interpret_quality_tpu_torch.ops.geometry import (compute_density,
+                                                          index_points)
+    cls = knn_select_class(select)
+    ms = plain = nbytes = ops = max_abs = 0.0
+    levels = []
+    dup = duplicate_cloud(33, N, 3, 2, device)
+    for cloud_name, cloud in (("duplicate", dup), ("masked", masked)):
+        xyz = cloud
+        for level, sa in enumerate((model.sa1, model.sa2)):
+            inv = 1.0 / compute_density(xyz, sa.bandwidth)
+            new_xyz = index_points(xyz, fp.fps(xyz, sa.npoint))
+            k = sa.nsample
+            out = gr.knn_with_density(new_xyz, xyz, inv, k, select=select)
+            forced = route_outputs(lambda r: gr._knn_with_density(
+                new_xyz, xyz, inv, k, r, cls),
+                f"knn_with_density sa{level + 1} at {cls}")
+            if not all(torch.equal(a, b) for a, b in zip(forced, out)):
+                raise AssertionError(f"knn_with_density at {cls}: the route "
+                                     "the shape takes differs from the same "
+                                     "route forced")
+
+            def plain_on(sl):
+                return gr.knn_with_density_plain(new_xyz[sl], xyz[sl],
+                                                 inv[sl], k, cls)
+            if cloud_name == "duplicate":
+                if not all(torch.equal(a, b) for a, b in zip(
+                        out, plain_on(slice(None)))):
+                    raise AssertionError(f"knn_with_density sa{level + 1} at "
+                                         f"{cls}: differs from its plain "
+                                         "version on an exact-duplicate "
+                                         "cloud")
+                xyz = new_xyz
+                continue
+            exact = gr.knn_with_density(new_xyz, xyz, inv, k,
+                                        select="two_pass")[0]
+            g_abs, g_rel, over, fault, plain_share, exact_share, same = \
+                selection_rows(new_xyz, xyz, out[0],
+                               lambda sl: plain_on(sl)[0], exact, cls)
+            for sl, rows in zip(chunks(xyz.shape[0]), same):
+                if not torch.equal(out[1][sl][rows], plain_on(sl)[1][rows]):
+                    raise AssertionError(f"knn_with_density at {cls}: "
+                                         "densities differ where the "
+                                         "neighbours agree")
+            max_abs = max(max_abs, g_abs)
+            ms += cuda_ms(lambda: gr.knn_with_density(new_xyz, xyz, inv, k,
+                                                      select=select))
+            plain += cuda_ms(lambda: [plain_on(sl) for sl in
+                                      chunks(xyz.shape[0])], reps=1)
+            B, S, n = new_xyz.shape[0], new_xyz.shape[1], xyz.shape[1]
+            nbytes += (B * S * 3 + B * n * 3 + B * n + 2 * B * S * k
+                       + B * S) * 4
+            ops += distinct_row_count(new_xyz) * n * (2 * 3 + 3 + key_ops(cls))
+            levels.append({"level": level + 1, "S": S, "N": n, "k": k,
+                           "rows_differing_from_plain": plain_share,
+                           "rows_differing_from_two_pass": exact_share,
+                           "max_rel_selected_dist_err": g_rel,
+                           "width": selection_width(cls, n),
+                           "gap_over_limit": over,
+                           "fault_gap_over_limit": fault})
+            xyz = new_xyz
+    bound, by = bound_ms(nbytes, ops)
+    detail = {"kernel": row_name("knn_with_density", cls), "ms": ms,
+              "plain_ms": plain, "bound_ms": bound, "routes_bit_equal": True,
+              "duplicate_cloud_equal": True, "levels": levels}
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain, bound_ms=bound,
+                bound_by=by), detail
+
+
+def selection_shapley(device, states):
+    """Per family of SELECTION_FAMILIES, synthetic cloud 0's Shapley values
+    through the precision phase's models (``states``) at each setting of
+    SELECTION_SETTINGS (IQTPU_KNN_SELECT set for the run) against the exact
+    ones on the same regions and orders: the deviation over the estimator's
+    standard error must stay below 1, as in precision_shapley.  Each run
+    follows a one-chunk warm-up and is timed (forwards/s); the counts are
+    set to 0 just before each setting's runs and read just after.  Returns
+    (record, launches by class, the checks that failed)."""
+    import torch
+    from interpret_quality_tpu_torch.config import knn_select_class
+    from interpret_quality_tpu_torch.attrib.shapley import (
+        ShapleyEngine, generate_all_orders, region_id_from_fps)
+    from interpret_quality_tpu_torch.data.datasets import SyntheticClouds
+    from interpret_quality_tpu_torch.models import make_forward_fn
+    from interpret_quality_tpu_torch.ops.geometry import farthest_point_sample
+    data, label = SyntheticClouds(30, N, 10, seed=1)[0]
+    x = torch.from_numpy(data).to(device)
+    rid = region_id_from_fps(x, farthest_point_sample(x[None], R)[0]
+                             ).cpu().numpy()
+    orders = generate_all_orders(SELECTION_ORDERS, R,
+                                 rng=np.random.RandomState(6))
+    forwards = SELECTION_ORDERS * (R + 1)
+    classes = {select: knn_select_class(select)
+               for select in SELECTION_SETTINGS}
+    launches = {cls: {} for cls in classes.values()}
+    out, failed = {}, []
+
+    def run(model):
+        engine = ShapleyEngine(make_forward_fn(model), R,
+                               batch_orders=ORDERS, device=device)
+        engine.shapley_for_pose(data, label, rid, orders[:ORDERS])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sv, per = engine.shapley_for_pose(data, label, rid, orders,
+                                          return_per_order=True)
+        return sv, per, forwards / (time.perf_counter() - t0)
+    for name in SELECTION_FAMILIES:
+        model = model_from_state(name, states[name], device)
+        sv_e, per_e, rate_e = run(model)
+        se = per_e.std(0, ddof=1) / np.sqrt(SELECTION_ORDERS)
+        spread = np.sqrt((se ** 2).mean())
+        rec = {"two_pass_forwards_per_s": rate_e, "se_rms": float(spread),
+               "shapley_rms": float(np.sqrt((sv_e ** 2).mean()))}
+        for select, cls in classes.items():
+            with knn_env(IQTPU_KNN_SELECT=select):
+                reset_all_launches()
+                sv, per, rate = run(model)
+                for key, v in {**all_launches(), **route_launches()}.items():
+                    launches[cls][key] = launches[cls].get(key, 0) + v
+            dev = sv - sv_e
+            moved = np.sqrt((dev ** 2).mean())
+            ratio = float(moved / spread) if spread > 0 else (
+                0.0 if moved == 0 else np.inf)
+            if not ratio < 1.0:
+                failed.append(f"{name} Shapley values at {cls}: deviation "
+                              f"{ratio} of the estimator's standard error")
+            rec[cls] = {"forwards_per_s": rate, "deviation_over_se": ratio,
+                        "orders_moved": int((np.abs(per - per_e) > 0).any(
+                            -1).sum()),
+                        "max_abs_deviation": float(np.abs(dev).max())}
+        out[name] = rec
+        del model
+        torch.cuda.empty_cache()
+    need = ("knn", "knn_gather_extrema", "knn_with_density")
+    for cls in classes.values():
+        missing = [f"{k}:{cls}" for k in need
+                   if not launches[cls].get(f"{k}:{cls}")]
+        stray = [k for k, v in launches[cls].items()
+                 if v and ":" in k and not k.endswith(f":{cls}")]
+        if missing or stray:
+            failed.append(f"the {cls} runs launched {launches[cls]}: missing "
+                          f"{missing}, other routes {stray}")
+    out["launches"] = {cls: {k: v for k, v in c.items() if v}
+                       for cls, c in launches.items()}
+    return out, launches, failed
+
+
+def selection_train_step(device):
+    """One DGCNN train step (dropouts off, a grid batch at N points) with
+    IQTPU_KNN_SELECT=packed against the same step without it, from the same
+    weights, with deterministic algorithms on: the training graphs are
+    exact at every setting, so no route of another class may launch and
+    the loss, logits, gradients and running statistics must be bit-equal.
+    The step without the variable runs twice (the second a control of the
+    step's own determinism)."""
+    import torch
+    x, labels = grid_batch(N, 0)
+    x = torch.from_numpy(x).to(device)
+    labels = torch.from_numpy(labels).to(device)
+
+    def step():
+        model = dropouts_off(seeded_model("dgcnn", device).train())
+        loss, logits = one_train_step("dgcnn", model, x, labels)
+        return [loss, logits] + [p.grad for p in model.parameters()] + [
+            b for n, b in model.named_buffers()
+            if n.endswith(("running_mean", "running_var"))]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        reset_all_launches()
+        exact = step()
+        control = step()
+        with knn_env(IQTPU_KNN_SELECT="packed"):
+            packed = step()
+        routes = {k: v for k, v in route_launches().items() if v}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    rec = {"control_bit_equal": all(torch.equal(a, b)
+                                    for a, b in zip(exact, control)),
+           "packed_bit_equal": all(torch.equal(a, b)
+                                   for a, b in zip(exact, packed)),
+           "tensors": len(exact), "knn_launches": all_launches()["knn"],
+           "route_launches": routes}
+    failed = []
+    if not rec["control_bit_equal"]:
+        failed.append(f"a DGCNN train step differs from itself run again: "
+                      f"{rec}")
+    if routes or not rec["packed_bit_equal"]:
+        failed.append(f"a DGCNN train step with IQTPU_KNN_SELECT=packed: "
+                      f"{rec}")
+    return rec, failed
+
+
+def run_selection(device, states):
+    """The selection phase, after the precision phase (whose trained-on
+    models, ``states``, it reuses): kernels 1, 3 and 6 at each setting of
+    SELECTION_SETTINGS at the main path's shapes, the truncation example,
+    the nq layout, the Shapley values of SELECTION_FAMILIES at each
+    setting, and a DGCNN train step with the variable set.  Returns
+    (record, kernels-line rows by kernel and class, the checks that
+    failed)."""
+    import torch
+    from interpret_quality_tpu_torch.config import knn_select_class
+    from interpret_quality_tpu_torch.ops.cuda import fps as fp
+    from interpret_quality_tpu_torch.ops.cuda import groups as gr
+    from interpret_quality_tpu_torch.ops.cuda import neighbors as nb
+    t0 = time.perf_counter()
+    masked = coalition_batch(device)
+    numbers, details = {}, []
+    with torch.inference_mode():
+        truncation = check_truncation(nb, gr, device)
+        layers = layer_inputs(masked, device)["dgcnn"][0]
+        nq = check_nq_layout(nb, *layers[1])
+        pconv = seeded_model("pointconv", device)
+        for select in SELECTION_SETTINGS:
+            cls = knn_select_class(select)
+            _, numbers[f"knn:{cls}"], d1 = check_knn(nb, masked, device,
+                                                     select)
+            numbers[f"knn_gather_extrema:{cls}"], d3 = check_fused(
+                nb, layers, select)
+            numbers[f"knn_with_density:{cls}"], d6 = check_density_selection(
+                gr, fp, pconv, masked, select, device)
+            details += d1 + d3 + [d6]
+            torch.cuda.empty_cache()
+        del layers, pconv, masked
+        torch.cuda.empty_cache()
+    kernel_s = time.perf_counter() - t0
+    shapley, launches, failed = selection_shapley(device, states)
+    train, step_failed = selection_train_step(device)
+    torch.cuda.empty_cache()
+    rows = {name: (row, launches[name.split(":")[1]].get(name, 0))
+            for name, row in numbers.items()}
+    record = {"kernel_checks_s": kernel_s, "truncation": truncation,
+              "nq_layout": nq, "shapley": shapley,
+              "train_step_packed": train, "details": details,
+              "seconds": time.perf_counter() - t0,
+              "orders": SELECTION_ORDERS, "settings": SELECTION_SETTINGS}
     return record, rows, failed + step_failed
 
 
@@ -2553,9 +3056,9 @@ def feature_knn_margin(name, x):
     from interpret_quality_tpu_torch.models import dgcnn
     rows, original = [], dgcnn.knn
 
-    def knn(query, database, k):
+    def knn(query, database, k, select=None):
         rows.append(query.detach().double())
-        return original(query, database, k)
+        return original(query, database, k, select=select)
     dgcnn.knn = knn
     try:
         model = dropouts_off(seeded_model(name, "cpu").train())
@@ -3260,8 +3763,8 @@ def recorded_step(model, name):
                if isinstance(m, Dropout)]
     original = dgcnn.knn
 
-    def knn(query, database, k):
-        idx = original(query, database, k)
+    def knn(query, database, k, select=None):
+        idx = original(query, database, k, select=select)
         rec["knn"].append((query.detach().cpu(), idx.cpu()))
         return idx
     if name == "dgcnn":
@@ -3413,8 +3916,8 @@ def dgcnn_excused_clouds(ranks, ref):
         for b in differ.nonzero().flatten().tolist():
             if b in excused:
                 continue
-            _, _, _, rel = selection_gap(query[b:b + 1], query[b:b + 1],
-                                         got[b:b + 1], idx[b:b + 1])
+            rel = selection_gap(query[b:b + 1], query[b:b + 1],
+                                got[b:b + 1], idx[b:b + 1])[3]
             if rel > REL_LIMIT:
                 raise AssertionError(f"dgcnn DP step: cloud {b} selects "
                                      f"other neighbours at kNN call {call}, "
@@ -3967,6 +4470,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         log("no CUDA device: this script measures the port on an NVIDIA GPU")
         return 2
+    for key in SELECTION_ENV:       # every phase at the port's defaults
+        if os.environ.pop(key, None) is not None:
+            log(f"{key} unset: the script runs at the port's defaults")
     sys.path.insert(0, REPO)
     from interpret_quality_tpu_torch.ops.cuda import build
     from interpret_quality_tpu_torch.ops.cuda import fps as fp
@@ -4059,8 +4565,12 @@ def main() -> int:
             train = run_train(train_dir, device)
             train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
             torch.cuda.empty_cache()
-            precision, precision_rows, precision_failed = run_precision(
-                device, d5, os.path.join(train_dir, "ck"))
+            precision, precision_rows, precision_failed, states = \
+                run_precision(device, d5, os.path.join(train_dir, "ck"))
+            torch.cuda.empty_cache()
+            selection, sel_rows, selection_failed = run_selection(
+                device, states)
+            del states
             torch.cuda.empty_cache()
             adversarial, adv_launches = run_adversarial(
                 train_dir, device,
@@ -4075,6 +4585,9 @@ def main() -> int:
     emit({"phase": "precision", **precision, "nvidia_smi": smi})
     if precision_failed:        # after the record: every number first
         raise AssertionError("precision phase: " + "; ".join(precision_failed))
+    emit({"phase": "selection", **selection, "nvidia_smi": smi})
+    if selection_failed:
+        raise AssertionError("selection phase: " + "; ".join(selection_failed))
     emit({"phase": "adversarial", **adversarial, "nvidia_smi": smi,
           "cuts": ADV_CUTS})
     emit({"phase": "adv_robustness", **robustness, "cuts": ROBUST_CUTS})
@@ -4143,7 +4656,13 @@ def main() -> int:
          "source": src(ROUTE_SOURCES[kname.split(":")[0]][0]),
          "replaces": pallas + ROUTE_SOURCES[kname.split(":")[0]][1],
          "launches": n, "launches_in": "precision phase", **numbers}
-        for kname, (numbers, n) in precision_rows.items()]})
+        for kname, (numbers, n) in precision_rows.items()] + [
+        {"name": kname, "route": "cuda",
+         "source": src(ROUTE_SOURCES[kname.split(":")[0]][0]),
+         "replaces": pallas + ROUTE_SOURCES[kname.split(":")[0]][1],
+         "launches": n, "launches_in": "selection phase", "library_ms": None,
+         **numbers}
+        for kname, (numbers, n) in sel_rows.items()]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -15,6 +15,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import config
 from ..config import ExperimentConfig
 from ..models.common import resolve_device
 from ..models.plans import plan_modes_for
@@ -146,8 +147,9 @@ def run_enum(cfg: ExperimentConfig, mode_name: str, synthetic: bool = False,
              trace_dir: Optional[str] = None):
     """Recompute Shapley values at every pose of a perturbation grid.
 
-    Where ``models.plans.PLAN_MODES`` allows it for (model, mode), the graph
-    is built once per order chunk and reused for every pose
+    Where ``models.plans.PLAN_MODES`` allows it for (model, mode), and
+    ``IQTPU_ENUM_PLAN`` is not 0 (``config.enum_plan``), the graph is built
+    once per order chunk and reused for every pose
     (``ShapleyEngine.enum_all_poses_plan``); otherwise it is rebuilt in every
     forward (``enum_all_poses``).  ``coalition_devices`` and ``trace_dir``
     as in ``run_shapley_init`` (a trace of each cloud's pose grid)."""
@@ -160,7 +162,7 @@ def run_enum(cfg: ExperimentConfig, mode_name: str, synthetic: bool = False,
     all_params = mode.generate_params()                 # (P, 3) or (P,)
     if max_poses is not None:
         all_params = all_params[:max_poses]
-    use_plan = mode_name in plan_modes_for(cfg.model)
+    use_plan = mode_name in plan_modes_for(cfg.model) and config.enum_plan()
 
     indices = sample_indices if sample_indices is not None else range(len(dataset))
     for pc_index in indices:

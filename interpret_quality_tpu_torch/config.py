@@ -9,13 +9,20 @@ settings of the JAX package are here with their choices, but the port's
 defaults are the exact ones (``highest`` products, ``hilo`` gathers: f32 on
 the card), where the JAX package's are ``default`` / ``bf16``; they govern
 the card only (``models/common.py`` lists every product and its rule).
-Left out: the pose-chunk knob of the one-dispatch enumeration (a forward
-of eight PointNet poses would need more activation memory than the card
-has); the enumeration forwards one pose at a time.
+The JAX package's kNN selection settings (``IQTPU_KNN_SELECT``,
+``IQTPU_KNN_LAYOUT``) and its enumeration-plan switch (``IQTPU_ENUM_PLAN``)
+are read from the environment at call time, as there; the port's default
+selection is the exact one (``two_pass``), where the JAX package's is
+``packed``, and it too governs the card only.  Left out: the pose-chunk
+knob of the one-dispatch enumeration (a forward of eight PointNet poses
+would need more activation memory than the card has) and its pose blocks
+(``IQTPU_ENUM_POSE_BLOCK``, which group poses into dispatches for the TPU
+host); the enumeration forwards one pose at a time.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 # ---------------------------------------------------------------------------
@@ -126,6 +133,73 @@ def set_gather_value_parts(parts: int) -> None:
 
 def gather_value_parts() -> int:
     return _GATHER_VALUE_PARTS
+
+
+# ---------------------------------------------------------------------------
+# kNN selection settings (the JAX package's IQTPU_KNN_SELECT and
+# IQTPU_KNN_LAYOUT, ops/pallas/neighbors.py knn_select_impl and
+# knn_layout_impl), read from the environment at every call.  The six
+# selection names fall into three classes, each an exact (key, index)
+# selection, ties to the lowest index, on a key made from the f32 distance
+# (``ops.precision.selection_keys``):
+#   exact   the distance itself (two_pass, argmin);
+#   packed  the distance clamped at +0 with the low b bits of its pattern
+#           cleared, b = (N - 1).bit_length() for N database rows:
+#           distances whose bits agree above the low b tie, so ties reach
+#           2^b ulps (packed, succ, hier);
+#   bf16    the distance rounded to bf16, to nearest even: distances that
+#           round alike tie, so ties reach 2^-7 of a distance (bf16).
+# Kernel 3 at layout nq (the JAX package's transposed twin) always takes the
+# packed class.  Unlike the JAX package, which takes an unknown name for
+# two_pass, an unknown name raises.
+# ---------------------------------------------------------------------------
+KNN_SELECT_CLASSES = {"two_pass": "exact", "argmin": "exact",
+                      "packed": "packed", "succ": "packed", "hier": "packed",
+                      "bf16": "bf16"}
+KNN_LAYOUTS = ("qn", "nq")
+KNN_KERNELS = ("knn", "knn_gather_extrema", "knn_with_density")
+
+
+def knn_select() -> str:
+    """The process's kNN selection setting (IQTPU_KNN_SELECT; the port's
+    default is two_pass, the JAX package's packed)."""
+    select = os.environ.get("IQTPU_KNN_SELECT", "two_pass")
+    if select not in KNN_SELECT_CLASSES:
+        raise ValueError(f"IQTPU_KNN_SELECT={select!r}: not one of "
+                         f"{sorted(KNN_SELECT_CLASSES)}")
+    return select
+
+
+def knn_layout() -> str:
+    """The process's distance-tile layout of kernel 3 (IQTPU_KNN_LAYOUT)."""
+    layout = os.environ.get("IQTPU_KNN_LAYOUT", "qn")
+    if layout not in KNN_LAYOUTS:
+        raise ValueError(f"IQTPU_KNN_LAYOUT={layout!r}: not one of "
+                         f"{KNN_LAYOUTS}")
+    return layout
+
+
+def knn_select_class(select: str, layout: str = "qn",
+                     kernel: str = "knn") -> str:
+    """The selection class (exact, packed or bf16) that ``kernel`` computes
+    at the setting ``select`` and kernel 3's ``layout``."""
+    if select not in KNN_SELECT_CLASSES:
+        raise ValueError(f"unknown kNN selection {select!r}: not one of "
+                         f"{sorted(KNN_SELECT_CLASSES)}")
+    if layout not in KNN_LAYOUTS:
+        raise ValueError(f"unknown kNN layout {layout!r}: not one of "
+                         f"{KNN_LAYOUTS}")
+    if kernel not in KNN_KERNELS:
+        raise ValueError(f"unknown kNN kernel {kernel!r}")
+    if kernel == "knn_gather_extrema" and layout == "nq":
+        return "packed"         # the nq twin sweeps packed keys only
+    return KNN_SELECT_CLASSES[select]
+
+
+def enum_plan() -> bool:
+    """Whether the enumeration reuses each family's pose-invariant graph
+    plan (IQTPU_ENUM_PLAN; 0 rebuilds the graph at every pose)."""
+    return os.environ.get("IQTPU_ENUM_PLAN", "1") != "0"
 
 
 def shapley_batch_size(model: str) -> int:

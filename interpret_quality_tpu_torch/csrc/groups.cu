@@ -22,11 +22,13 @@
 // None of the TPU workarounds are carried over: rows are gathered directly
 // (no one-hot matmuls, no bf16 hi/lo planes; at the bf16 gather precision
 // the callers hand over values rounded to bf16, which is what the TPU's one
-// bf16 plane gives) and the kNN keeps exact f32 distances with ties to the
+// bf16 plane gives) and the kNN keeps f32 distances with ties to the
 // lowest index (the xyz route of knn_xyz.cuh or the tiled select_knn, both
-// shared with neighbors.cu).  iq_ball_mlp3 and iq_pointconv_sa run their
-// layers 2 and 3 on the tensor cores through one piece of code
-// (order_weights_kernel, WeightRing, mma_layer, mlp_layers23; see
+// shared with neighbors.cu), compared as the keys of the launch's selection
+// class (exact, packed or bf16: knn_select.cuh select_key).  iq_ball_mlp3
+// and iq_pointconv_sa run their layers 2 and 3 on the tensor cores through
+// one piece of code (order_weights_kernel, WeightRing, mma_layer,
+// mlp_layers23; see
 // iq_ball_mlp3), at the matmul precision `prec` a template parameter: at
 // kPrecHighest a three-product TF32 split that keeps f32 accuracy, at
 // kPrecHigh one product of operands rounded to TF32, at kPrecDefault one
@@ -625,18 +627,19 @@ ball_mlp3_kernel(const float* __restrict__ new_xyz, const float* __restrict__ xy
 // (knn_density_kernel, select_knn itself), each templated on the list
 // length (k = 32 at PointConv SA1, 64 at SA2), so the indices are those of
 // iq_knn bit for bit.  A warp per query then reads its neighbours' inverse
-// densities from device memory and reduces their max.
-template <int KL>
+// densities from device memory and reduces their max.  kKeyed: the packed
+// or bf16 class.
+template <int KL, bool kKeyed>
 __global__ void __launch_bounds__(kSelThreads, KL == 1 ? 2 : 1)
 knn_density_kernel(const float* __restrict__ query, const float* __restrict__ db,
                    const float* __restrict__ invden, int32_t* __restrict__ oidx,
                    float* __restrict__ oden, float* __restrict__ odmax, int S, int N,
-                   int C, int k, int nqb) {
+                   int C, int k, int nqb, SelectKey key) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.x / nqb;
   const int q0 = (blockIdx.x - b * nqb) * kQueries;
-  const int* li = select_knn<KL>(query + (size_t)b * S * C, nullptr,
-                                 db + (size_t)b * N * C, S, N, C, k, q0, smem);
+  const int* li = select_knn<KL, kKeyed>(query + (size_t)b * S * C, nullptr,
+                                         db + (size_t)b * N * C, S, N, C, k, q0, key, smem);
   const float* iv = invden + (size_t)b * N;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nq = min(kQueries, S - q0);
@@ -661,20 +664,20 @@ knn_density_kernel(const float* __restrict__ query, const float* __restrict__ db
 // centre once a masked cloud has fewer distinct points than centres, and a
 // copy takes its original's result (copy_duplicate_rows).  rows == nullptr:
 // every query row, in order.
-template <int KL, int M, int NPL>
+template <int KL, int M, int NPL, bool kKeyed>
 __global__ void __launch_bounds__(kXyzThreads, 4)
 knn_density_xyz_kernel(const float* __restrict__ query, const float* __restrict__ db,
                        const float* __restrict__ invden, const int* __restrict__ rows,
                        const int* __restrict__ nrows, int32_t* __restrict__ oidx,
                        float* __restrict__ oden, float* __restrict__ odmax, int S, int N,
-                       int C, int k, int nqb) {
+                       int C, int k, int nqb, SelectKey key) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.x / nqb;
   const int q0 = (blockIdx.x - b * nqb) * kXyzQueries;
   const int ns = rows ? nrows[b] : S;         // distinct query rows of this cloud
   if (q0 >= ns) return;
   float* buffers;
-  const XyzCloud cl = xyz_stage(db + (size_t)b * N * C, N, C, smem, &buffers);
+  const XyzCloud cl = xyz_stage(db + (size_t)b * N * C, N, C, key, smem, &buffers);
   const float* iv = invden + (size_t)b * N;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int qend = min(q0 + kXyzQueries, ns);
@@ -682,8 +685,8 @@ knn_density_xyz_kernel(const float* __restrict__ query, const float* __restrict_
     const size_t row = (size_t)b * S + (rows ? rows[(size_t)b * S + r] : r);
     float vd[KL];
     int vi[KL];
-    xyz_select<KL, M, NPL>(cl, query + row * C, k, buffers + warp * 2 * kXyzBuffer, lane, vd,
-                           vi);
+    xyz_select<KL, M, NPL, kKeyed>(cl, query + row * C, k, buffers + warp * 2 * kXyzBuffer,
+                                   lane, vd, vi);
     float mx = -CUDART_INF_F;
 #pragma unroll
     for (int s = 0; s < KL; ++s) {
@@ -701,17 +704,28 @@ knn_density_xyz_kernel(const float* __restrict__ query, const float* __restrict_
   }
 }
 
-// The instance of knn_density_xyz_kernel for (N, k): the list's registers a
-// lane (k <= 32: 1, else 2), the keys a lane hands the first list and the
-// candidates it keeps in registers.
+// The instance of knn_density_xyz_kernel for (N, k, class): the list's
+// registers a lane (k <= 32: 1, else 2), the keys a lane hands the first
+// list, the candidates it keeps in registers, and whether the distances
+// become keys (the packed and bf16 classes).
 using KnnDensityXyz = void (*)(const float*, const float*, const float*, const int*,
-                               const int*, int32_t*, float*, float*, int, int, int, int, int);
-inline KnnDensityXyz knn_density_xyz_launcher(int N, int k) {
+                               const int*, int32_t*, float*, float*, int, int, int, int, int,
+                               SelectKey);
+template <bool kKeyed>
+inline KnnDensityXyz knn_density_xyz_instance(int N, int k) {
   const bool small = xyz_small(N);
-  if (k > 32) return small ? knn_density_xyz_kernel<2, 2, 16> : knn_density_xyz_kernel<2, 2, 32>;
+  if (k > 32)
+    return small ? knn_density_xyz_kernel<2, 2, 16, kKeyed>
+                 : knn_density_xyz_kernel<2, 2, 32, kKeyed>;
   if (xyz_deep(k))
-    return small ? knn_density_xyz_kernel<1, 2, 16> : knn_density_xyz_kernel<1, 2, 32>;
-  return small ? knn_density_xyz_kernel<1, 1, 16> : knn_density_xyz_kernel<1, 1, 32>;
+    return small ? knn_density_xyz_kernel<1, 2, 16, kKeyed>
+                 : knn_density_xyz_kernel<1, 2, 32, kKeyed>;
+  return small ? knn_density_xyz_kernel<1, 1, 16, kKeyed>
+               : knn_density_xyz_kernel<1, 1, 32, kKeyed>;
+}
+inline KnnDensityXyz knn_density_xyz_launcher(int N, int k, int sel) {
+  return sel == kSelExact ? knn_density_xyz_instance<false>(N, k)
+                          : knn_density_xyz_instance<true>(N, k);
 }
 
 // --------------------------------------------------------- iq_pointconv_sa
@@ -1180,13 +1194,16 @@ int iq_ball_mlp3(const float* new_xyz, const float* xyz, const float* uf, const 
 // one (a forced xyz route on a shape it does not take is refused).
 // scratch: B * (2 * S + 1) ints of device memory (see DistinctRows), with
 // which the xyz route selects for the distinct query rows only; nullptr
-// (or S > kMaxDistinctRows): for every row.
+// (or S > kMaxDistinctRows): for every row.  sel: the selection class,
+// kSelExact, kSelPacked or kSelBf16 (knn_select.cuh).
 int iq_knn_density(const float* query, const float* db, const float* invden, int32_t* idx,
                    float* den, float* dmax, int* scratch, int B, int S, int N, int C, int k,
-                   int route, void* stream) {
+                   int route, int sel, void* stream) {
   if (B <= 0 || S <= 0) return cudaSuccess;
-  if (k < 1 || k > kMaxDensityK || k > N || C < 1 || route < 0 || route > kTiledRoute)
+  if (k < 1 || k > kMaxDensityK || k > N || C < 1 || route < 0 || route > kTiledRoute ||
+      !select_key_valid(sel))
     return cudaErrorInvalidValue;
+  const SelectKey key = select_key_for(sel, N);
   if (route == 0) route = knn_route(N, C);
   if (route == kXyzRoute && !xyz_fits(N, C)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1197,11 +1214,11 @@ int iq_knn_density(const float* query, const float* db, const float* invden, int
     const bool distinct = scratch != nullptr && S <= kMaxDistinctRows;
     const DistinctRows d(scratch, B, S);
     if (distinct && (err = distinct_rows(query, d, B, S, C, s)) != cudaSuccess) return err;
-    const KnnDensityXyz kernel = knn_density_xyz_launcher(N, k);
+    const KnnDensityXyz kernel = knn_density_xyz_launcher(N, k, sel);
     if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
     kernel<<<(unsigned)B * nqb, kXyzThreads, smem, s>>>(
         query, db, invden, distinct ? d.rows : nullptr, distinct ? d.nrows : nullptr, idx, den,
-        dmax, S, N, C, k, nqb);
+        dmax, S, N, C, k, nqb, key);
     if ((err = cudaGetLastError()) != cudaSuccess || !distinct) return err;
     if ((err = copy_duplicate_rows(d, reinterpret_cast<float*>(idx), den, B, S, k, s)) !=
         cudaSuccess)
@@ -1210,17 +1227,14 @@ int iq_knn_density(const float* query, const float* db, const float* invden, int
   }
   const int nqb = (S + kQueries - 1) / kQueries;
   const dim3 grid((unsigned)B * nqb);
-  if (k <= 32) {
-    const size_t smem = select_smem_floats(1) * sizeof(float);
-    if ((err = prepare(knn_density_kernel<1>, smem)) != cudaSuccess) return err;
-    knn_density_kernel<1><<<grid, kSelThreads, smem, s>>>(query, db, invden, idx, den, dmax,
-                                                          S, N, C, k, nqb);
-  } else {
-    const size_t smem = select_smem_floats(2) * sizeof(float);
-    if ((err = prepare(knn_density_kernel<2>, smem)) != cudaSuccess) return err;
-    knn_density_kernel<2><<<grid, kSelThreads, smem, s>>>(query, db, invden, idx, den, dmax,
-                                                          S, N, C, k, nqb);
-  }
+  const bool keyed = sel != kSelExact;
+  const auto kernel =
+      k <= 32 ? (keyed ? knn_density_kernel<1, true> : knn_density_kernel<1, false>)
+              : (keyed ? knn_density_kernel<2, true> : knn_density_kernel<2, false>);
+  const size_t smem = select_smem_floats(k <= 32 ? 1 : 2) * sizeof(float);
+  if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
+  kernel<<<grid, kSelThreads, smem, s>>>(query, db, invden, idx, den, dmax, S, N, C, k, nqb,
+                                         key);
   return cudaGetLastError();
 }
 
@@ -1230,10 +1244,11 @@ int iq_knn_density_route(int N, int C, int k, int* info) {
   if (k < 1 || k > kMaxDensityK || k > N || C < 1) return cudaErrorInvalidValue;
   info[0] = knn_route(N, C);
   if (info[0] == kXyzRoute)
-    return kernel_info(knn_density_xyz_launcher(N, k), kXyzThreads, xyz_smem_bytes(N, C), info);
-  return k <= 32 ? kernel_info(knn_density_kernel<1>, kSelThreads,
+    return kernel_info(knn_density_xyz_launcher(N, k, kSelExact), kXyzThreads,
+                       xyz_smem_bytes(N, C), info);
+  return k <= 32 ? kernel_info(knn_density_kernel<1, false>, kSelThreads,
                                select_smem_floats(1) * sizeof(float), info)
-                 : kernel_info(knn_density_kernel<2>, kSelThreads,
+                 : kernel_info(knn_density_kernel<2, false>, kSelThreads,
                                select_smem_floats(2) * sizeof(float), info);
 }
 

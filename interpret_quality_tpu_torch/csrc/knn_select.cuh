@@ -10,6 +10,14 @@
 // neighbours calls select_knn or xyz_select, so their indices agree bit for
 // bit.
 //
+// The selection class (sel: exact, packed, bf16; the JAX package's
+// IQTPU_KNN_SELECT, config.knn_select_class) changes only what is compared:
+// select_key turns each distance into its class's key where the distance's
+// last rounding step ends, before any comparison, and everything after it
+// orders keys exactly as it ordered distances.  Identical database rows
+// still get bit-identical keys, so both rules below, and the distinct-row
+// pass, hold at every class.
+//
 // The tie rule rests on two things:
 //   1. a (query, database row) distance is one fixed instruction sequence
 //      (an fmaf chain over the channels in ascending order, from 0), so
@@ -29,11 +37,51 @@
 //      index), compared lexicographically, which gives the same order.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
 namespace {
+
+// The selection classes (the sel argument of iq_knn, iq_knn_gather_extrema
+// and iq_knn_density; SELECT_CODES in ops/cuda/neighbors.py).
+constexpr int kSelExact = 0;         // the distance itself
+constexpr int kSelPacked = 1;        // the distance's bits, low b cleared
+constexpr int kSelBf16 = 2;          // the distance rounded to bf16
+
+// A launch's selection class and, for the packed class, the mask of the
+// low b = bit_length(N - 1) bits of a distance's pattern (N database rows):
+// the JAX package's packed key (bits & ~mask) | column orders as the key
+// (bits & ~mask), then the column, which is the (key, index) order here.
+struct SelectKey {
+  int cls;
+  int mask;
+};
+
+inline bool select_key_valid(int sel) { return sel >= kSelExact && sel <= kSelBf16; }
+
+inline SelectKey select_key_for(int sel, int N) {
+  int b = 0;
+  while (b < 31 && (1 << b) < N) ++b;            // bit_length(N - 1)
+  return SelectKey{sel, (1 << b) - 1};
+}
+
+// The key of a distance at the launch's class, in integer and conversion
+// operations only: packed clamps negatives to +0 (as jnp.maximum(d, 0))
+// and clears the mask's bits; bf16 rounds to nearest even and widens back.
+// Both routes have instances without the key (kKeyed false) for the exact
+// class, so that its distances pay no test of the class.
+template <bool kKeyed>
+__device__ __forceinline__ float select_key(float d, SelectKey key) {
+  if (!kKeyed) return d;
+  if (key.cls == kSelPacked) {
+    const int bits = __float_as_int(d);
+    return __int_as_float((bits < 0 ? 0 : bits) & ~key.mask);
+  }
+  if (key.cls == kSelBf16) return __bfloat162float(__float2bfloat16_rn(d));
+  return d;
+}
 
 constexpr int kSelThreads = 256;     // threads per block of the selection kernels
 constexpr int kQueries = 128;        // queries per block
@@ -293,8 +341,10 @@ __device__ __forceinline__ void list_insert(float (&vd)[KL], int (&vi)[KL], floa
   }
 }
 
-// Exact kNN of queries [q0, q0 + kQueries) of the S listed in qrows (rows of
-// `query`; nullptr: its first S rows) against one cloud's database rows.
+// Exact kNN, on the keys of the class `key` (kKeyed: the packed or bf16
+// class; else the distances themselves), of queries [q0, q0 + kQueries) of
+// the S listed in qrows (rows of `query`; nullptr: its first S rows)
+// against one cloud's database rows.
 // On return (after a __syncthreads) the sorted indices of query q0 + r are
 // li[r * KL * 32 + 0..k-1]; the function returns li.  k <= KL * 32, k <= N.
 //
@@ -315,11 +365,12 @@ __device__ __forceinline__ void list_insert(float (&vd)[KL], int (&vi)[KL], floa
 // register (list_insert); a warp runs two queries' chains side by side.
 // No lane waits on another query's insertion.  The (N, N) distances never
 // reach device memory.
-template <int KL>
+template <int KL, bool kKeyed>
 __device__ __forceinline__ int* select_knn(const float* __restrict__ query,
                                            const int* __restrict__ qrows,
                                            const float* __restrict__ db, int S, int N,
-                                           int C, int k, int q0, float* smem) {
+                                           int C, int k, int q0, SelectKey key,
+                                           float* smem) {
   float* chunk = smem;
   float* dist = chunk + 2 * kChunkRows * kChunkStride;
   float* q2s = dist + kQueries * kDistStride;
@@ -405,14 +456,16 @@ __device__ __forceinline__ int* select_knn(const float* __restrict__ query,
         d2s[tid - kQueries] = norm;
       }
       __syncthreads();
-      // (|q|^2 - 2 q.d) + |d|^2, rounded step by step (no contraction)
+      // (|q|^2 - 2 q.d) + |d|^2, rounded step by step (no contraction),
+      // then its class's key
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const float q2 = q2s[ty + 16 * i];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int cj = tx + 16 * j;
-          const float d = __fadd_rn(__fsub_rn(q2, __fmul_rn(2.f, acc[i][j])), d2s[cj]);
+          const float d = select_key<kKeyed>(
+              __fadd_rn(__fsub_rn(q2, __fmul_rn(2.f, acc[i][j])), d2s[cj]), key);
           dist[(ty + 16 * i) * kDistStride + cj] = t * kCands + cj < N ? d : CUDART_INF_F;
         }
       }

@@ -49,9 +49,13 @@
 //
 // A distance is the instruction sequence of knn_select.cuh's rule 1: the
 // dot product and both norms one explicit fmaf chain over the channels from
-// 0.f, then (|q|^2 - 2 q.d) + |d|^2 rounded step by step.  Channels beyond C
-// would add fmaf(0, 0, x) = x (x is never -0 here), so the distances, and
-// with equal distances the indices, are bit-equal to the tiled route's.
+// 0.f, then (|q|^2 - 2 q.d) + |d|^2 rounded step by step, then, in the
+// instances for the packed and bf16 classes (kKeyed), its class's key
+// (select_key) on the whole distance, never on a part of it.  The exact
+// class has instances of its own, as on the tiled route: the class's test
+// in the candidate loop cost kernel 1 13% on an H100 (PERF.md).  Channels beyond C would add
+// fmaf(0, 0, x) = x (x is never -0 here), so the distances, and with equal
+// distances the indices, are bit-equal to the tiled route's.
 #pragma once
 
 #include <climits>
@@ -165,13 +169,14 @@ struct XyzCloud {
   const float4* rows;    // (x, y, z, |d|^2), or (x, y, z, w) at C = 4
   const float* norms;    // |d|^2 at C = 4
   int N, C;
+  SelectKey key;         // the selection class of the launch
 };
 
 // Stage db (N rows of C floats) into shared memory; every thread of the
 // block calls it, and it ends with the block's one barrier.  Returns the
 // staged cloud and, through buffer, where the survivor buffers start.
 __device__ __forceinline__ XyzCloud xyz_stage(const float* __restrict__ db, int N, int C,
-                                              float* smem, float** buffer) {
+                                              SelectKey key, float* smem, float** buffer) {
   float4* rows = reinterpret_cast<float4*>(smem);
   float* norms = smem + (size_t)4 * N;
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
@@ -192,10 +197,12 @@ __device__ __forceinline__ XyzCloud xyz_stage(const float* __restrict__ db, int 
   }
   *buffer = smem + (size_t)N * (C == 4 ? 5 : 4);
   __syncthreads();
-  return XyzCloud{rows, norms, N, C};
+  return XyzCloud{rows, norms, N, C, key};
 }
 
-// Distance of candidate c to the query (q, q2): knn_select.cuh's rule 1.
+// The key of candidate c for the query (q, q2): knn_select.cuh's rule 1,
+// then, if kKeyed, select_key.
+template <bool kKeyed>
 __device__ __forceinline__ float xyz_distance(const XyzCloud& cl, float4 q, float q2, int c) {
   const float4 r = cl.rows[c];
   float dot = fmaf(q.x, r.x, 0.f);
@@ -206,7 +213,8 @@ __device__ __forceinline__ float xyz_distance(const XyzCloud& cl, float4 q, floa
     dot = fmaf(q.w, r.w, dot);
     d2 = cl.norms[c];
   }
-  return __fadd_rn(__fsub_rn(q2, __fmul_rn(2.f, dot)), d2);
+  const float d = __fadd_rn(__fsub_rn(q2, __fmul_rn(2.f, dot)), d2);
+  return select_key<kKeyed>(d, cl.key);
 }
 
 // Entry e of the warp's sorted list (e uniform over the warp).
@@ -220,13 +228,13 @@ __device__ __forceinline__ void list_key(const float (&vd)[KL], const int (&vi)[
 
 // Distances of one lane's candidates c0, c0 + 32, ..., c0 + 32 (NPL - 1) of
 // a segment (+inf beyond N).
-template <int NPL>
+template <int NPL, bool kKeyed>
 __device__ __forceinline__ void xyz_segment(const XyzCloud& cl, float4 q, float q2, int c0,
                                             float (&dr)[NPL]) {
 #pragma unroll
   for (int j = 0; j < NPL; ++j) {
     const int c = c0 + 32 * j;
-    dr[j] = c < cl.N ? xyz_distance(cl, q, q2, c) : CUDART_INF_F;
+    dr[j] = c < cl.N ? xyz_distance<kKeyed>(cl, q, q2, c) : CUDART_INF_F;
   }
 }
 
@@ -269,7 +277,7 @@ __device__ __forceinline__ void drain(float* bd, int* bi, int& count, int k, int
 // many as it holds; a survivor's distance is computed again as it is
 // written, and tested against entry k - 1 as it stands then (one that fails
 // goes in as an empty key, +inf, which every merge drops).
-template <int KL, int M, int NPL>
+template <int KL, int M, int NPL, bool kKeyed>
 __device__ __forceinline__ void xyz_select(const XyzCloud& cl, const float* __restrict__ qp,
                                            int k, float* buf, int lane, float (&vd)[KL],
                                            int (&vi)[KL]) {
@@ -300,7 +308,7 @@ __device__ __forceinline__ void xyz_select(const XyzCloud& cl, const float* __re
     pi[s] = INT_MAX;
   }
   for (int g = 0; g < nseg; ++g) {
-    xyz_segment<NPL>(cl, q, q2, g * kSeg + lane, dr);
+    xyz_segment<NPL, kKeyed>(cl, q, q2, g * kSeg + lane, dr);
 #pragma unroll
     for (int j = 0; j < NPL; ++j) {
       const int c = g * kSeg + 32 * j + lane;
@@ -339,7 +347,7 @@ __device__ __forceinline__ void xyz_select(const XyzCloud& cl, const float* __re
   int count = 0;
   for (int g = 0; g < nseg; ++g) {
     const int base = g * kSeg + lane;
-    if (nseg > 1) xyz_segment<NPL>(cl, q, q2, base, dr);
+    if (nseg > 1) xyz_segment<NPL, kKeyed>(cl, q, q2, base, dr);
     unsigned mine = 0;
 #pragma unroll
     for (int j = 0; j < NPL; ++j)
@@ -360,7 +368,7 @@ __device__ __forceinline__ void xyz_select(const XyzCloud& cl, const float* __re
         const int j = __ffs(mine) - 1;
         mine &= mine - 1;
         const int c = base + 32 * j;
-        const float d = xyz_distance(cl, q, q2, c);
+        const float d = xyz_distance<kKeyed>(cl, q, q2, c);
         const bool keep = key_less(d, c, td, ti);
         bd[at] = keep ? d : CUDART_INF_F;
         bi[at] = keep ? c : INT_MAX;

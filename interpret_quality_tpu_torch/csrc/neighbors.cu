@@ -13,8 +13,12 @@
 //                          replaces neighbors.py knn_gather_extrema -> _extrema_kernel
 //                          (and its nq-layout twin _extrema_kernel_nq)
 //
-// Selection is shared with groups.cu.  iq_knn has two routes, chosen by
-// shape alone (knn_route): the xyz route (knn_xyz.cuh: the cloud staged once
+// Selection is shared with groups.cu, and takes the selection class of the
+// JAX package's IQTPU_KNN_SELECT (sel: exact, packed or bf16; knn_select.cuh
+// select_key) as a runtime argument, uniform over a launch: each selection
+// kernel has one instance for the exact class, which forms no key, and one
+// for the other two (kKeyed), which test the class at each distance.
+// iq_knn has two routes, chosen by shape alone (knn_route): the xyz route (knn_xyz.cuh: the cloud staged once
 // a block, a warp per query, a selection on (distance, index)) for clouds of
 // C <= 4 channels whose database fits shared memory, else the tiled
 // select_knn (knn_select.cuh), which iq_knn_gather_extrema calls too.  Both
@@ -32,9 +36,12 @@
 // is the f32 route's on the rounded values, bit for bit.
 //
 // None of the TPU workarounds are carried over: rows of `a` are gathered
-// directly (no one-hot matmuls, no bf16 hi/lo planes) and the
-// selection keeps exact f32 distances (no packed-mantissa indices): a blocked
-// product on the f32 units and a warp-cooperative sorted list per query.
+// directly (no one-hot matmuls, no bf16 hi/lo planes) and the selection
+// keeps a (key, index) pair, never an index packed into the key's mantissa:
+// a blocked product on the f32 units and a warp-cooperative sorted list per
+// query.  The packed class's key is the distance with the mantissa bits
+// that the TPU's packed key gives the index cleared, so it orders as the
+// TPU's.
 //
 // Launchers run on the caller's stream, allocate nothing and return
 // cudaGetLastError() (0 on success); cudaErrorInvalidValue for arguments the
@@ -109,19 +116,22 @@ __device__ __forceinline__ void gather_extrema_rows(
 
 // Replaces knn_pallas -> _knn_kernel (ops/pallas/neighbors.py:445-496),
 // the tiled route: select_knn over kQueries distinct query rows a block.
-// Bound: operations (distance arithmetic); see select_knn.
+// Bound: operations (distance arithmetic); see select_knn.  kKeyed: the
+// packed or bf16 class.
+template <bool kKeyed>
 __global__ void __launch_bounds__(kSelThreads, 2)
 knn_kernel(const float* __restrict__ query, const float* __restrict__ db,
            const int* __restrict__ rows, const int* __restrict__ nrows,
-           int32_t* __restrict__ out, int S, int N, int C, int k, int nqb) {
+           int32_t* __restrict__ out, int S, int N, int C, int k, int nqb,
+           SelectKey key) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.x / nqb;
   const int q0 = (blockIdx.x - b * nqb) * kQueries;
   const int ns = nrows[b];                    // distinct query rows of this cloud
   if (q0 >= ns) return;
   const int* qrows = rows + (size_t)b * S;
-  const int* li = select_knn<1>(query + (size_t)b * S * C, qrows, db + (size_t)b * N * C,
-                                ns, N, C, k, q0, smem);
+  const int* li = select_knn<1, kKeyed>(query + (size_t)b * S * C, qrows,
+                                        db + (size_t)b * N * C, ns, N, C, k, q0, key, smem);
   const int nq = min(kQueries, ns - q0);
   int32_t* o = out + (size_t)b * S * k;
   for (int e = threadIdx.x; e < nq * k; e += blockDim.x) {
@@ -136,18 +146,19 @@ knn_kernel(const float* __restrict__ query, const float* __restrict__ db,
 // (knn_xyz.cuh) leaves the distances and the two passes over the staged
 // cloud, with one block barrier.  A block stages one cloud and runs
 // kXyzQueries of its distinct query rows, a warp each.
-template <int M, int NPL>
+template <int M, int NPL, bool kKeyed>
 __global__ void __launch_bounds__(kXyzThreads, 4)
 knn_xyz_kernel(const float* __restrict__ query, const float* __restrict__ db,
                const int* __restrict__ rows, const int* __restrict__ nrows,
-               int32_t* __restrict__ out, int S, int N, int C, int k, int nqb) {
+               int32_t* __restrict__ out, int S, int N, int C, int k, int nqb,
+               SelectKey key) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.x / nqb;
   const int q0 = (blockIdx.x - b * nqb) * kXyzQueries;
   const int ns = nrows[b];                    // distinct query rows of this cloud
   if (q0 >= ns) return;
   float* buffers;
-  const XyzCloud cl = xyz_stage(db + (size_t)b * N * C, N, C, smem, &buffers);
+  const XyzCloud cl = xyz_stage(db + (size_t)b * N * C, N, C, key, smem, &buffers);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int* qrows = rows + (size_t)b * S;
   const int qend = min(q0 + kXyzQueries, ns);
@@ -155,29 +166,37 @@ knn_xyz_kernel(const float* __restrict__ query, const float* __restrict__ db,
     const size_t row = (size_t)b * S + qrows[r];
     float vd[1];
     int vi[1];
-    xyz_select<1, M, NPL>(cl, query + row * C, k, buffers + warp * 2 * kXyzBuffer, lane, vd,
-                          vi);
+    xyz_select<1, M, NPL, kKeyed>(cl, query + row * C, k, buffers + warp * 2 * kXyzBuffer,
+                                  lane, vd, vi);
     if (lane < k) out[row * k + lane] = vi[0];
   }
 }
 
-// The instance of knn_xyz_kernel for (N, k): the keys a lane hands the
-// first list and the candidates it keeps in registers.
+// The instance of knn_xyz_kernel for (N, k, class): the keys a lane hands
+// the first list, the candidates it keeps in registers, and whether the
+// distances become keys (the packed and bf16 classes).
 using KnnXyz = void (*)(const float*, const float*, const int*, const int*, int32_t*, int, int,
-                        int, int, int);
-inline KnnXyz knn_xyz_launcher(int N, int k) {
-  if (xyz_deep(k)) return xyz_small(N) ? knn_xyz_kernel<2, 16> : knn_xyz_kernel<2, 32>;
-  return xyz_small(N) ? knn_xyz_kernel<1, 16> : knn_xyz_kernel<1, 32>;
+                        int, int, int, SelectKey);
+template <bool kKeyed>
+inline KnnXyz knn_xyz_instance(int N, int k) {
+  if (xyz_deep(k))
+    return xyz_small(N) ? knn_xyz_kernel<2, 16, kKeyed> : knn_xyz_kernel<2, 32, kKeyed>;
+  return xyz_small(N) ? knn_xyz_kernel<1, 16, kKeyed> : knn_xyz_kernel<1, 32, kKeyed>;
+}
+inline KnnXyz knn_xyz_launcher(int N, int k, int sel) {
+  return sel == kSelExact ? knn_xyz_instance<false>(N, k) : knn_xyz_instance<true>(N, k);
 }
 
 // Replaces knn_gather_extrema -> _extrema_kernel and its nq twin
 // (ops/pallas/neighbors.py:187-368).  Bound: operations; the selected
 // indices stay in select_knn's shared lists, where the gather reads them.
+// kKeyed: the packed or bf16 class.
+template <bool kKeyed>
 __global__ void __launch_bounds__(kSelThreads, 2)
 knn_gather_extrema_kernel(const float* __restrict__ xs, const float* __restrict__ a,
                           const int* __restrict__ rows, const int* __restrict__ nrows,
                           float* __restrict__ omax, float* __restrict__ omin,
-                          int N, int C, int F, int k, int nqb) {
+                          int N, int C, int F, int k, int nqb, SelectKey key) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.x / nqb;
   const int q0 = (blockIdx.x - b * nqb) * kQueries;
@@ -185,7 +204,7 @@ knn_gather_extrema_kernel(const float* __restrict__ xs, const float* __restrict_
   if (q0 >= ns) return;
   const int* qrows = rows + (size_t)b * N;
   const float* xb = xs + (size_t)b * N * C;
-  const int* li = select_knn<1>(xb, qrows, xb, ns, N, C, k, q0, smem);
+  const int* li = select_knn<1, kKeyed>(xb, qrows, xb, ns, N, C, k, q0, key, smem);
   const size_t off = (size_t)b * N * F;
   gather_extrema_rows(li, 32, k, a + off, F, qrows, q0, min(kQueries, ns - q0), omax + off,
                       omin + off);
@@ -386,11 +405,15 @@ extern "C" {
 // memory, S the number of query rows of a cloud (see DistinctRows).
 // route (iq_knn): 0 chooses by shape (knn_route), kXyzRoute or kTiledRoute
 // forces one (a forced xyz route on a shape it does not take is refused).
+// sel (iq_knn, iq_knn_gather_extrema): the selection class, kSelExact,
+// kSelPacked or kSelBf16.
 int iq_knn(const float* query, const float* db, int32_t* out, int* scratch, int B, int S,
-           int N, int C, int k, int route, void* stream) {
+           int N, int C, int k, int route, int sel, void* stream) {
   if (B <= 0 || S <= 0) return cudaSuccess;
-  if (k < 1 || k > kMaxK || k > N || C < 1 || route < 0 || route > kTiledRoute)
+  if (k < 1 || k > kMaxK || k > N || C < 1 || route < 0 || route > kTiledRoute ||
+      !select_key_valid(sel))
     return cudaErrorInvalidValue;
+  const SelectKey key = select_key_for(sel, N);
   if (route == 0) route = knn_route(N, C);
   if (route == kXyzRoute && !xyz_fits(N, C)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -400,16 +423,17 @@ int iq_knn(const float* query, const float* db, int32_t* out, int* scratch, int 
   if (route == kXyzRoute) {
     const size_t smem = xyz_smem_bytes(N, C);
     const int nqb = (S + kXyzQueries - 1) / kXyzQueries;
-    const KnnXyz kernel = knn_xyz_launcher(N, k);
+    const KnnXyz kernel = knn_xyz_launcher(N, k, sel);
     if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
     kernel<<<(unsigned)B * nqb, kXyzThreads, smem, s>>>(query, db, d.rows, d.nrows, out, S, N,
-                                                        C, k, nqb);
+                                                        C, k, nqb, key);
   } else {
     const size_t smem = select_smem_floats(1) * sizeof(float);
     const int nqb = (S + kQueries - 1) / kQueries;
-    if ((err = prepare(knn_kernel, smem)) != cudaSuccess) return err;
-    knn_kernel<<<(unsigned)B * nqb, kSelThreads, smem, s>>>(query, db, d.rows, d.nrows, out,
-                                                             S, N, C, k, nqb);
+    const auto kernel = sel == kSelExact ? knn_kernel<false> : knn_kernel<true>;
+    if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<(unsigned)B * nqb, kSelThreads, smem, s>>>(query, db, d.rows, d.nrows, out, S, N,
+                                                        C, k, nqb, key);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return copy_duplicate_rows(d, reinterpret_cast<float*>(out), nullptr, B, S, k, s);
@@ -423,23 +447,29 @@ int iq_knn_route(int N, int C, int k, int* info) {
   if (k < 1 || k > kMaxK || k > N || C < 1) return cudaErrorInvalidValue;
   info[0] = knn_route(N, C);
   if (info[0] == kXyzRoute)
-    return kernel_info(knn_xyz_launcher(N, k), kXyzThreads, xyz_smem_bytes(N, C), info);
-  return kernel_info(knn_kernel, kSelThreads, select_smem_floats(1) * sizeof(float), info);
+    return kernel_info(knn_xyz_launcher(N, k, kSelExact), kXyzThreads, xyz_smem_bytes(N, C),
+                       info);
+  return kernel_info(knn_kernel<false>, kSelThreads, select_smem_floats(1) * sizeof(float),
+                     info);
 }
 
 int iq_knn_gather_extrema(const float* xs, const float* a, float* omax, float* omin,
-                          int* scratch, int B, int N, int C, int F, int k, void* stream) {
+                          int* scratch, int B, int N, int C, int F, int k, int sel,
+                          void* stream) {
   if (B <= 0 || N <= 0) return cudaSuccess;
-  if (k < 1 || k > kMaxK || k > N || C < 1 || F < 1) return cudaErrorInvalidValue;
+  if (k < 1 || k > kMaxK || k > N || C < 1 || F < 1 || !select_key_valid(sel))
+    return cudaErrorInvalidValue;
   const size_t smem = select_smem_floats(1) * sizeof(float);
   const int nqb = (N + kQueries - 1) / kQueries;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const DistinctRows d(scratch, B, N);
   cudaError_t err;
   if ((err = distinct_rows(xs, d, B, N, C, s)) != cudaSuccess) return err;
-  if ((err = prepare(knn_gather_extrema_kernel, smem)) != cudaSuccess) return err;
-  knn_gather_extrema_kernel<<<(unsigned)B * nqb, kSelThreads, smem, s>>>(
-      xs, a, d.rows, d.nrows, omax, omin, N, C, F, k, nqb);
+  const auto kernel =
+      sel == kSelExact ? knn_gather_extrema_kernel<false> : knn_gather_extrema_kernel<true>;
+  if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
+  kernel<<<(unsigned)B * nqb, kSelThreads, smem, s>>>(
+      xs, a, d.rows, d.nrows, omax, omin, N, C, F, k, nqb, select_key_for(sel, N));
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return copy_duplicate_rows(d, omax, omin, B, N, F, s);
 }

@@ -32,6 +32,10 @@ variance of the JAX package's edge convs), LeakyReLU and the max over k
 (``models/dgcnn.py:100-113`` there).  Its graphs still come from the kNN
 kernel (``knn``): an index selection carries no gradient.  ``dp1``/``dp2``
 are the reference's dropouts, with no state.
+
+The kNN selection setting (``IQTPU_KNN_SELECT``, ``IQTPU_KNN_LAYOUT``)
+reaches the fused eval path only (kernel 3, GCNN's graph, the plan), as in
+the JAX package; the un-fused path's graphs (``graph_knn``) are exact.
 """
 from __future__ import annotations
 
@@ -74,9 +78,11 @@ def edge_conv(x: torch.Tensor, block: nn.Sequential, k: int,
 def graph_knn(x: torch.Tensor, k: int) -> torch.Tensor:
     """The k nearest neighbours of each row of x (B, N, C) within its cloud
     (self included), through the kNN kernel; the selection is not
-    differentiated, so the kernel reads a detached copy."""
+    differentiated, so the kernel reads a detached copy.  Exact at every
+    kNN selection setting: the JAX package's un-fused path (training, the
+    BIM attack) selects with XLA's top_k."""
     xs = x.detach().contiguous()
-    return knn(xs, xs, k)
+    return knn(xs, xs, k, select="two_pass")
 
 
 def edge_conv_unfused(x: torch.Tensor, block: nn.Sequential,

@@ -18,6 +18,11 @@ What each family's plan carries, and the enum modes that may reuse it:
     densities and their per-group max, plus the group-all level's inverse
     density.  Density values change under scale: trans/rotate only.
   * pointnet: no plan (no graph; its transformers are pose-dependent).
+
+On the card the plans' kNN selections (``knn``, ``knn_with_density``)
+follow the process's kNN selection setting (``IQTPU_KNN_SELECT``), as the
+JAX package's Pallas plans do; on the CPU they are exact, as its XLA plans
+are.
 """
 from __future__ import annotations
 

@@ -17,7 +17,10 @@ and ``fused_pointconv_sa`` (``ops.cuda.groups``), with layer 1 hoisted above
 the gather (u = [xyz, features] @ A1 + b1, and the centre's share
 csw = new_xyz @ A1[:3] subtracted per neighbour).  On CUDA they launch their
 kernels; on the CPU they run their plain versions.  The group-all level is
-plain PyTorch, as it is XLA in the JAX package.
+plain PyTorch, as it is XLA in the JAX package.  ``knn_with_density``
+selects at the process's kNN selection setting (``IQTPU_KNN_SELECT``) on
+the card, as the JAX package's Pallas kernel does; the un-fused path's
+``knn_point`` is exact at every setting, as XLA's top_k is there.
 
 Training, and an eval forward that must be differentiated, take the
 un-fused SA level (``fused=False``, ``models/pointconv.py:150-166`` of the

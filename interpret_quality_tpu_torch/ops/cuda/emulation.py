@@ -29,7 +29,7 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from ..geometry import index_points
-from ..precision import gather_values, round_bf16
+from ..precision import gather_values, round_bf16, selection_keys
 
 _LOW13 = 0x1FFF          # the 13 mantissa bits that TF32 does not keep
 
@@ -199,12 +199,16 @@ def fps_register_route(xyz: torch.Tensor, npoint: int,
     return out
 
 
-def square_distance_chain(query: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
+def square_distance_chain(query: torch.Tensor, db: torch.Tensor,
+                          cls: str = "exact") -> torch.Tensor:
     """(|q|^2 - 2 q.d) + |d|^2 as ``select_knn`` rounds it: the dot product
     and both norms are one multiply-add chain over the channels in
     ascending order (here a plain multiply then add per channel; the
     kernel's is fused), every other step rounded on its own.  Identical
     database rows get bit-identical distances to a query, wherever they sit.
+    Then the key of the selection class ``cls``
+    (``precision.selection_keys``), which the kernels form from the
+    rounded distance before any comparison.
 
     query (B, S, C), db (B, N, C) float32 -> (B, S, N) float32.
     """
@@ -216,7 +220,7 @@ def square_distance_chain(query: torch.Tensor, db: torch.Tensor) -> torch.Tensor
         dot = dot + query[:, :, c, None] * db[:, None, :, c]
         q2 = q2 + query[:, :, c] * query[:, :, c]
         d2 = d2 + db[:, :, c] * db[:, :, c]
-    return (q2[:, :, None] - 2.0 * dot) + d2[:, None, :]
+    return selection_keys((q2[:, :, None] - 2.0 * dot) + d2[:, None, :], cls)
 
 
 LANES = 32               # a warp: lane l takes candidates l, l + 32, ...
@@ -248,11 +252,12 @@ def _key_less(ad, ai, bd, bi):
     return (ad < bd) | ((ad == bd) & (ai < bi))
 
 
-def select_knn_xyz(query: torch.Tensor, db: torch.Tensor, k: int) -> XyzSelection:
+def select_knn_xyz(query: torch.Tensor, db: torch.Tensor, k: int,
+                   cls: str = "exact") -> XyzSelection:
     """The xyz route's selection (``csrc/knn_xyz.cuh`` ``xyz_select``) step
-    for step, on ``square_distance_chain``'s distances, for every query at
-    once.  Keys are (distance, index), compared as the kernel compares them
-    (floats, so -0 == +0).
+    for step, on ``square_distance_chain``'s distances at the selection
+    class ``cls``, for every query at once.  Keys are (distance, index),
+    compared as the kernel compares them (floats, so -0 == +0).
 
     Pass 1: lane l keeps the M smallest keys of its candidates l, l + 32,
     ... (M = 2 above k = 24, else 1); the 32 KL smallest of those 32 M keys
@@ -280,7 +285,7 @@ def select_knn_xyz(query: torch.Tensor, db: torch.Tensor, k: int) -> XyzSelectio
     Q = B * S
     inf = float("inf")
     # + 0.0 turns -0 into +0: the kernel's float compares do not tell them apart
-    dist = square_distance_chain(query, db).reshape(Q, N) + 0.0
+    dist = square_distance_chain(query, db, cls).reshape(Q, N) + 0.0
     d = torch.full((Q, nseg * seg), inf)
     d[:, :N] = dist
     ids = torch.arange(nseg * seg, dtype=torch.int64)

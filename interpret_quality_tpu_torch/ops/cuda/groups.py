@@ -16,7 +16,10 @@ wrapper                     replaces (interpret_quality_tpu/ops/pallas/)
 ==========================  ==============================================
 
 Signatures and layouts are the JAX functions' (without their TPU knobs
-``select``, ``block_q`` and ``interpret``): kNN ties go to the lowest index,
+``block_q`` and ``interpret``): kNN ties go to the lowest index, and
+``knn_with_density`` takes the kNN selection setting ``select`` as
+``neighbors.knn`` does (``"knn_with_density:packed"``, ... in
+``ROUTE_LAUNCHES``),
 and gathers are exact f32 unless ``parts`` (the JAX package's value planes,
 ``--gather_precision``) is 1: then the gathered feature values (kernel 5's
 ``uf`` rows, kernel 7's ``u`` rows, kernel 8's values) are each rounded to
@@ -58,11 +61,11 @@ from torch.profiler import record_function
 from ... import config
 from ..geometry import (index_points, query_ball_point, sorted_topk_indices,
                         square_distance)
-from ..precision import gather_values, value_parts
+from ..precision import gather_values, knn_class, value_parts
 from . import build
 from .launch import F, I, P, check, on_cpu, raise_on, stream
-from .neighbors import (KNN_ROUTES, MAX_QUERY_ROWS, _distinct_rows_scratch,
-                        route_info)
+from .neighbors import (KNN_ROUTES, MAX_QUERY_ROWS, SELECT_CODES,
+                        _distinct_rows_scratch, route_info)
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES = {"fused_ball_mlp3": 0, "knn_with_density": 0,
@@ -71,7 +74,8 @@ LAUNCHES = {"fused_ball_mlp3": 0, "knn_with_density": 0,
 # well as in LAUNCHES
 ROUTE_LAUNCHES = {"gather_rows:bf16": 0, "fused_ball_mlp3:high": 0,
                   "fused_ball_mlp3:default": 0, "fused_pointconv_sa:high": 0,
-                  "fused_pointconv_sa:default": 0}
+                  "fused_pointconv_sa:default": 0,
+                  "knn_with_density:packed": 0, "knn_with_density:bf16": 0}
 # the prec argument of iq_ball_mlp3 and iq_pointconv_sa (kPrec* in the source)
 PRECISION_CODES = {"highest": 0, "high": 1, "default": 2}
 
@@ -97,7 +101,7 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     lib = build.load("groups")
     lib.iq_ball_mlp3.argtypes = [P] * 11 + [I] * 7 + [F, I, P]
-    lib.iq_knn_density.argtypes = [P] * 7 + [I] * 6 + [P]
+    lib.iq_knn_density.argtypes = [P] * 7 + [I] * 7 + [P]
     lib.iq_knn_density_route.argtypes = [I, I, I, P]
     lib.iq_pointconv_sa.argtypes = [P] * 13 + [I] * 8 + [P]
     lib.iq_gather_rows.argtypes = [P] * 3 + [I] * 5 + [P]
@@ -228,33 +232,43 @@ def fused_ball_mlp3(new_xyz: torch.Tensor, xyz: torch.Tensor,
 
 
 # -------------------------------------------------------- knn_with_density
-def knn_with_density_plain(query, database, inv_density, k: int):
-    """Plain version of ``knn_with_density``."""
-    idx = sorted_topk_indices(square_distance(query, database, "highest"), k)
+def knn_with_density_plain(query, database, inv_density, k: int,
+                           cls: str = "exact"):
+    """Plain version of ``knn_with_density`` at the selection class
+    ``cls``."""
+    idx = sorted_topk_indices(square_distance(query, database, "highest"), k,
+                              cls)
     den = index_points(inv_density[..., None], idx)[..., 0]
     return idx, den, den.amax(dim=-1, keepdim=True)
 
 
 def knn_with_density(query: torch.Tensor, database: torch.Tensor,
-                     inv_density: torch.Tensor, k: int):
+                     inv_density: torch.Tensor, k: int,
+                     select: Optional[str] = None):
     """kNN indices, each neighbour's inverse density, and the per-query max.
 
     Args:
       query: (B, S, C); database: (B, N, C); inv_density: (B, N); float32.
+      select: a kNN selection setting; None follows
+        ``precision.knn_class``.
     Returns:
-      idx (B, S, k) int32 (ascending distance, ties to the lowest index),
-      den (B, S, k) float32, dmax (B, S, 1) float32.
+      idx (B, S, k) int32 (ascending key of the setting's class, ties to
+      the lowest index), den (B, S, k) float32, dmax (B, S, 1) float32.
     """
-    if on_cpu(query, database, inv_density):
-        return knn_with_density_plain(query, database, inv_density, k)
+    cpu = on_cpu(query, database, inv_density)
+    cls = knn_class(select, cpu, "knn_with_density")
+    if cpu:
+        return knn_with_density_plain(query, database, inv_density, k, cls)
     return _knn_with_density(query, database, inv_density, k,
-                             KNN_ROUTES["shape"])
+                             KNN_ROUTES["shape"], cls)
 
 
 def _knn_with_density(query: torch.Tensor, database: torch.Tensor,
-                      inv_density: torch.Tensor, k: int, route: int):
-    """Launch iq_knn_density on ``route`` (``neighbors.KNN_ROUTES``): by
-    shape, as ``knn_with_density`` does, or one route forced."""
+                      inv_density: torch.Tensor, k: int, route: int,
+                      cls: str = "exact"):
+    """Launch iq_knn_density on ``route`` (``neighbors.KNN_ROUTES``) at the
+    selection class ``cls``: by shape, as ``knn_with_density`` does, or one
+    route forced."""
     check(query, "query", torch.float32, 3)
     check(database, "database", torch.float32, 3)
     check(inv_density, "inv_density", torch.float32, 2)
@@ -277,9 +291,11 @@ def _knn_with_density(query: torch.Tensor, database: torch.Tensor,
             query.data_ptr(), database.data_ptr(), inv_density.data_ptr(),
             idx.data_ptr(), den.data_ptr(), dmax.data_ptr(),
             None if scratch is None else scratch.data_ptr(), B, S, N, C, k,
-            route, stream(query))
+            route, SELECT_CODES[cls], stream(query))
     raise_on(rc, "iq_knn_density")
     LAUNCHES["knn_with_density"] += 1
+    if cls != "exact":
+        ROUTE_LAUNCHES[f"knn_with_density:{cls}"] += 1
     return idx, den, dmax
 
 

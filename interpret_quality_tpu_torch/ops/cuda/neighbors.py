@@ -39,6 +39,17 @@ beside ``LAUNCHES``); ``knn_gather_extrema``, bound by its selection, reads
 the rounded values in f32.  ``parts=None`` takes the process's setting on
 the card and exact gathers on the CPU (``precision.value_parts``).  The kNN
 distances stay f32 at every setting: the JAX package pins them to HIGHEST.
+
+``knn`` and ``knn_gather_extrema`` take the JAX package's kNN selection
+setting (``select``; ``knn_gather_extrema`` also its ``layout``): each
+class selects the k smallest keys made from the distances
+(``precision.selection_keys``), ties to the lowest index.  The kernels form
+the key where a distance is rounded, before any comparison, so both routes
+and the distinct-row pass keep their rules.  ``select=None`` takes the
+process's setting (``IQTPU_KNN_SELECT``) on the card and the exact one on
+the CPU (``precision.knn_class``); the plain versions take the class
+itself (``cls``).  A launch of the packed or bf16 class
+counts in ``ROUTE_LAUNCHES`` (``"knn:packed"``, ...) as well.
 """
 from __future__ import annotations
 
@@ -50,15 +61,20 @@ import torch
 from torch.profiler import record_function
 
 from ..geometry import index_points, sorted_topk_indices, square_distance
-from ..precision import gather_values, value_parts
+from ..precision import gather_values, knn_class, value_parts
 from . import build
 from .launch import I, P, check, on_cpu, raise_on, stream
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES = {"knn": 0, "gather_extrema": 0, "knn_gather_extrema": 0}
-# launches of the routes of a non-default precision setting, counted here
-# as well as in LAUNCHES: "gather_extrema:bf16"
-ROUTE_LAUNCHES = {"gather_extrema:bf16": 0}
+# launches of the routes of a non-default precision or selection setting,
+# counted here as well as in LAUNCHES
+ROUTE_LAUNCHES = {"gather_extrema:bf16": 0, "knn:packed": 0, "knn:bf16": 0,
+                  "knn_gather_extrema:packed": 0,
+                  "knn_gather_extrema:bf16": 0}
+# the sel argument of iq_knn, iq_knn_gather_extrema and iq_knn_density, by
+# selection class (kSel* in knn_select.cuh)
+SELECT_CODES = {"exact": 0, "packed": 1, "bf16": 2}
 
 MAX_K = 32      # largest neighbourhood the kernels take (kMaxK in the source)
 MAX_QUERY_ROWS = 12288    # most query rows of a cloud (kMaxDistinctRows)
@@ -73,11 +89,12 @@ def reset_launches() -> None:
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load("neighbors")
-    lib.iq_knn.argtypes = [P, P, P, P, I, I, I, I, I, I, P]
+    lib.iq_knn.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P]
     lib.iq_knn_route.argtypes = [I, I, I, P]
     lib.iq_gather_extrema.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P]
     lib.iq_gather_extrema_route.argtypes = [I, I, I, I, P]
-    lib.iq_knn_gather_extrema.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
+    lib.iq_knn_gather_extrema.argtypes = [P, P, P, P, P, I, I, I, I, I, I,
+                                          P]
     for fn in (lib.iq_knn, lib.iq_knn_route, lib.iq_gather_extrema,
                lib.iq_gather_extrema_route, lib.iq_knn_gather_extrema):
         fn.restype = ctypes.c_int
@@ -89,6 +106,12 @@ def _distinct_rows_scratch(B: int, S: int, device) -> torch.Tensor:
     list of distinct rows and their count per cloud (the kernels select for
     the distinct query rows only; copies take their original's result)."""
     return torch.empty(B * (2 * S + 1), dtype=torch.int32, device=device)
+
+
+def count_select(name: str, cls: str) -> None:
+    """Count a launch of ``name`` at a selection class other than exact."""
+    if cls != "exact":
+        ROUTE_LAUNCHES[f"{name}:{cls}"] += 1
 
 
 def _check_k(k: int, n: int):
@@ -111,30 +134,38 @@ def route_info(info) -> dict:
             "smem_bytes": smem, "registers": regs, "local_bytes": local}
 
 
-def knn_plain(query: torch.Tensor, database: torch.Tensor, k: int) -> torch.Tensor:
-    """Plain version of ``knn``: (B, S, C), (B, N, C) -> (B, S, k) int32,
-    the distances in f32 at every matmul precision, as the kernel's."""
-    return sorted_topk_indices(square_distance(query, database, "highest"), k)
+def knn_plain(query: torch.Tensor, database: torch.Tensor, k: int,
+              cls: str = "exact") -> torch.Tensor:
+    """Plain version of ``knn`` at the selection class ``cls``: the
+    distances in f32 at every matmul precision, as the kernel's."""
+    return sorted_topk_indices(square_distance(query, database, "highest"), k,
+                               cls)
 
 
-def knn(query: torch.Tensor, database: torch.Tensor, k: int) -> torch.Tensor:
-    """Exact k nearest database rows of each query row.
+def knn(query: torch.Tensor, database: torch.Tensor, k: int,
+        select: Optional[str] = None) -> torch.Tensor:
+    """The k nearest database rows of each query row.
 
     Args:
       query: (B, S, C) float32; database: (B, N, C) float32.
+      select: a kNN selection setting (``config.KNN_SELECT_CLASSES``); None
+        follows ``precision.knn_class``.
     Returns:
-      (B, S, k) int32, ascending distance, ties to the lowest index.
+      (B, S, k) int32, ascending key of the setting's class (the distance
+      itself at two_pass), ties to the lowest index.
     """
-    if on_cpu(query, database):
-        return knn_plain(query, database, k)
-    return _knn(query, database, k, KNN_ROUTES["shape"])
+    cpu = on_cpu(query, database)
+    cls = knn_class(select, cpu)
+    if cpu:
+        return knn_plain(query, database, k, cls)
+    return _knn(query, database, k, KNN_ROUTES["shape"], cls)
 
 
-def _knn(query: torch.Tensor, database: torch.Tensor, k: int, route: int
-         ) -> torch.Tensor:
-    """Launch iq_knn on ``route`` (``KNN_ROUTES``): by shape, as ``knn``
-    does, or one route forced, to hold both routes against each other and
-    the plain version at the same shapes."""
+def _knn(query: torch.Tensor, database: torch.Tensor, k: int, route: int,
+         cls: str = "exact") -> torch.Tensor:
+    """Launch iq_knn on ``route`` (``KNN_ROUTES``) at the selection class
+    ``cls``: by shape, as ``knn`` does, or one route forced, to hold both
+    routes against each other and the plain version at the same shapes."""
     check(query, "query", torch.float32, 3)
     check(database, "database", torch.float32, 3)
     B, S, C = query.shape
@@ -150,9 +181,10 @@ def _knn(query: torch.Tensor, database: torch.Tensor, k: int, route: int
     with record_function("iq_knn"):
         rc = _lib().iq_knn(query.data_ptr(), database.data_ptr(),
                            out.data_ptr(), scratch.data_ptr(), B, S, N, C, k,
-                           route, stream(query))
+                           route, SELECT_CODES[cls], stream(query))
     raise_on(rc, "iq_knn")
     LAUNCHES["knn"] += 1
+    count_select("knn", cls)
     return out
 
 
@@ -253,14 +285,17 @@ def gather_extrema_route(N: int, F: int, k: int, parts: int = 2) -> dict:
 
 # ------------------------------------------------------ knn_gather_extrema
 def knn_gather_extrema_plain(xs: torch.Tensor, a: torch.Tensor, k: int,
-                             parts: int = 2
+                             parts: int = 2, cls: str = "exact"
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of ``knn_gather_extrema`` at ``parts`` value planes."""
-    return gather_extrema_plain(knn_plain(xs, xs, k), a, parts)
+    """Plain version of ``knn_gather_extrema`` at ``parts`` value planes
+    and the selection class ``cls``."""
+    return gather_extrema_plain(knn_plain(xs, xs, k, cls), a, parts)
 
 
 def knn_gather_extrema(xs: torch.Tensor, a: torch.Tensor, k: int,
-                       parts: Optional[int] = None
+                       parts: Optional[int] = None,
+                       select: Optional[str] = None,
+                       layout: Optional[str] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-point extrema of value rows over the k nearest neighbours in
     feature space; the (N, N) distances and the indices stay on chip.
@@ -270,13 +305,24 @@ def knn_gather_extrema(xs: torch.Tensor, a: torch.Tensor, k: int,
       a:  (B, N, F) float32 value rows.
       parts: 2 exact values, 1 values rounded to bf16 (the kernel reads
         them rounded, in f32); None follows ``precision.value_parts``.
+      select, layout: the kNN selection setting (at layout nq the packed
+        class whatever ``select``); None follows ``precision.knn_class``.
     Returns:
       (amax, amin), each (B, N, F) float32.
     """
     cpu = on_cpu(xs, a)
     parts = value_parts(parts, cpu)
+    cls = knn_class(select, cpu, "knn_gather_extrema", layout)
     if cpu:
-        return knn_gather_extrema_plain(xs, a, k, parts)
+        return knn_gather_extrema_plain(xs, a, k, parts, cls)
+    return _knn_gather_extrema(xs, a, k, parts, cls)
+
+
+def _knn_gather_extrema(xs: torch.Tensor, a: torch.Tensor, k: int,
+                        parts: int = 2, cls: str = "exact"
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch iq_knn_gather_extrema at ``parts`` value planes and the
+    selection class ``cls``."""
     check(xs, "xs", torch.float32, 3)
     check(a, "a", torch.float32, 3)
     B, N, C = xs.shape
@@ -295,7 +341,8 @@ def knn_gather_extrema(xs: torch.Tensor, a: torch.Tensor, k: int,
         rc = _lib().iq_knn_gather_extrema(xs.data_ptr(), a.data_ptr(),
                                           amax.data_ptr(), amin.data_ptr(),
                                           scratch.data_ptr(), B, N, C, F, k,
-                                          stream(xs))
+                                          SELECT_CODES[cls], stream(xs))
     raise_on(rc, "iq_knn_gather_extrema")
     LAUNCHES["knn_gather_extrema"] += 1
+    count_select("knn_gather_extrema", cls)
     return amax, amin

@@ -20,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from .precision import matmul
+from .precision import matmul, selection_keys
 
 
 def square_distance(src: torch.Tensor, dst: torch.Tensor,
@@ -42,10 +42,13 @@ def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.reshape(*idx.shape, points.shape[-1])
 
 
-def sorted_topk_indices(dist: torch.Tensor, k: int) -> torch.Tensor:
+def sorted_topk_indices(dist: torch.Tensor, k: int,
+                        cls: str = "exact") -> torch.Tensor:
     """Indices of the k smallest values along the last axis, ascending, ties
-    to the lowest index; int32."""
-    return torch.sort(dist, dim=-1, stable=True).indices[..., :k].to(torch.int32)
+    to the lowest index; int32.  ``cls``: the kNN selection class, whose
+    keys (``precision.selection_keys``) are sorted in place of the values."""
+    keys = selection_keys(dist, cls)
+    return torch.sort(keys, dim=-1, stable=True).indices[..., :k].to(torch.int32)
 
 
 def knn(x: torch.Tensor, k: int) -> torch.Tensor:

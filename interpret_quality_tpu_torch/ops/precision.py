@@ -1,6 +1,6 @@
-"""The JAX package's two precision settings as the port computes them: the
-products of ``--matmul_precision`` and the gathered values of
-``--gather_precision``.
+"""The JAX package's precision settings as the port computes them: the
+products of ``--matmul_precision``, the gathered values of
+``--gather_precision`` and the kNN selection keys of ``IQTPU_KNN_SELECT``.
 
 Both settings are process-global (``config``) and govern the card only.
 On the CPU every product is f32 and every gather exact, as the JAX package
@@ -24,6 +24,12 @@ setting and which stay f32):
 Gathers (``gather_values``): at 2 value parts (``hilo``) the f32 values
 exactly, at 1 (``bf16``) each value rounded to bf16, to nearest even, which
 is what the TPU kernels' one bf16 plane copies through a one-hot product.
+
+kNN selection (``selection_keys``, ``knn_class``): each class of
+``config.KNN_SELECT_CLASSES`` selects the k smallest keys made from the f32
+distances, ties to the lowest index; a wrapper's ``select=None`` is the
+process's setting on the card and the exact one on the CPU (the JAX
+package's CPU path is XLA's ``top_k``).
 """
 from __future__ import annotations
 
@@ -69,6 +75,43 @@ def gather_values(a: torch.Tensor, parts: int) -> torch.Tensor:
     if parts == 1:
         return round_bf16(a)
     raise ValueError(f"parts must be 1 or 2, got {parts!r}")
+
+
+def selection_keys(dist: torch.Tensor, cls: str) -> torch.Tensor:
+    """The keys a kNN selection of class ``cls`` orders f32 distances
+    (..., N) by, N the database rows: ``exact`` the distances; ``packed``
+    each distance's bits with negatives clamped to +0 and the low
+    b = (N - 1).bit_length() bits cleared (the JAX package's int32 key
+    ``(bits & ~mask) | col`` orders as this key, then the column);
+    ``bf16`` each distance rounded to bf16, to nearest even."""
+    if cls == "exact":
+        return dist
+    if cls == "bf16":
+        return round_bf16(dist)
+    if cls != "packed":
+        raise ValueError(f"unknown selection class {cls!r}")
+    if dist.dtype != torch.float32:
+        raise ValueError(f"packed keys take float32 distances, got {dist.dtype}")
+    mask = (1 << (dist.shape[-1] - 1).bit_length()) - 1
+    bits = dist.contiguous().view(torch.int32)
+    return (torch.where(bits < 0, 0, bits) & ~mask).view(torch.float32)
+
+
+def knn_class(select: Optional[str], cpu: bool, kernel: str = "knn",
+              layout: Optional[str] = None) -> str:
+    """The selection class (``config.knn_select_class``) the kNN wrapper
+    ``kernel`` runs at: that of the caller's ``select`` where it names one,
+    at ``layout`` or else the process's layout; else on the card that of
+    the process's settings (``config.knn_select``, ``config.knn_layout``),
+    and on the CPU the exact class.  A bad name raises on either device,
+    the process's too."""
+    if layout is None:
+        layout = config.knn_layout()
+    if select is None:
+        select = config.knn_select()
+        if cpu:
+            return "exact"
+    return config.knn_select_class(select, layout, kernel)
 
 
 def _sum_to(t: torch.Tensor, shape: torch.Size) -> torch.Tensor:

@@ -10,6 +10,7 @@ import contextlib
 import pytest
 import torch
 
+from interpret_quality_tpu_torch import config
 from interpret_quality_tpu_torch.ops.cuda import fps as fp
 from interpret_quality_tpu_torch.ops.cuda import groups as gr
 from interpret_quality_tpu_torch.ops.cuda import neighbors as nb
@@ -308,6 +309,102 @@ def test_knn_routes_bit_equal(cuda, kind, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cls", ["packed", "bf16"])
+@pytest.mark.parametrize("kind", ["grid", "coincident", "masked"])
+@pytest.mark.parametrize("k", [20, 64])
+def test_knn_select_classes_on_both_routes(cuda, cls, kind, k):
+    """Kernels 1 and 6 at the kNN selection classes packed and bf16
+    (IQTPU_KNN_SELECT), on both routes forced at ragged sizes: bit-equal to
+    each other; on exact clouds (grid, coincident) equal to the plain
+    versions at the class; each launch counted in ROUTE_LAUNCHES."""
+    X, T = nb.KNN_ROUTES["xyz"], nb.KNN_ROUTES["tiled"]
+    nb.reset_launches()
+    gr.reset_launches()
+    for N, S in ROUTE_SIZES:
+        if k > N:
+            continue
+        db = _route_clouds(kind, 3, N, 3, seed=N + k).to(cuda)
+        q = db if S == N else _route_clouds(kind, 3, S, 3, seed=S + k).to(cuda)
+        inv = torch.rand(3, N, device=cuda) + 0.5
+        routes = [gr._knn_with_density(q, db, inv, k, r, cls) for r in (X, T)]
+        if k <= nb.MAX_K:
+            routes = [(nb._knn(q, db, k, r, cls),) + out
+                      for r, out in zip((X, T), routes)]
+        for a, b in zip(*routes):
+            assert torch.equal(a, b), (N, S)
+        if kind != "masked":
+            assert torch.equal(routes[0][0],
+                               gr.knn_with_density_plain(q, db, inv, k, cls)[0])
+    assert gr.ROUTE_LAUNCHES[f"knn_with_density:{cls}"] > 0
+    assert nb.ROUTE_LAUNCHES[f"knn:{cls}"] == (
+        gr.ROUTE_LAUNCHES[f"knn_with_density:{cls}"] if k <= nb.MAX_K else 0)
+    nb.reset_launches()
+    gr.reset_launches()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [3, 64])
+def test_knn_gather_extrema_select_classes(cuda, C):
+    """Kernel 3 at each class on an exact-duplicate cloud: equal to its
+    plain version at the class and to the gather of kernel 1's indices;
+    at IQTPU_KNN_LAYOUT=nq the packed class whatever IQTPU_KNN_SELECT;
+    an unknown setting raises."""
+    import os
+    g = torch.Generator().manual_seed(C)
+    xs = torch.randn(4, 128, C, generator=g).repeat(1, 8, 1).contiguous().to(cuda)
+    a = torch.randn(4, 1024, 32, generator=g).to(cuda)
+    for select in ("two_pass", "packed", "bf16"):
+        got = nb.knn_gather_extrema(xs, a, 20, select=select)
+        cls = config.knn_select_class(select)
+        for g_, w in zip(got, nb.knn_gather_extrema_plain(xs, a, 20, 2, cls)):
+            assert torch.equal(g_, w), select
+        idx = nb.knn(xs, xs, 20, select=select)
+        for g_, w in zip(got, nb.gather_extrema(idx, a)):
+            assert torch.equal(g_, w), select
+    packed = nb.knn_gather_extrema(xs, a, 20, select="packed")
+    saved = {k: os.environ.get(k) for k in ("IQTPU_KNN_SELECT",
+                                            "IQTPU_KNN_LAYOUT")}
+    try:
+        os.environ.update(IQTPU_KNN_SELECT="bf16", IQTPU_KNN_LAYOUT="nq")
+        for g_, w in zip(nb.knn_gather_extrema(xs, a, 20), packed):
+            assert torch.equal(g_, w)
+        os.environ["IQTPU_KNN_SELECT"] = "greedy"
+        with pytest.raises(ValueError):
+            nb.knn(xs, xs, 20)
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    nb.reset_launches()
+
+
+@pytest.mark.cuda
+def test_knn_truncation_example(cuda):
+    """The JAX package's truncation example (its tests/test_knn_select.py):
+    two database points one ulp apart in distance from the query, the
+    larger at the lower index; exact selection keeps them apart, packed
+    and bf16 merge them and break the tie to the lower index."""
+    import numpy as np
+    x = torch.tensor([float(np.nextafter(np.float32(5.0), np.float32(6.0))),
+                      5.0, 1.0, 2.0, 7.0, 8.0, 9.0, 10.0], device=cuda)
+    db = torch.stack([x, torch.zeros_like(x), torch.zeros_like(x)], -1)[None]
+    q = torch.zeros_like(db)
+    inv = torch.ones(1, 8, device=cuda)
+    for cls, want in (("exact", [2, 3, 1, 0]), ("packed", [2, 3, 0, 1]),
+                      ("bf16", [2, 3, 0, 1])):
+        for r in (nb.KNN_ROUTES["xyz"], nb.KNN_ROUTES["tiled"]):
+            assert nb._knn(q, db, 4, r, cls)[0, 0].tolist() == want
+            assert gr._knn_with_density(q, db, inv, 4, r, cls)[0][0, 0].tolist() \
+                == want
+    assert nb._lib().iq_knn(q.data_ptr(), db.data_ptr(), 0, 0, 1, 8, 8, 3, 4, 0,
+                            3, 0) != 0         # an unknown class is refused
+    nb.reset_launches()
+    gr.reset_launches()
+
+
+@pytest.mark.cuda
 def test_knn_routes_refuse_what_they_do_not_take(cuda):
     """k beyond either kernel's range, and the xyz route forced on a shape
     it does not take (more than 4 channels, a database that does not fit a
@@ -529,9 +626,9 @@ def _feature_knn_margin(x):
     from interpret_quality_tpu_torch.models import dgcnn
     rows, original = [], dgcnn.knn
 
-    def knn(query, database, k):
+    def knn(query, database, k, select=None):
         rows.append(query.detach().double())
-        return original(query, database, k)
+        return original(query, database, k, select=select)
     dgcnn.knn = knn
     try:
         _train_step("dgcnn", _train_model("dgcnn", "cpu"), x,

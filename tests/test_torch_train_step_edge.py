@@ -187,9 +187,9 @@ def recorded_knn_inputs():
     rows = []
     original = port_dgcnn.knn
 
-    def knn(query, database, k):
+    def knn(query, database, k, select=None):
         rows.append((query.detach().double().cpu(), k))
-        return original(query, database, k)
+        return original(query, database, k, select=select)
 
     port_dgcnn.knn = knn
     try:

@@ -28,6 +28,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 from scipy.special import comb
+from torch.profiler import record_function
 
 from ..config import (BALL_QUERY_COEF, ExperimentConfig,
                       MODELNET_INTER_SELECTED_SAMPLE,
@@ -35,7 +36,7 @@ from ..config import (BALL_QUERY_COEF, ExperimentConfig,
 from ..pipeline import load_frozen_model, resolve_dataset, split_forward
 from ..utils.io import (IOStream, load_torch_tensor, mkdir, save_npy,
                         save_torch_tensor)
-from ..utils.profiling import StageTimer
+from ..utils.profiling import StageTimer, device_trace
 from ..utils.region_geom import region_ball_neighbors
 from ..utils.rng import cal_rank, set_random
 from .coalitions import masked_interaction_batch
@@ -210,7 +211,11 @@ class InteractionEngine:
     All (pair, context) cells of a ratio are flattened into one list of keep
     masks, uploaded once, and forwarded ``batch_contexts`` cells (4 *
     ``batch_contexts`` clouds) at a time; the last chunk is shorter.  The
-    logits reach the host once per call.
+    logits reach the host once per call.  Its stages run inside the
+    profiler spans of ``ShapleyEngine``'s: ``iq_engine.keep`` (the inputs
+    and keep masks, built on the host and uploaded), ``iq_engine.mask``
+    (each chunk's masked batch), ``iq_forward`` (its forward) and
+    ``iq_engine.to_host``; it computes no reward or marginals.
 
     Args:
       forward_fn: ``(B, N, 3) -> (B, num_class)`` logits on ``device``:
@@ -261,17 +266,22 @@ class InteractionEngine:
         context_list: (num_pairs, num_context, m) region indices.
         """
         num_pairs, num_context = context_list.shape[0], context_list.shape[1]
-        data = self._tensor(data, torch.float32)
-        region_id = self._tensor(region_id, torch.int64)
-        keep_all = torch.from_numpy(self._keep_rows_np(
-            region_pair_list, context_list)).to(self.device)      # one upload
-        center = data.mean(dim=0)
+        with record_function("iq_engine.keep"):
+            data = self._tensor(data, torch.float32)
+            region_id = self._tensor(region_id, torch.int64)
+            keep_all = torch.from_numpy(self._keep_rows_np(
+                region_pair_list, context_list)).to(self.device)  # one upload
+            center = data.mean(dim=0)
         bs = self.batch_contexts
-        logits = [self.forward_fn(masked_interaction_batch(
-            data, center, keep_all[s:s + bs], region_id))
-            for s in range(0, keep_all.shape[0], bs)]
-        return torch.cat(logits).cpu().numpy().reshape(
-            num_pairs, 4 * num_context, -1)
+        logits = []
+        for s in range(0, keep_all.shape[0], bs):
+            with record_function("iq_engine.mask"):
+                batch = masked_interaction_batch(data, center,
+                                                 keep_all[s:s + bs], region_id)
+            logits.append(self.forward_fn(batch))
+        with record_function("iq_engine.to_host"):
+            return torch.cat(logits).cpu().numpy().reshape(
+                num_pairs, 4 * num_context, -1)
 
 
 def run_interaction_logits(cfg: ExperimentConfig, mode_name: str = "rotate",
@@ -281,7 +291,8 @@ def run_interaction_logits(cfg: ExperimentConfig, mode_name: str = "rotate",
                            sample_indices: Optional[list] = None,
                            gen_pair_seed: Optional[int] = None,
                            resume: bool = False,
-                           coalition_devices: Optional[Sequence] = None):
+                           coalition_devices: Optional[Sequence] = None,
+                           trace_dir: Optional[str] = None):
     """Save ratio<r>_all_logits.pt for the normal pose, the adv pose, and
     the rank-1 single region at the normal pose (reference
     final_point_binary_interaction_logits.py:83-136).
@@ -291,7 +302,8 @@ def run_interaction_logits(cfg: ExperimentConfig, mode_name: str = "rotate",
     randomness; default = cfg.seed.  ``resume`` skips (pose, ratio) outputs
     that exist and appends to the log; otherwise the log is rewritten.
     ``coalition_devices`` splits the 4-row batches over those devices
-    (``pipeline.split_forward``)."""
+    (``pipeline.split_forward``).  ``trace_dir`` writes a ``torch.profiler``
+    trace of each cloud's logits there (``utils.profiling.device_trace``)."""
     set_random(cfg.seed)
     folder_seed = cfg.seed if gen_pair_seed is None else gen_pair_seed
     mode = MODES[mode_name]
@@ -315,7 +327,8 @@ def run_interaction_logits(cfg: ExperimentConfig, mode_name: str = "rotate",
         with torch.inference_mode():
             data_disturb = mode.disturb_fn(torch.from_numpy(data).to(device),
                                            torch.from_numpy(params).to(device))
-        with IOStream(inter_folder + "log.txt", "a" if resume else "w") as io:
+        with IOStream(inter_folder + "log.txt", "a" if resume else "w") as io, \
+                device_trace(trace_dir, f"interaction_logits_{name}"):
             _interaction_logits_one(engine, io, data, data_disturb, region_id,
                                     name, inter_folder, mode_name, ratios,
                                     resume)

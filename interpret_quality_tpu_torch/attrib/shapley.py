@@ -6,6 +6,14 @@ Each step masks one cloud into a chunk of permutations' coalitions
 on the whole chunk, takes the reward, and scatters the marginals by region
 on the device.  Chunks and poses are a plain Python loop; results reach the
 host once per call.
+
+Every public method runs its stages inside profiler spans, beside the
+forward's ``iq_forward`` and the plan's ``iq_plan``: ``iq_engine.keep``
+(the call's inputs and each chunk's keep matrix and orders, built on the
+host and uploaded), ``iq_engine.mask`` (each masked batch, and each pose of
+it), ``iq_engine.marginals`` (the reward and the marginals of each forward,
+summed over its orders) and ``iq_engine.to_host`` (the results gathered and
+copied to the host).
 """
 from __future__ import annotations
 
@@ -13,6 +21,7 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..ops.precision import matmul
 from .coalitions import (keep_matrix_from_orders, marginals_by_region,
@@ -82,13 +91,21 @@ class ShapleyEngine:
             x = torch.tensor(np.asarray(x))         # a copy: inputs may be read-only
         return x.to(device=self.device, dtype=dtype)
 
+    def _inputs(self, *arrays):
+        """The call's cloud(s) as float32 and region ids as int64 on the
+        device (``iq_engine.keep``); ``arrays`` are (value, dtype) pairs."""
+        with record_function("iq_engine.keep"):
+            return [self._tensor(x, dtype) for x, dtype in arrays]
+
     def _chunks(self, orders: np.ndarray):
         """(keep (O, R+1, R) bool, orders (O, R) int64) per order chunk."""
         bs = min(self.batch_orders, orders.shape[0])
         for start in range(0, orders.shape[0], bs):
-            chunk = orders[start:start + bs]
-            yield (self._tensor(keep_matrix_from_orders(chunk), torch.bool),
-                   self._tensor(chunk, torch.int64))
+            with record_function("iq_engine.keep"):
+                chunk = orders[start:start + bs]
+                item = (self._tensor(keep_matrix_from_orders(chunk), torch.bool),
+                        self._tensor(chunk, torch.int64))
+            yield item
 
     def _marginals(self, logits: torch.Tensor, orders: torch.Tensor, label):
         """(O, R) per-order marginals by region of one chunk's logits."""
@@ -96,11 +113,19 @@ class ShapleyEngine:
         v = v.reshape(orders.shape[0], self.num_regions + 1)
         return marginals_by_region(v[:, 1:] - v[:, :-1], orders)
 
-    def _step(self, data, keep, orders, region_id, label):
-        """One chunk on one cloud: (dv_by_region (O, R), logits)."""
-        masked = masked_coalitions(data, data.mean(dim=0), keep, region_id)
-        logits = self.forward_fn(masked)
-        return self._marginals(logits, orders, label), logits
+    def _add_marginals(self, total, logits, orders, label):
+        """(total + the chunk's marginals summed over its orders, the
+        per-order marginals (O, R)); total None starts the sum."""
+        with record_function("iq_engine.marginals"):
+            dv = self._marginals(logits, orders, label)
+            sv = dv.sum(dim=0)
+            return (sv if total is None else total + sv), dv
+
+    def _step(self, data, keep, region_id):
+        """One chunk's masked batch of one cloud, forwarded: its logits."""
+        with record_function("iq_engine.mask"):
+            masked = masked_coalitions(data, data.mean(dim=0), keep, region_id)
+        return self.forward_fn(masked)
 
     # -------------------------------------------------------------- public
     @torch.inference_mode()
@@ -118,22 +143,22 @@ class ShapleyEngine:
           per-order contributions (S, R), in the reference's row layout.
         """
         orders = np.asarray(orders)
-        data = self._tensor(data)
-        region_id = self._tensor(region_id, torch.int64)
+        data, region_id = self._inputs((data, torch.float32),
+                                       (region_id, torch.int64))
         sv_sum = None
         logits_chunks: List[torch.Tensor] = []
         per_order_chunks: List[torch.Tensor] = []
         for keep, chunk in self._chunks(orders):
-            dv, logits = self._step(data, keep, chunk, region_id, label)
-            sv = dv.sum(dim=0)
-            sv_sum = sv if sv_sum is None else sv_sum + sv
+            logits = self._step(data, keep, region_id)
+            sv_sum, dv = self._add_marginals(sv_sum, logits, chunk, label)
             logits_chunks.append(logits)
             per_order_chunks.append(dv)
-        out = [sv_sum.cpu().numpy().astype(np.float64) / orders.shape[0]]
-        if return_logits:
-            out.append(torch.cat(logits_chunks, 0).cpu().numpy())
-        if return_per_order:
-            out.append(torch.cat(per_order_chunks, 0).cpu().numpy())
+        with record_function("iq_engine.to_host"):
+            out = [sv_sum.cpu().numpy().astype(np.float64) / orders.shape[0]]
+            if return_logits:
+                out.append(torch.cat(logits_chunks, 0).cpu().numpy())
+            if return_per_order:
+                out.append(torch.cat(per_order_chunks, 0).cpu().numpy())
         return tuple(out) if len(out) > 1 else out[0]
 
     @torch.inference_mode()
@@ -143,13 +168,15 @@ class ShapleyEngine:
 
         Returns (P, R) float64 numpy and, optionally, logits (P, S*(R+1), C).
         """
+        poses, = self._inputs((data_batch, torch.float32))
         results = [self.shapley_for_pose(d, label, region_id, orders,
                                          return_logits=return_logits)
-                   for d in self._tensor(data_batch)]
-        if not return_logits:
-            return np.stack(results)
-        return (np.stack([sv for sv, _ in results]),
-                np.stack([lg for _, lg in results]))
+                   for d in poses]
+        with record_function("iq_engine.to_host"):
+            if not return_logits:
+                return np.stack(results)
+            return (np.stack([sv for sv, _ in results]),
+                    np.stack([lg for _, lg in results]))
 
     @torch.inference_mode()
     def enum_all_poses(self, disturb_fn: Callable, data, all_params, label,
@@ -165,23 +192,24 @@ class ShapleyEngine:
            logits (P, S*(R+1), C) numpy or None).
         """
         orders = np.asarray(orders)
-        S = orders.shape[0]
-        data = self._tensor(data)
-        region_id = self._tensor(region_id, torch.int64)
+        data, region_id, params = self._inputs(
+            (data, torch.float32), (region_id, torch.int64),
+            (all_params, torch.float32))
         chunks = list(self._chunks(orders))
-        sv_poses, logits_poses = [], []
-        for param in self._tensor(all_params):
-            posed = disturb_fn(data, param)
+        sv_sums, logits_poses = [], []
+        for param in params:
+            with record_function("iq_engine.mask"):
+                posed = disturb_fn(data, param)
             sv_sum, logits_chunks = None, []
             for keep, chunk in chunks:
-                dv, logits = self._step(posed, keep, chunk, region_id, label)
-                sv = dv.sum(dim=0)
-                sv_sum = sv if sv_sum is None else sv_sum + sv
-                logits_chunks.append(logits)
-            sv_poses.append(sv_sum / S)
-            if return_logits:
-                logits_poses.append(torch.cat(logits_chunks, 0))
-        return self._enum_result(sv_poses, logits_poses, return_logits)
+                logits = self._step(posed, keep, region_id)
+                sv_sum, _ = self._add_marginals(sv_sum, logits, chunk, label)
+                if return_logits:
+                    logits_chunks.append(logits)
+            sv_sums.append(sv_sum)
+            logits_poses.append(logits_chunks)
+        return self._enum_result(sv_sums, orders.shape[0], logits_poses,
+                                 return_logits)
 
     @torch.inference_mode()
     def enum_all_poses_plan(self, disturb_fn: Callable, data, all_params,
@@ -192,33 +220,40 @@ class ShapleyEngine:
         plan once (models/plans.py), then forward every pose of the masked
         batch with that plan.  Same return contract."""
         orders = np.asarray(orders)
-        S = orders.shape[0]
-        data = self._tensor(data)
-        region_id = self._tensor(region_id, torch.int64)
-        params = self._tensor(all_params)
+        data, region_id, params = self._inputs(
+            (data, torch.float32), (region_id, torch.int64),
+            (all_params, torch.float32))
         P = params.shape[0]
         sv_sum: List[Optional[torch.Tensor]] = [None] * P
         logits_poses: List[List[torch.Tensor]] = [[] for _ in range(P)]
         for keep, chunk in self._chunks(orders):
-            masked = masked_coalitions(data, data.mean(dim=0), keep, region_id)
+            with record_function("iq_engine.mask"):
+                masked = masked_coalitions(data, data.mean(dim=0), keep,
+                                           region_id)
             plan = plan_fn(masked)                      # once per order chunk
             for p in range(P):
-                logits = apply_plan(disturb_fn(masked, params[p]), plan)
-                sv = self._marginals(logits, chunk, label).sum(dim=0)
-                sv_sum[p] = sv if sv_sum[p] is None else sv_sum[p] + sv
+                with record_function("iq_engine.mask"):
+                    posed = disturb_fn(masked, params[p])
+                logits = apply_plan(posed, plan)
+                sv_sum[p], _ = self._add_marginals(sv_sum[p], logits, chunk,
+                                                   label)
                 if return_logits:
                     logits_poses[p].append(logits)
-        return self._enum_result(
-            [sv / S for sv in sv_sum],
-            [torch.cat(lg, 0) for lg in logits_poses] if return_logits else [],
-            return_logits)
+        return self._enum_result(sv_sum, orders.shape[0], logits_poses,
+                                 return_logits)
 
     @staticmethod
-    def _enum_result(sv_poses, logits_poses, return_logits):
-        sv = torch.stack(sv_poses).cpu().numpy().astype(np.float64)
-        if not return_logits:
-            return sv, None
-        return sv, torch.stack(logits_poses).cpu().numpy()
+    def _enum_result(sv_sums, num_orders, logits_poses, return_logits):
+        """(P, R) float64 Shapley values from each pose's marginal sums
+        over ``num_orders`` orders and, with ``return_logits``, the poses'
+        logits (P, S*(R+1), C), from each pose's list of chunk logits."""
+        with record_function("iq_engine.to_host"):
+            sv = (torch.stack(sv_sums) / num_orders).cpu().numpy().astype(
+                np.float64)
+            if not return_logits:
+                return sv, None
+            return sv, torch.stack([torch.cat(lg, 0) for lg in logits_poses]
+                                   ).cpu().numpy()
 
 
 @torch.inference_mode()

@@ -26,7 +26,8 @@ def main(argv=None):
                            sample_indices=sample_indices_from_args(args),
                            gen_pair_seed=args.gen_pair_seed,
                            resume=args.resume,
-                           coalition_devices=split_from_args(args))
+                           coalition_devices=split_from_args(args),
+                           trace_dir=args.trace_dir)
 
 
 if __name__ == "__main__":

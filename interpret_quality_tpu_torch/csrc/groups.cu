@@ -442,6 +442,7 @@ ball_mlp3_kernel(const float* __restrict__ new_xyz, const float* __restrict__ xy
                  const float* __restrict__ a1x, const float* __restrict__ wfrag,
                  const float* __restrict__ b2, const float* __restrict__ b3,
                  float* __restrict__ out, int* __restrict__ counter,
+                 unsigned long long* __restrict__ rows_count,
                  const int* __restrict__ first_copy, int B, int S, int N, int K, int C1,
                  int C2, int C3, float r2, int CB, int nbuf) {
   extern __shared__ __align__(16) float smem[];
@@ -537,6 +538,7 @@ ball_mlp3_kernel(const float* __restrict__ new_xyz, const float* __restrict__ xy
       if (threadIdx.x == 0) {
         first[0] = 0;
         for (int q = 0; q < nc; ++q) first[q + 1] = first[q] + nball[q];
+        if (rows_count != nullptr) atomicAdd(rows_count, (unsigned long long)first[nc]);
       }
       __syncthreads();
       for (int q = warp; q < nc; q += kThreads / 32)
@@ -1131,12 +1133,15 @@ extern "C" {
 
 // scratch: 4 + C1*C2 + C2*C3 floats of device memory on a 16-byte boundary
 // (the batch counter, then both layers' weights in fragment order), and
-// without uf B*N more (each point's first copy).  prec: the matmul precision
-// of layers 2-3 (kPrecHighest, kPrecHigh or kPrecDefault).
+// without uf B*N more (each point's first copy).  rows_count: nullptr, or a
+// 64-bit counter to which each batch of centres adds the rows it queues
+// for layers 2-3 (one atomicAdd a batch).  prec: the matmul precision of
+// layers 2-3 (kPrecHighest, kPrecHigh or kPrecDefault).
 int iq_ball_mlp3(const float* new_xyz, const float* xyz, const float* uf, const float* b1,
                  const float* a1x, const float* a2, const float* b2, const float* a3,
-                 const float* b3, float* out, float* scratch, int B, int S, int N, int K,
-                 int C1, int C2, int C3, float r2, int prec, void* stream) {
+                 const float* b3, float* out, float* scratch, unsigned long long* rows_count,
+                 int B, int S, int N, int K, int C1, int C2, int C3, float r2, int prec,
+                 void* stream) {
   if (B <= 0 || S <= 0) return cudaSuccess;
   const int widths = (C2 / 32) * 16 + C3 / 32;
   if (prec < kPrecHighest || prec > kPrecDefault) return cudaErrorInvalidValue;
@@ -1185,8 +1190,8 @@ int iq_ball_mlp3(const float* new_xyz, const float* xyz, const float* uf, const 
   const Kernel kernel = kernels[uf != nullptr][prec];
   if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
   kernel<<<grid, kThreads, smem, s>>>(new_xyz, xyz, uf, b1, a1x, frag2, b2, b3, out, counter,
-                                      uf != nullptr ? nullptr : first_copy, B, S, N, K, C1,
-                                      C2, C3, r2, CB, nbuf);
+                                      rows_count, uf != nullptr ? nullptr : first_copy, B, S,
+                                      N, K, C1, C2, C3, r2, CB, nbuf);
   return cudaGetLastError();
 }
 

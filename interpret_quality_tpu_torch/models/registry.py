@@ -5,6 +5,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.profiler import record_function
 
 from .dgcnn import DGCNNCls, GCNNCls
 from .pointconv import PointConvDensityClsSsg
@@ -41,25 +42,30 @@ def _logits(out):
 
 class ForwardFn:
     """Logits function ``(B, N, 3) -> (B, num_class)`` of a frozen eval
-    model, plus the pose-invariant plan hooks the enumeration uses."""
+    model, plus the pose-invariant plan hooks the enumeration uses.  Each
+    forward runs inside a profiler span ``iq_forward``, each plan inside
+    ``iq_plan``."""
 
     def __init__(self, model: torch.nn.Module):
         self.model = model.eval()
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        return _logits(self.model(x))
+        with record_function("iq_forward"):
+            return _logits(self.model(x))
 
     def plan_fn(self, x: torch.Tensor):
         """Pure-geometry plan of a coalition batch (models/plans.py), or
         None for a family without one (PointNet)."""
         from .plans import make_plan_fn
-        builder = make_plan_fn(self.model)
-        return None if builder is None else builder(x)
+        with record_function("iq_plan"):
+            builder = make_plan_fn(self.model)
+            return None if builder is None else builder(x)
 
     def apply_plan_fn(self, x: torch.Tensor, plan) -> torch.Tensor:
         if plan is None:
             return self(x)
-        return _logits(self.model(x, plan=plan))
+        with record_function("iq_forward"):
+            return _logits(self.model(x, plan=plan))
 
 
 def make_forward_fn(model: torch.nn.Module) -> ForwardFn:

@@ -47,7 +47,9 @@ tensors it launches its kernel or raises; there is no fallback.  Each launch
 adds one to ``LAUNCHES[name]`` and runs inside a profiler span named after
 its launcher (``iq_ball_mlp3``, ...); a launch at another setting than the
 exact one counts in ``ROUTE_LAUNCHES`` as well (``gather_rows:bf16``,
-``fused_ball_mlp3:default``, ...).
+``fused_ball_mlp3:default``, ...).  While a profiler records,
+``fused_ball_mlp3``'s kernel adds the rows it multiplies to the work counter
+``K5_ROWS`` (``utils.profiling``).
 """
 from __future__ import annotations
 
@@ -59,6 +61,7 @@ import torch
 from torch.profiler import record_function
 
 from ... import config
+from ...utils import profiling
 from ..geometry import (index_points, query_ball_point, sorted_topk_indices,
                         square_distance)
 from ..precision import gather_values, knn_class, value_parts
@@ -76,6 +79,11 @@ ROUTE_LAUNCHES = {"gather_rows:bf16": 0, "fused_ball_mlp3:high": 0,
                   "fused_ball_mlp3:default": 0, "fused_pointconv_sa:high": 0,
                   "fused_pointconv_sa:default": 0,
                   "knn_with_density:packed": 0, "knn_with_density:bf16": 0}
+# the work counter of fused_ball_mlp3 (``utils.profiling.accumulator``): the rows
+# the kernel multiplies through layers 2-3, each centre's filled slots
+# (without feature rows the fresh ones: no earlier point at its very
+# coordinates), every centre counted, repeated ones too
+K5_ROWS = "k5_rows"
 # the prec argument of iq_ball_mlp3 and iq_pointconv_sa (kPrec* in the source)
 PRECISION_CODES = {"highest": 0, "high": 1, "default": 2}
 
@@ -100,7 +108,7 @@ def reset_launches() -> None:
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load("groups")
-    lib.iq_ball_mlp3.argtypes = [P] * 11 + [I] * 7 + [F, I, P]
+    lib.iq_ball_mlp3.argtypes = [P] * 12 + [I] * 7 + [F, I, P]
     lib.iq_knn_density.argtypes = [P] * 7 + [I] * 7 + [P]
     lib.iq_knn_density_route.argtypes = [I, I, I, P]
     lib.iq_pointconv_sa.argtypes = [P] * 13 + [I] * 8 + [P]
@@ -218,11 +226,17 @@ def fused_ball_mlp3(new_xyz: torch.Tensor, xyz: torch.Tensor,
     scratch = torch.empty(4 + C1 * C2 + C2 * C3 + (B * N if uf is None else 0),
                           dtype=torch.float32,
                           device=xyz.device)
+    # the rows layers 2-3 multiply, counted by the kernel while a profiler
+    # records (``K5_ROWS``); otherwise it gets no counter
+    rows = (profiling.accumulator(K5_ROWS, xyz.device) if profiling.tracing()
+            else None)
     with record_function("iq_ball_mlp3"):
         rc = _lib().iq_ball_mlp3(new_xyz.data_ptr(), xyz.data_ptr(),
                                  None if uf is None else uf.data_ptr(),
                                  *[t.data_ptr() for t in w], out.data_ptr(),
-                                 scratch.data_ptr(), B, S, N, k, C1, C2, C3,
+                                 scratch.data_ptr(),
+                                 None if rows is None else rows.data_ptr(),
+                                 B, S, N, k, C1, C2, C3,
                                  radius ** 2, PRECISION_CODES[precision],
                                  stream(xyz))
     raise_on(rc, "iq_ball_mlp3")

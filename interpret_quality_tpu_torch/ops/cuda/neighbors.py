@@ -28,6 +28,10 @@ database fits shared memory, else the tiled selection that
 (``gather_extrema_route``): a column slice of the cloud staged in shared
 memory, and for clouds whose slice does not fit, rows read through the
 cache.  ``_knn`` and ``_gather_extrema`` force a route, for the checks.
+While a profiler records, ``knn_gather_extrema`` adds the distances its
+kernel computes, distinct query rows times database rows, to the work
+counter ``K3_DISTANCES`` (``utils.profiling``), from the count of distinct
+rows the launch leaves in its scratch.
 
 The gathers follow ``--gather_precision`` where their TPU counterparts
 split the values into bf16 planes (``parts``): at ``bf16`` (parts 1) each
@@ -60,6 +64,7 @@ from typing import Optional, Tuple
 import torch
 from torch.profiler import record_function
 
+from ...utils import profiling
 from ..geometry import index_points, sorted_topk_indices, square_distance
 from ..precision import gather_values, knn_class, value_parts
 from . import build
@@ -72,6 +77,10 @@ LAUNCHES = {"knn": 0, "gather_extrema": 0, "knn_gather_extrema": 0}
 ROUTE_LAUNCHES = {"gather_extrema:bf16": 0, "knn:packed": 0, "knn:bf16": 0,
                   "knn_gather_extrema:packed": 0,
                   "knn_gather_extrema:bf16": 0}
+# the work counter of knn_gather_extrema (``utils.profiling.accumulator``): per
+# launch, the sum over clouds of the distinct query rows times the N
+# database rows the kernel scans for each
+K3_DISTANCES = "k3_distances"
 # the sel argument of iq_knn, iq_knn_gather_extrema and iq_knn_density, by
 # selection class (kSel* in knn_select.cuh)
 SELECT_CODES = {"exact": 0, "packed": 1, "bf16": 2}
@@ -343,6 +352,9 @@ def _knn_gather_extrema(xs: torch.Tensor, a: torch.Tensor, k: int,
                                           scratch.data_ptr(), B, N, C, F, k,
                                           SELECT_CODES[cls], stream(xs))
     raise_on(rc, "iq_knn_gather_extrema")
+    if profiling.tracing():     # after the span: the kernel's time is its own
+        profiling.accumulator(K3_DISTANCES, xs.device).add_(
+            scratch[2 * B * N:].sum(), alpha=N)
     LAUNCHES["knn_gather_extrema"] += 1
     count_select("knn_gather_extrema", cls)
     return amax, amin

@@ -38,6 +38,7 @@ from typing import Callable, Optional
 import torch
 
 from .. import config
+from ..utils import profiling
 
 
 def set_matmul_precision(precision: Optional[str] = None) -> None:
@@ -182,11 +183,29 @@ def _bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 CARD_PRODUCTS = {"high": _tf32_matmul, "default": _bf16_matmul}
 
 
+# the work counter of ``matmul`` (``utils.profiling.count``)
+DENSE_PRODUCTS = "dense_products"
+
+
+def product_operations(x: torch.Tensor, w: torch.Tensor) -> int:
+    """Operations of the product x @ w (``torch.matmul`` broadcasting), 2 a
+    multiply-add, from the shapes alone: 2 x rows x in x out, the rows
+    every leading index of the broadcast result."""
+    rows = x.shape[-2] if x.dim() > 1 else 1
+    cols = w.shape[-1] if w.dim() > 1 else 1
+    batch = torch.broadcast_shapes(x.shape[:-2], w.shape[:-2])
+    return 2 * batch.numel() * rows * x.shape[-1] * cols
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor,
            precision: Optional[str] = None) -> torch.Tensor:
     """x @ w at ``precision`` (None: ``config.matmul_precision()``) on the
     card; f32 on the CPU and at ``highest``, where it is ``torch.matmul``
-    itself.  Differentiable in both operands."""
+    itself.  Differentiable in both operands.  While a profiler records,
+    the forward product's operations (``product_operations``) count in
+    ``DENSE_PRODUCTS``."""
+    if profiling.tracing():
+        profiling.count(DENSE_PRODUCTS, product_operations(x, w))
     if precision is None:
         precision = config.matmul_precision()
     elif precision not in config.MATMUL_PRECISIONS:

@@ -1,4 +1,4 @@
-"""Stage timing and tracing.
+"""Stage timing, tracing and work counters.
 
 ``StageTimer`` prints one JSON line per stage with the raw item count beside
 the seconds, so aggregators sum items directly instead of multiplying back
@@ -6,6 +6,17 @@ through a rounded rate.  Stages end by copying their results to the host,
 which waits for the device, so the wall clock covers the device work.
 ``device_trace`` wraps a stage's device work in a ``torch.profiler`` trace.
 ``device_line`` names the hardware a measurement ran on.
+
+Work counters count what the program really does, beside the profiler's
+spans, and only while a ``torch.profiler`` records (``tracing``), so an
+untraced run counts nothing and launches nothing for them.  A count made
+from shapes is a host int (``count``); one the device knows is added on
+the device into an int64 accumulator (``accumulator``), by a kernel or by
+the caller, so that nothing waits for it.  ``counters`` reads them all,
+with one synchronisation per device, and ``reset_counters`` clears them.
+The counters (each documented where it is counted): ``dense_products``
+(``ops.precision.matmul``), ``k3_distances`` (``ops.cuda.neighbors``),
+``k5_rows`` (``ops.cuda.groups``).
 """
 from __future__ import annotations
 
@@ -15,7 +26,15 @@ import os
 import re
 import subprocess
 import time
-from typing import Optional
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch.autograd import profiler as autograd_profiler
+
+# counts from shapes, on the host
+_HOST_COUNTS: Dict[str, int] = {}
+# int64 (1,) accumulators on a device, by (counter, device)
+_DEVICE_COUNTS: Dict[Tuple[str, torch.device], torch.Tensor] = {}
 
 
 class StageTimer:
@@ -73,7 +92,6 @@ def device_trace(trace_dir: Optional[str], name: str):
     if not trace_dir:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -85,3 +103,48 @@ def device_trace(trace_dir: Optional[str], name: str):
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(
         trace_dir, re.sub(r"[^\w.-]", "_", name) + ".pt.trace.json"))
+
+
+def tracing() -> bool:
+    """True while a ``torch.profiler`` (or ``torch.autograd.profiler``)
+    records on this process."""
+    return autograd_profiler._is_profiler_enabled
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the host counter ``name`` while a profiler records
+    (else nothing)."""
+    if tracing():
+        _HOST_COUNTS[name] = _HOST_COUNTS.get(name, 0) + int(n)
+
+
+def accumulator(name: str, device) -> torch.Tensor:
+    """The int64 (1,) accumulator of counter ``name`` on ``device``, made
+    zero at first use.  Callers add into it, or hand it to a kernel that
+    does, only while ``tracing()``."""
+    key = (name, torch.device(device))
+    acc = _DEVICE_COUNTS.get(key)
+    if acc is None:
+        acc = _DEVICE_COUNTS[key] = torch.zeros(1, dtype=torch.int64,
+                                                device=key[1])
+    return acc
+
+
+def counters() -> Dict[str, int]:
+    """Every counter's total since the last ``reset_counters``, as ints;
+    the device accumulators are read once, one synchronisation a device."""
+    out = dict(_HOST_COUNTS)
+    by_device: Dict[torch.device, list] = {}
+    for (name, device), acc in _DEVICE_COUNTS.items():
+        by_device.setdefault(device, []).append((name, acc))
+    for entries in by_device.values():
+        values = torch.cat([acc for _, acc in entries]).tolist()
+        for (name, _), v in zip(entries, values):
+            out[name] = out.get(name, 0) + int(v)
+    return out
+
+
+def reset_counters() -> None:
+    """Drop every counter, on the host and on the devices."""
+    _HOST_COUNTS.clear()
+    _DEVICE_COUNTS.clear()

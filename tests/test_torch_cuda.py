@@ -1045,3 +1045,66 @@ def test_precision_product_on_the_card(cuda, precision):
                      <= 128 * 2.0 ** -24 * (ones @ rw.abs().T)).all())
     assert not torch.backends.cuda.matmul.allow_tf32
     assert torch.equal(pr.matmul(x, w, "highest"), torch.matmul(x, w))
+
+
+# ------------------------------------------------------------ work counters
+def _traced(fn):
+    """fn() under a profiler of the card, the work counters cleared first:
+    (its result, the counters)."""
+    from torch.profiler import ProfilerActivity, profile
+    from interpret_quality_tpu_torch.utils import profiling
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        out = fn()
+    counts = profiling.counters()
+    profiling.reset_counters()
+    return out, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_uf", [False, True])
+def test_ball_mlp3_counts_its_rows(cuda, with_uf):
+    """Traced, kernel 5 counts each centre's filled slots (the first k
+    in-ball points; without feature rows those with no earlier point at
+    their very coordinates), every centre, a repeated one too; its output
+    is bit-equal to the untraced launch's.  Half of each cloud sits on its
+    first point and every third point is a centre; no point lies within
+    4e-5 of a ball's boundary, so f32 rounding decides no membership."""
+    g = torch.Generator().manual_seed(12)
+    xyz = _cloud(cuda, 2, 512, 12)
+    new_xyz = xyz[:, ::3].contiguous()
+    w, a1f = _ball_weights(g, (64, 64, 128), with_uf, cuda)
+    uf = torch.randn(2, 512, 5, generator=g).to(cuda) @ a1f if with_uf else None
+    radius, k = 0.2, 32
+    off = gr.fused_ball_mlp3(new_xyz, xyz, uf, *w, radius=radius, k=k)
+    on, counts = _traced(lambda: gr.fused_ball_mlp3(new_xyz, xyz, uf, *w,
+                                                   radius=radius, k=k))
+    assert torch.equal(on, off)
+    d2 = ((new_xyz.double()[:, :, None] - xyz.double()[:, None]) ** 2).sum(-1)
+    assert float((d2 - radius ** 2).abs().min()) > 4e-5
+    inside = d2 <= radius ** 2
+    rows = inside & (torch.cumsum(inside, -1) <= k)
+    if not with_uf:
+        same = (xyz[:, :, None] == xyz[:, None]).all(-1)       # (B, N, N)
+        copy = torch.tril(same, diagonal=-1).any(-1)            # an earlier twin
+        rows &= ~copy[:, None, :]
+    per_centre = torch.where(inside.any(-1), rows.sum(-1), 1)
+    assert counts == {gr.K5_ROWS: int(per_centre.sum())}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [3, 64])
+def test_knn_gather_extrema_counts_its_distances(cuda, C):
+    """Traced, kernel 3 counts its distinct query rows times the N rows it
+    scans for each; its output is bit-equal to the untraced launch's."""
+    g = torch.Generator().manual_seed(5)
+    xs = torch.randn(3, 700, C, generator=g)
+    xs[0, 350:] = xs[0, :1]
+    xs[1, 100:] = xs[1, 5:6]
+    xs, a = xs.to(cuda), torch.randn(3, 700, 40, generator=g).to(cuda)
+    off = nb.knn_gather_extrema(xs, a, 20)
+    on, counts = _traced(lambda: nb.knn_gather_extrema(xs, a, 20))
+    assert torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])
+    distinct = sum(torch.unique(x, dim=0).shape[0] for x in xs.cpu())
+    assert distinct == 350 + 100 + 700
+    assert counts == {nb.K3_DISTANCES: distinct * 700}

@@ -87,7 +87,7 @@ def test_split_from_args():
 @pytest.mark.parametrize("cli,stage,traced", [
     ("shapley_value", "run_shapley_init", True),
     ("enum", "run_enum", True),
-    ("interaction_logits", "run_interaction_logits", False),
+    ("interaction_logits", "run_interaction_logits", True),
     ("smoothness_enum", "run_smoothness", False)])
 def test_clis_pass_the_split_and_the_trace_dir(cli, stage, traced,
                                                monkeypatch):
@@ -297,3 +297,5 @@ def test_trace_dir_writes_a_trace_per_stage_call(tmp_path, monkeypatch):
     with open(traces / "shapley_init_synthetic_00.pt.trace.json") as f:
         names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
     assert any(n.startswith("aten::") for n in names)
+    assert {"iq_forward", "iq_engine.keep", "iq_engine.mask",
+            "iq_engine.marginals", "iq_engine.to_host"} <= names

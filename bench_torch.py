@@ -92,8 +92,9 @@ def reference_fwds_per_sec(model: str, num_points: int = 1024):
 
 
 def _counters():
-    from interpret_quality_tpu_torch.ops.cuda import fps, groups, neighbors
-    return (neighbors, fps, groups)
+    from interpret_quality_tpu_torch.ops.cuda import (dense, fps, groups,
+                                                      neighbors)
+    return (neighbors, fps, groups, dense)
 
 
 def reset_launches() -> None:

@@ -8,7 +8,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
   1. build   one nvcc per kernel source of interpret_quality_tpu_torch
              (csrc/*.cu), all started together, into build/torch_kernels/.
-  2. kernels each of the eight kernels at the main path's shapes — the
+  2. kernels each of the nine kernels at the main path's shapes — the
              masked-coalition batch of one synthetic cloud (50 orders x 33
              rows = 1650 clouds of 1024 points) and each layer or level a
              forward gives it, with a seeded model's own weights — against
@@ -39,7 +39,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  (B, S, K, C) tensors of up to 55 GB);
                gather_rows (GCNN layer 2's 64-wide input at its kNN indices):
                  bit-equal, beside one torch.gather call, the library's
-                 version of the same function.
+                 version of the same function;
+               dense_pool (DGCNN's head on its four edge outputs): rtol
+                 1e-4 / atol 1e-5, a second launch bit-equal, beside
+                 today's cuBLAS product and PyTorch tail (library_ms).
   3. model   full-width logits of all five families through the kernels vs
              the same modules on the plain versions (PointNet, which has no
              kernel: card vs CPU), every BatchNorm randomised, on one
@@ -295,8 +298,8 @@ TRAIN_BATCH, TRAIN_STEPS = 32, 10
 TRAIN_ORDERS = 50
 # the kernels of each family's eval forward (fit's eval pass), and those a
 # train step launches: the index kernels only, never one that folds BN
-FAMILY_KERNELS = {"dgcnn": ("knn_gather_extrema",),
-                  "gcnn": ("knn", "gather_extrema"),
+FAMILY_KERNELS = {"dgcnn": ("knn_gather_extrema", "dense_pool"),
+                  "gcnn": ("knn", "gather_extrema", "dense_pool"),
                   "pointnet2": ("fps", "fused_ball_mlp3"),
                   "pointconv": ("fps", "knn_with_density", "fused_pointconv_sa"),
                   "pointnet": ()}
@@ -333,9 +336,10 @@ TRAIN_CUTS = ("two epochs of the family's 200-400 (the schedules run over "
 # .t7 on its 64 synthetic clouds, Shapley init on the adv model by its
 # default path; ADV_STEPS adversarial steps on one fixed batch; the attack
 # card against CPU on ATTACK_CLOUDS clouds.  Its train steps and attacks
-# launch kNN (the un-fused GCNN graph), its eval passes gather_extrema too.
+# launch kNN (the un-fused GCNN graph), its eval passes gather_extrema and
+# dense_pool too.
 ADV_EPOCHS, ADV_BATCH, ADV_ORDERS, ADV_STEPS = 2, 16, 50, 10
-ADV_KERNELS = ("knn", "gather_extrema")
+ADV_KERNELS = ("knn", "gather_extrema", "dense_pool")
 ATTACK_CLOUDS = 4
 # The attack card against CPU, both f32 through the same seeded GCNN: the
 # first step's (g_alpha, g_theta, g_phi) within ATTACK_GRAD_REL of the
@@ -481,6 +485,12 @@ ROUTE_SOURCES = {"gather_extrema": ("neighbors", "neighbors.py:424"),
 OFF_PATH = {"gather_rows": "no entry point of the JAX package calls "
                            "gather_rows (only its kernel test does), so none "
                            "of the port's does"}
+# Kernels that replace no TPU kernel, and why each was added
+NO_TPU_KERNEL = {"dense_pool": "the JAX package leaves DGCNN's head to XLA, "
+                               "which fuses it on the TPU; on the card the "
+                               "head was a cuBLAS f32 product and six "
+                               "PyTorch passes over a (B, N, 1024) "
+                               "activation, 45% of a DGCNN forward"}
 
 
 def emit(obj) -> None:
@@ -1474,12 +1484,63 @@ def check_gather_rows(gr, values, idx):
             gr.LAUNCHES["gather_rows"])
 
 
+def check_dense(dn, masked, device):
+    """Kernel 9 on DGCNN's four edge outputs of the masked batch (1650
+    clouds of 1024 points): within rtol 1e-4 / atol 1e-5 of dense_pool_plain
+    (the split drops lo*lo and sums in another order), a second launch
+    bit-equal; timed beside its plain version and, as library_ms, today's
+    cuBLAS product and PyTorch tail on the concatenated rows.  The bound
+    counts the products on the distinct points.  Returns (numbers,
+    detail)."""
+    import torch
+    from interpret_quality_tpu_torch.models.common import bn_eval, leaky_relu02
+    from interpret_quality_tpu_torch.models.dgcnn import edge_conv
+    model = seeded_model("dgcnn", device)
+    conv, bn = model.conv5[0], model.bn5
+    with torch.inference_mode():
+        feats, h = [], masked
+        for block in (model.conv1, model.conv2, model.conv3, model.conv4):
+            h = edge_conv(h, block, K)
+            feats.append(h)
+        got = dn.dense_pool(feats, conv, bn)
+        want = dn.dense_pool_plain(feats, conv, bn)
+        torch.cuda.synchronize()
+        if not torch.allclose(got, want, rtol=1e-4, atol=1e-5):
+            raise AssertionError("dense_pool: kernel differs from its plain "
+                                 "version beyond rtol 1e-4 / atol 1e-5")
+        if not torch.equal(dn.dense_pool(feats, conv, bn), got):
+            raise AssertionError("dense_pool: two launches differ")
+        max_abs = float((got - want).abs().max())
+        del got, want
+        cat = torch.cat(feats, dim=-1)
+        w = conv.weight.reshape(conv.weight.shape[0], -1)
+
+        def library():
+            y = leaky_relu02(bn_eval(torch.matmul(cat, w.T), bn))
+            return torch.cat([y.amax(dim=1), y.mean(dim=1)], dim=-1)
+        t_k = cuda_ms(lambda: dn.dense_pool(feats, conv, bn))
+        t_p = cuda_ms(lambda: dn.dense_pool_plain(feats, conv, bn))
+        t_l = cuda_ms(library)
+    B, Kin, C = masked.shape[0], cat.shape[2], w.shape[0]
+    del feats, cat
+    distinct = distinct_row_count(masked)
+    bound, by = bound_ms(4 * (B * N * Kin + Kin * C + 4 * C + 2 * B * C),
+                         2 * C * distinct, matrix_ops=2 * Kin * C * distinct)
+    detail = {"kernel": "dense_pool", "B": B, "N": N, "K": Kin, "C": C,
+              "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+              "bound_ms": bound, "distinct_rows": distinct / (B * N),
+              "max_abs_diff": max_abs, "repeat_bit_equal": True}
+    return (dict(max_abs_err=max_abs, ms=t_k, plain_ms=t_p, bound_ms=bound,
+                 bound_by=by, library_ms=t_l), detail)
+
+
 # Model attributes that hold a kernel wrapper, and the plain version each
 # is swapped for in plain_kernels()
 KERNEL_CALLS = {
     "dgcnn": {"knn": "neighbors.knn_plain",
               "gather_extrema": "neighbors.gather_extrema_plain",
-              "knn_gather_extrema": "neighbors.knn_gather_extrema_plain"},
+              "knn_gather_extrema": "neighbors.knn_gather_extrema_plain",
+              "dense_pool": "dense.dense_pool_plain"},
     "pointnet2": {"fps": "fps.fps_plain",
                   "fused_ball_mlp3": "groups.fused_ball_mlp3_plain"},
     "pointconv": {"fps": "fps.fps_plain",
@@ -1690,16 +1751,23 @@ def precision_setting(matmul: str, parts: int):
         config.set_gather_value_parts(2)
 
 
+def launch_counters():
+    """The kernel modules: each counts its launches in LAUNCHES, and all
+    but fps those at a non-exact setting in ROUTE_LAUNCHES."""
+    from interpret_quality_tpu_torch.ops.cuda import (dense, fps, groups,
+                                                      neighbors)
+    return (neighbors, fps, groups, dense)
+
+
 def reset_all_launches():
-    from interpret_quality_tpu_torch.ops.cuda import fps, groups, neighbors
-    for c in (neighbors, fps, groups):
+    for c in launch_counters():
         c.reset_launches()
 
 
 def route_launches():
     """Launches of each route of a non-exact setting (ROUTE_LAUNCHES)."""
-    from interpret_quality_tpu_torch.ops.cuda import groups, neighbors
-    return {**neighbors.ROUTE_LAUNCHES, **groups.ROUTE_LAUNCHES}
+    return {k: v for c in launch_counters()
+            for k, v in getattr(c, "ROUTE_LAUNCHES", {}).items()}
 
 
 def check_gather_bf16(nb, layers, idx):
@@ -2113,9 +2181,11 @@ def precision_shapley(device, ck, workdir):
         del model
         torch.cuda.empty_cache()
     need = {"default": ("gather_extrema:bf16", "fused_ball_mlp3:default",
-                        "fused_pointconv_sa:default", "knn_gather_extrema",
-                        "gather_extrema", "knn", "fps", "knn_with_density"),
-            "high": ("fused_ball_mlp3:high", "fused_pointconv_sa:high")}
+                        "fused_pointconv_sa:default", "dense_pool:default",
+                        "knn_gather_extrema", "gather_extrema", "knn", "fps",
+                        "knn_with_density"),
+            "high": ("fused_ball_mlp3:high", "fused_pointconv_sa:high",
+                     "dense_pool:high")}
     for mm, keys in need.items():
         own = (f":{mm}",) + ((":bf16",) if dict(PRECISION_SETTINGS)[mm] == 1
                              else ())
@@ -2647,8 +2717,7 @@ def run_main_path(workdir):
               "--checkpoints_root", workdir + "/ck",
               "--num_points", str(N), "--num_regions", str(R)]
     spec = main_path()
-    from interpret_quality_tpu_torch.ops.cuda import fps, groups, neighbors
-    counters = (neighbors, fps, groups)
+    counters = launch_counters()
     for c in counters:
         c.reset_launches()
 
@@ -2895,11 +2964,10 @@ def run_real_data(workdir):
     from interpret_quality_tpu_torch.config import ExperimentConfig
     from interpret_quality_tpu_torch.data.datasets import (
         farthest_point_sample_np)
-    from interpret_quality_tpu_torch.ops.cuda import fps, groups, neighbors
     from interpret_quality_tpu_torch.pipeline import resolve_dataset
     root, ck = os.path.join(workdir, "data"), os.path.join(workdir, "ck")
     write_real_trees(root)
-    out, counters = {}, (neighbors, fps, groups)
+    out, counters = {}, launch_counters()
     for c in counters:
         c.reset_launches()
     for dataset in ("modelnet10", "shapenet"):
@@ -2977,8 +3045,7 @@ def run_real_data(workdir):
 
 # ------------------------------------------------------------------- train
 def all_launches():
-    from interpret_quality_tpu_torch.ops.cuda import fps, groups, neighbors
-    return {k: v for c in (neighbors, fps, groups) for k, v in c.LAUNCHES.items()}
+    return {k: v for c in launch_counters() for k, v in c.LAUNCHES.items()}
 
 
 def launches_since(before):
@@ -4475,6 +4542,7 @@ def main() -> int:
             log(f"{key} unset: the script runs at the port's defaults")
     sys.path.insert(0, REPO)
     from interpret_quality_tpu_torch.ops.cuda import build
+    from interpret_quality_tpu_torch.ops.cuda import dense as dn
     from interpret_quality_tpu_torch.ops.cuda import fps as fp
     from interpret_quality_tpu_torch.ops.cuda import groups as gr
     from interpret_quality_tpu_torch.ops.cuda import neighbors as nb
@@ -4504,6 +4572,8 @@ def main() -> int:
         gr, inputs["gcnn"][0][1][0].contiguous(), inputs["gcnn"][1])
     del inputs, idx
     torch.cuda.empty_cache()
+    k9, d9 = check_dense(dn, masked, device)
+    torch.cuda.empty_cache()
     with torch.inference_mode():
         k4, d4 = check_fps(fp, masked)
         k5, d5 = check_ball_mlp3(gr, fp, seeded_model("pointnet2", device),
@@ -4516,7 +4586,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         split = pointconv_forward_split(pconv, masked)
         del pconv
-    for d in d1 + d2 + d3 + d4 + d5 + d67 + d16 + [d8]:
+    for d in d1 + d2 + d3 + d4 + d5 + d67 + d16 + [d8, d9]:
         emit({"phase": "kernel_shape", **d})
     emit({"phase": "pointconv_forward_split", **split})
     torch.cuda.empty_cache()
@@ -4641,10 +4711,13 @@ def main() -> int:
             ("fused_ball_mlp3", "groups", "groups.py:250", k5),
             ("knn_with_density", "groups", "groups.py:337", k6),
             ("fused_pointconv_sa", "groups", "groups.py:469", k7),
-            ("gather_rows", "groups", "groups.py:171", k8))
+            ("gather_rows", "groups", "groups.py:171", k8),
+            ("dense_pool", "dense", None, k9))
     emit({"kernels": [
         {"name": kname, "route": "cuda", "source": src(module),
-         "replaces": pallas + where, "launches": launches[kname],
+         "replaces": pallas + where if where else None,
+         **({"note": NO_TPU_KERNEL[kname]} if kname in NO_TPU_KERNEL else {}),
+         "launches": launches[kname],
          "train_launches": train["launches"][kname] + adv_launches[kname]
          + rob_launches[kname] + dp_launches[kname],
          "bench_launches": bench_launches.get(kname, 0),

@@ -28,11 +28,12 @@
 // class (exact, packed or bf16: knn_select.cuh select_key).  iq_ball_mlp3
 // and iq_pointconv_sa run their layers 2 and 3 on the tensor cores through
 // one piece of code (order_weights_kernel, WeightRing, mma_layer,
-// mlp_layers23; see
-// iq_ball_mlp3), at the matmul precision `prec` a template parameter: at
-// kPrecHighest a three-product TF32 split that keeps f32 accuracy, at
-// kPrecHigh one product of operands rounded to TF32, at kPrecDefault one
-// product of operands rounded to bf16 (exact in TF32: one bf16 pass).  Each
+// mlp_layers23; see iq_ball_mlp3; the product's helpers, shared with
+// dense.cu, in mma_tf32.cuh), at the matmul precision `prec` a template
+// parameter: at kPrecHighest a three-product TF32 split that keeps f32
+// accuracy, at kPrecHigh one product of operands rounded to TF32, at
+// kPrecDefault one product of operands rounded to bf16 (exact in TF32: one
+// bf16 pass).  Each
 // brings its own front (a ball query, a gather of given neighbours) and its
 // own epilogue (a max over the ball, a contraction over the neighbours).
 // All other arithmetic is f32 on the CUDA cores, iq_pointconv_sa's
@@ -46,6 +47,7 @@
 
 #include "knn_select.cuh"
 #include "knn_xyz.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -120,47 +122,6 @@ constexpr int kMaxBatch = 32;               // centres of a batch
 constexpr int kBallFixedFloats =
     2 * kQueueCap + kMaxBatchRows + 2 * kBallRows + 3 * kBallRows + kMaxBatch +
     (kMaxBatch + 1) + 3;
-
-// The matmul precisions (ops/cuda/groups.py PRECISION_CODES).
-constexpr int kPrecHighest = 0;             // three TF32 products: f32 accuracy
-constexpr int kPrecHigh = 1;                // one product of TF32-rounded operands
-constexpr int kPrecDefault = 2;             // one product of bf16-rounded operands
-
-__device__ __forceinline__ float tf32_hi(float x) {
-  return __uint_as_float(__float_as_uint(x) & 0xffffe000u);
-}
-// x - hi (exact) rounded to TF32, to nearest with ties away from zero as
-// cvt.rna.tf32.f32 rounds it, in two integer operations (the cvt is the
-// slower: 7% of the whole kernel on an H100)
-__device__ __forceinline__ float tf32_lo(float x, float hi) {
-  return __uint_as_float((__float_as_uint(__fsub_rn(x, hi)) + 0x1000u) & 0xffffe000u);
-}
-// x rounded to TF32, to nearest with ties away from zero (cvt.rna.tf32.f32)
-__device__ __forceinline__ float tf32_rna(float x) {
-  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
-}
-// x rounded to bf16, to nearest even, as an f32 (torch's and XLA's rounding)
-__device__ __forceinline__ float bf16_rne(float x) {
-  const unsigned u = __float_as_uint(x);
-  return __uint_as_float((u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u);
-}
-// an operand of a one-pass product at precision prec (kPrecHighest: x)
-__host__ __device__ __forceinline__ constexpr bool one_pass(int prec) {
-  return prec != kPrecHighest;
-}
-__device__ __forceinline__ float round_operand(int prec, float x) {
-  return prec == kPrecHigh ? tf32_rna(x) : prec == kPrecDefault ? bf16_rne(x) : x;
-}
-
-// d += a (16x8, row) * b (8x8, col), TF32 operands, f32 accumulate
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const float (&a)[4], float b0,
-                                         float b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])), "r"(__float_as_uint(a[2])),
-        "r"(__float_as_uint(a[3])), "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
-}
 
 // w (cin, cout) row-major -> the order the B fragments are read in: float2
 // number (ks * (cout / 8) + nt) * 32 + lane holds w[ks*8 + lane%4][nt*8 +

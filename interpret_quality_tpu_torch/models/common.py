@@ -83,11 +83,19 @@ def bn_affine(bn: nn.modules.batchnorm._BatchNorm):
     return alpha, bn.bias - alpha * bn.running_mean
 
 
+def bn_eval_terms(bn: nn.modules.batchnorm._BatchNorm):
+    """Eval BatchNorm as (mean, mul, bias) with bn(x) = (x - mean) * mul +
+    bias, mul = rsqrt(var + eps) * scale: ``bn_eval``'s operands, which
+    kernel 9 (``ops.cuda.dense``) applies in the same order."""
+    return (bn.running_mean, torch.rsqrt(bn.running_var + BN_EPS) * bn.weight,
+            bn.bias)
+
+
 def bn_eval(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tensor:
     """Eval BatchNorm over the last (channel) axis, in the same order of
     operations as flax's: (x - mean) * (rsqrt(var + eps) * scale) + bias."""
-    mul = torch.rsqrt(bn.running_var + BN_EPS) * bn.weight
-    return (x - bn.running_mean) * mul + bn.bias
+    mean, mul, bias = bn_eval_terms(bn)
+    return (x - mean) * mul + bias
 
 
 def batch_norm(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,

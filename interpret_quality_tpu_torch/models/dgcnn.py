@@ -22,14 +22,17 @@ so a = x @ W1 and b = x @ (W2 - W1) are computed once per layer, and
 with ext = max where the BN scale alpha > 0 and min otherwise (BN is a
 per-channel affine map in eval, LeakyReLU is monotone).  The extrema come
 from the neighbour kernels: ``knn_gather_extrema`` (graph from features) or
-``gather_extrema`` (given indices).
+``gather_extrema`` (given indices).  The eval head, conv5 with its
+BatchNorm and LeakyReLU and the max and mean over the points, is one
+kernel, ``dense_pool`` (``ops/cuda/dense.py``), which reads the four edge
+outputs where they lie: the (B, N, 1024) activation never exists.
 
 Training, and an eval forward that must be differentiated, take the
-un-fused edge conv (``fused=False``): the edge features [x_j - x_i, x_i]
-gathered by ``index_points``, the 1x1 conv as one matmul, BatchNorm over
-(B, N, k) (in training on the batch statistics, with the n/(n-1) running
-variance of the JAX package's edge convs), LeakyReLU and the max over k
-(``models/dgcnn.py:100-113`` there).  Its graphs still come from the kNN
+un-fused edge conv and head (``fused=False``): the edge features
+[x_j - x_i, x_i] gathered by ``index_points``, the 1x1 conv as one matmul,
+BatchNorm over (B, N, k) (in training on the batch statistics, with the
+n/(n-1) running variance of the JAX package's edge convs), LeakyReLU and
+the max over k (``models/dgcnn.py:100-113`` there).  Its graphs still come from the kNN
 kernel (``knn``): an index selection carries no gradient.  ``dp1``/``dp2``
 are the reference's dropouts, with no state.
 
@@ -44,6 +47,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..ops.cuda.dense import dense_pool
 from ..ops.cuda.neighbors import gather_extrema, knn, knn_gather_extrema
 from ..ops.geometry import index_points
 from ..ops.precision import matmul
@@ -169,9 +173,12 @@ class _DGCNNBase(nn.Module):
                 h = edge_conv(h, block, self.k, idx=fix_idx)
                 feats.append(h)
 
-        h = torch.cat(feats, dim=-1)                            # (B, N, 512)
-        h = leaky_relu02(bn_apply(pointwise(h, self.conv5[0]), self.bn5))
-        h = torch.cat([h.amax(dim=1), h.mean(dim=1)], dim=-1)  # (B, 2048)
+        if fused:       # conv5, BN, LeakyReLU and both poolings in one kernel
+            h = dense_pool(feats, self.conv5[0], self.bn5)      # (B, 2048)
+        else:
+            h = torch.cat(feats, dim=-1)                        # (B, N, 512)
+            h = leaky_relu02(bn_apply(pointwise(h, self.conv5[0]), self.bn5))
+            h = torch.cat([h.amax(dim=1), h.mean(dim=1)], dim=-1)
         h = leaky_relu02(bn_apply(pointwise(h, self.linear1), self.bn6))
         h = self.dp1(h, generator)
         h = leaky_relu02(bn_apply(pointwise(h, self.linear2), self.bn7))

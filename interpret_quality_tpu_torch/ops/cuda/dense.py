@@ -1,0 +1,175 @@
+"""DGCNN's head in one kernel, hand-written in CUDA C++ for Hopper
+(``csrc/dense.cu``), with its plain PyTorch version.
+
+==========================  ==============================================
+wrapper                     replaces (interpret_quality_tpu/ops/pallas/)
+==========================  ==============================================
+``dense_pool``              none: the JAX package leaves the head to XLA,
+                            which fuses it on the TPU
+==========================  ==============================================
+
+``dense_pool`` is the eval head of the edge-conv family after its four
+edge convs: conv5 (a 1x1 conv without bias) over the concatenated edge
+outputs, its eval BatchNorm and LeakyReLU(0.2), then the max and the mean
+over each cloud's points, concatenated (the input of ``linear1``).  The
+kernel reads the edge outputs where they lie and keeps the (B, N, C)
+activation out of device memory; its product runs on the tensor cores at
+the process's ``--matmul_precision`` (``config.matmul_precision``): at
+``highest`` as three TF32 products that keep f32 accuracy, at ``high`` as
+one product of TF32-rounded operands, at ``default`` as one product of
+bf16-rounded operands (``ops/cuda/emulation.py`` ``matmul_at`` repeats
+each).  On the CPU the plain version computes today's arithmetic
+(``ops.precision.matmul``, f32 at every setting there).
+
+A wrapper takes its plain version only for tensors on the CPU.  For CUDA
+tensors it launches its kernel or raises; there is no fallback.  Each launch
+adds one to ``LAUNCHES["dense_pool"]``, and at a setting other than
+``highest`` to ``ROUTE_LAUNCHES["dense_pool:<setting>"]``, and runs inside
+the profiler span ``iq_dense_pool``; while a profiler records, its products
+(2 x B x N x in x out) count in the work counter ``dense_products``, as
+``ops.precision.matmul`` counts the products it runs.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence
+
+import torch
+from torch import nn
+from torch.profiler import record_function
+
+from ... import config
+from ...utils import profiling
+from ..precision import DENSE_PRODUCTS, matmul
+from . import build
+from .groups import PRECISION_CODES
+from .launch import I, P, check, on_cpu, raise_on, stream
+
+# launches of each kernel since the last reset_launches()
+LAUNCHES = {"dense_pool": 0}
+# launches at a precision setting other than the exact one, counted here as
+# well as in LAUNCHES
+ROUTE_LAUNCHES = {"dense_pool:high": 0, "dense_pool:default": 0}
+
+MAX_SEGMENTS = 4     # feature segments the kernel reads (kMaxSegments)
+SEGMENT_QUANTUM = 32  # each segment's width a multiple of it (kKChunk)
+COLUMN_QUANTUM = 256  # the output width a multiple of it (kCols)
+
+
+def reset_launches() -> None:
+    for counts in (LAUNCHES, ROUTE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.load("dense")
+    lib.iq_dense_pool.argtypes = [P] * 4 + [I] * 4 + [P] * 6 + [I] * 4 + [P]
+    lib.iq_dense_pool.restype = ctypes.c_int
+    return lib
+
+
+def _check_args(feats: Sequence[torch.Tensor], conv: nn.Module,
+                bn: nn.Module) -> None:
+    """What both versions take: (B, N, C_i) segments of one cloud batch in
+    conv's floating dtype whose widths sum to conv's input width, a conv
+    without bias, and an eval BatchNorm of conv's output width."""
+    if not 1 <= len(feats) <= MAX_SEGMENTS:
+        raise ValueError(f"expected 1 to {MAX_SEGMENTS} feature segments, got "
+                         f"{len(feats)}")
+    w = conv.weight
+    if not w.is_floating_point() or w.dim() < 2 or w.shape[2:].numel() != 1:
+        raise ValueError(f"conv.weight: expected a floating 1x1 conv weight, "
+                         f"got {w.dtype} {tuple(w.shape)}")
+    B, N = feats[0].shape[:2]
+    for i, f in enumerate(feats):
+        if f.dtype != w.dtype or f.dim() != 3 or f.shape[:2] != (B, N):
+            raise ValueError(f"feats[{i}]: expected {w.dtype} ({B}, {N}, C), "
+                             f"got {f.dtype} {tuple(f.shape)}")
+    if N < 1:
+        raise ValueError("feats: expected at least one point a cloud")
+    if conv.bias is not None:
+        raise ValueError("conv: the head's conv has no bias")
+    widths = [f.shape[2] for f in feats]
+    if sum(widths) != w.shape[1]:
+        raise ValueError(f"segment widths {widths} sum to {sum(widths)}, not "
+                         f"conv's input width {w.shape[1]}")
+    if bn.training or bn.num_features != w.shape[0]:
+        raise ValueError(f"bn: expected an eval BatchNorm of {w.shape[0]} "
+                         f"features, got {bn.num_features} "
+                         f"(training={bn.training})")
+
+
+def dense_pool_plain(feats: Sequence[torch.Tensor], conv: nn.Module,
+                     bn: nn.Module, product=matmul) -> torch.Tensor:
+    """Plain version of ``dense_pool``: the concatenation, conv5 by
+    ``product`` (``ops.precision.matmul``: the model's own; the checks pass
+    ``emulation.matmul_at``), eval BatchNorm, LeakyReLU, max and mean over
+    the points, concatenated."""
+    # importing models.common imports the models, and DGCNN this module
+    from ...models.common import bn_eval, leaky_relu02
+    h = torch.cat(list(feats), dim=-1)                          # (B, N, K)
+    w = conv.weight.reshape(conv.weight.shape[0], -1)           # (C, K)
+    h = leaky_relu02(bn_eval(product(h, w.T), bn))
+    return torch.cat([h.amax(dim=1), h.mean(dim=1)], dim=-1)   # (B, 2C)
+
+
+def dense_pool(feats: Sequence[torch.Tensor], conv: nn.Module,
+               bn: nn.Module) -> torch.Tensor:
+    """The edge-conv family's eval head: out[b, c] = max_n y[b, n, c] and
+    out[b, C + c] = mean_n y[b, n, c] with
+    y = leaky_relu_0.2(bn_eval(cat(feats) @ W^T)).
+
+    Args:
+      feats: 1 to 4 (B, N, C_i) segments (DGCNN's four edge-conv outputs)
+        in conv's dtype, their widths summing to conv's input width.
+      conv: conv5 (Conv1d(K, C, 1) without bias); bn: its eval BatchNorm.
+    Returns:
+      (B, 2C) in conv's dtype.
+
+    On CUDA tensors the kernel takes float32 segments of widths that are
+    multiples of 32, on a 16-byte boundary, and C a multiple of 256; at
+    ``highest`` its result is within f32 rounding of the plain version (the
+    split products and another order of the sums), not bit-equal.
+    """
+    _check_args(feats, conv, bn)
+    if on_cpu(*feats, conv.weight):
+        return dense_pool_plain(feats, conv, bn)
+    from ...models.common import bn_eval_terms
+    precision = config.matmul_precision()
+    B, N = feats[0].shape[:2]
+    C, K = conv.weight.shape[:2]
+    for i, f in enumerate(feats):
+        check(f, f"feats[{i}]", torch.float32, 3)
+        if f.shape[2] % SEGMENT_QUANTUM or f.data_ptr() % 16:
+            raise ValueError(f"feats[{i}]: the kernel takes widths that are "
+                             f"multiples of {SEGMENT_QUANTUM} on a 16-byte "
+                             f"boundary, got {f.shape[2]} at "
+                             f"{f.data_ptr() % 16} past one")
+    if C % COLUMN_QUANTUM:
+        raise ValueError(f"conv: the kernel takes an output width that is a "
+                         f"multiple of {COLUMN_QUANTUM}, got {C}")
+    w = conv.weight.detach().reshape(C, K).contiguous()
+    if any(t.device != w.device or t.dtype != torch.float32 for t in
+           (bn.running_mean, bn.running_var, bn.weight, bn.bias)):
+        raise ValueError("bn: expected float32 statistics and parameters on "
+                         "the features' device")
+    params = [t.detach().contiguous() for t in bn_eval_terms(bn)]
+    ptrs = [f.data_ptr() for f in feats] + [None] * (MAX_SEGMENTS - len(feats))
+    widths = [f.shape[2] for f in feats] + [0] * (MAX_SEGMENTS - len(feats))
+    out = torch.empty((B, 2 * C), dtype=torch.float32, device=w.device)
+    # the weights in the order the kernel's fragments read them
+    scratch = torch.empty(w.numel(), dtype=torch.float32, device=w.device)
+    profiling.count(DENSE_PRODUCTS, 2 * B * N * K * C)
+    with record_function("iq_dense_pool"):
+        rc = _lib().iq_dense_pool(*ptrs, *widths, w.data_ptr(),
+                                  *[t.data_ptr() for t in params],
+                                  out.data_ptr(), scratch.data_ptr(), B, N, C,
+                                  PRECISION_CODES[precision], stream(w))
+    raise_on(rc, "iq_dense_pool")
+    LAUNCHES["dense_pool"] += 1
+    if precision != "highest":
+        ROUTE_LAUNCHES[f"dense_pool:{precision}"] += 1
+    return out

@@ -15,7 +15,7 @@ the device into an int64 accumulator (``accumulator``), by a kernel or by
 the caller, so that nothing waits for it.  ``counters`` reads them all,
 with one synchronisation per device, and ``reset_counters`` clears them.
 The counters (each documented where it is counted): ``dense_products``
-(``ops.precision.matmul``), ``k3_distances`` (``ops.cuda.neighbors``),
+(``ops.precision.matmul``, ``ops.cuda.dense``), ``k3_distances`` (``ops.cuda.neighbors``),
 ``k5_rows`` (``ops.cuda.groups``).
 """
 from __future__ import annotations

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from interpret_quality_tpu_torch import config
+from interpret_quality_tpu_torch.ops.cuda import dense as dn
 from interpret_quality_tpu_torch.ops.cuda import fps as fp
 from interpret_quality_tpu_torch.ops.cuda import groups as gr
 from interpret_quality_tpu_torch.ops.cuda import neighbors as nb
@@ -685,14 +686,14 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, name):
 def test_train_steps_launch_the_index_kernels(cuda, name, kernel, per_step):
     """A train step on the card takes its graphs from kernel 1 (kNN) and its
     centres from kernel 4 (FPS), and launches no kernel that folds eval
-    BatchNorm (2, 3, 5, 6, 7)."""
+    BatchNorm (2, 3, 5, 6, 7, 9)."""
     x, labels = _grid_clouds(256, 1)
     model = _train_model(name, cuda)
-    for counter in (nb, fp, gr):
+    for counter in (nb, fp, gr, dn):
         counter.reset_launches()
     _train_step(name, model, x.to(cuda), labels.to(cuda))
     torch.cuda.synchronize()
-    launched = {**nb.LAUNCHES, **fp.LAUNCHES, **gr.LAUNCHES}
+    launched = {**nb.LAUNCHES, **fp.LAUNCHES, **gr.LAUNCHES, **dn.LAUNCHES}
     assert launched.pop(kernel) == per_step
     assert all(v == 0 for v in launched.values()), launched
 
@@ -713,11 +714,11 @@ def test_adv_step_launches_knn_only_and_keeps_the_model_in_training(cuda):
     before = model.linear3.weight.detach().clone()
     step = adv.make_adv_step(model, optimizer, scheduler,
                              torch.Generator(device=cuda).manual_seed(0))
-    for counter in (nb, fp, gr):
+    for counter in (nb, fp, gr, dn):
         counter.reset_launches()
     loss, p1, p2 = step(x.to(cuda), labels.to(cuda), TRAIN_BATCH)
     torch.cuda.synchronize()
-    launched = {**nb.LAUNCHES, **fp.LAUNCHES, **gr.LAUNCHES}
+    launched = {**nb.LAUNCHES, **fp.LAUNCHES, **gr.LAUNCHES, **dn.LAUNCHES}
     assert launched.pop("knn") == adv.ROT_ADV_ITER + adv.TRANS_ADV_ITER + 2
     assert all(v == 0 for v in launched.values()), launched
     assert model.training and torch.isfinite(loss)
@@ -1108,3 +1109,137 @@ def test_knn_gather_extrema_counts_its_distances(cuda, C):
     distinct = sum(torch.unique(x, dim=0).shape[0] for x in xs.cpu())
     assert distinct == 350 + 100 + 700
     assert counts == {nb.K3_DISTANCES: distinct * 700}
+
+
+# ------------------------------------------------- kernel 9: DGCNN's head
+# (B, N, kind): ragged N, one cloud, the main path's 1650 clouds, and
+# clouds whose points all coincide
+DENSE_CASES = [(1, 1024, "random"), (3, 1000, "random"), (3, 37, "random"),
+               (1, 37, "coincident"), (3, 1024, "coincident"),
+               (1650, 1024, "random")]
+# highest: the kernel's three TF32 products drop lo*lo (2**-22 of a
+# product) and sum in another order than cuBLAS's f32 product
+DENSE_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _head_args(device, B, N, kind, seed=0):
+    """DGCNN's four edge outputs (B, N, 64/64/128/256), its conv5 and an
+    eval BatchNorm with random statistics and scales of both signs."""
+    from interpret_quality_tpu_torch.models import build_model
+    from interpret_quality_tpu_torch.models.dgcnn import EDGE_WIDTHS
+    torch.manual_seed(seed)
+    model = build_model("dgcnn", 10, 20).eval()
+    g = torch.Generator().manual_seed(seed)
+    rows = 1 if kind == "coincident" else N
+    feats = [torch.randn(B, rows, w, generator=g).expand(B, N, w).contiguous()
+             .to(device) for w in EDGE_WIDTHS]
+    bn = model.bn5
+    with torch.no_grad():
+        c = bn.num_features
+        bn.running_mean.copy_(0.1 * torch.randn(c, generator=g))
+        bn.running_var.copy_(0.5 + torch.rand(c, generator=g))
+        sign = torch.where(torch.rand(c, generator=g) < 0.5, -1.0, 1.0)
+        bn.weight.copy_(sign * (0.5 + torch.rand(c, generator=g)))
+        bn.bias.copy_(0.1 * torch.randn(c, generator=g))
+    model.to(device)
+    return feats, model.conv5[0], model.bn5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,kind", DENSE_CASES)
+def test_dense_pool_matches_plain(cuda, B, N, kind):
+    """Kernel 9 at highest against its plain version (DENSE_TOL), one
+    launch; deterministic (a second launch bit-equal)."""
+    feats, conv, bn = _head_args(cuda, B, N, kind, seed=B + N)
+    dn.reset_launches()
+    got = dn.dense_pool(feats, conv, bn)
+    torch.cuda.synchronize()
+    assert got.shape == (B, 2048) and dn.LAUNCHES == {"dense_pool": 1}
+    assert torch.allclose(got, dn.dense_pool_plain(feats, conv, bn),
+                          **DENSE_TOL)
+    assert torch.equal(dn.dense_pool(feats, conv, bn), got)
+    assert dn.ROUTE_LAUNCHES == {"dense_pool:high": 0, "dense_pool:default": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("B,N,kind", DENSE_CASES[:5])
+def test_dense_pool_one_pass_matches_emulation(cuda, B, N, kind, precision):
+    """Kernel 9 at a one-pass setting against its plain version on
+    ``emulation.matmul_at``'s product (exact products of the rounded
+    operands): the gap within a tenth of the rounding's RMS and half its
+    largest value (``_one_pass_close``: only the order of the f32 sums
+    differs); coarser than highest's; counted in ROUTE_LAUNCHES."""
+    from interpret_quality_tpu_torch.ops.cuda import emulation as em
+    feats, conv, bn = _head_args(cuda, B, N, kind, seed=B + N)
+    dn.reset_launches()
+    with _matmul_precision(precision):
+        got = dn.dense_pool(feats, conv, bn)
+    exact = dn.dense_pool_plain(feats, conv, bn)
+    _one_pass_close(got, dn.dense_pool_plain(
+        feats, conv, bn, product=lambda x, w: em.matmul_at(x, w, precision)),
+        exact)
+    assert not torch.allclose(got, exact, rtol=1e-5, atol=1e-6)
+    assert dn.ROUTE_LAUNCHES[f"dense_pool:{precision}"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["width", "offset", "columns"])
+def test_dense_pool_refuses_what_the_kernel_does_not_take(cuda, case):
+    """Segments whose width is not a multiple of 32 or that start off a
+    16-byte boundary, and an output width not a multiple of 256, raise on
+    the card (the plain version takes them on the CPU)."""
+    feats, conv, bn = _head_args(cuda, 2, 64, "random")
+    if case == "width":
+        feats = [torch.randn(2, 64, w, device=cuda) for w in (48, 80)] + feats[2:]
+    elif case == "offset":
+        buf = torch.empty(feats[0].numel() + 1, device=cuda)
+        feats[0] = buf[1:].view_as(feats[0]).copy_(feats[0])
+    else:
+        conv = torch.nn.Conv1d(512, 96, 1, bias=False).to(cuda)
+        bn = torch.nn.BatchNorm1d(96).to(cuda).eval()
+    with pytest.raises(ValueError):
+        dn.dense_pool(feats, conv, bn)
+    assert dn.dense_pool([f.cpu() for f in feats], conv.cpu(),
+                         bn.cpu()).shape[0] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dgcnn", "gcnn"])
+def test_fused_forward_launches_dense_pool_once(cuda, name):
+    """The fused eval forward of both families launches kernel 9 once, the
+    differentiable eval forward (fused=False, the BIM attack's) never (the
+    train steps' tests hold that a train step never does)."""
+    from interpret_quality_tpu_torch.models import build_model
+    x, _ = _grid_clouds(256, 3)
+    torch.manual_seed(0)
+    model = build_model(name, 10, 20).to(cuda).eval()
+    dn.reset_launches()
+    with torch.inference_mode():
+        model(x.to(cuda))
+        assert dn.LAUNCHES == {"dense_pool": 1}
+        model(x.to(cuda), fused=False)
+    assert dn.LAUNCHES == {"dense_pool": 1}
+
+
+@pytest.mark.cuda
+def test_dense_pool_counts_its_products_in_its_span(cuda):
+    """Traced, kernel 9 adds 2 B N 512 1024 to ``dense_products`` and runs
+    inside the span ``iq_dense_pool``; its output is bit-equal to the
+    untraced launch's."""
+    from torch.profiler import ProfilerActivity, profile
+    from interpret_quality_tpu_torch.ops.precision import DENSE_PRODUCTS
+    from interpret_quality_tpu_torch.utils import profiling
+    B, N = 3, 1000
+    feats, conv, bn = _head_args(cuda, B, N, "random")
+    off = dn.dense_pool(feats, conv, bn)
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        on = dn.dense_pool(feats, conv, bn)
+        torch.cuda.synchronize()
+    counts = profiling.counters()
+    profiling.reset_counters()
+    assert torch.equal(on, off)
+    assert counts == {DENSE_PRODUCTS: 2 * B * N * 512 * 1024}
+    assert "iq_dense_pool" in {e.key for e in prof.key_averages()}

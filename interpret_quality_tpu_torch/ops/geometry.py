@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.profiler import record_function
 
 from .precision import matmul, selection_keys
 
@@ -121,13 +122,15 @@ def compute_density(xyz: torch.Tensor, bandwidth: float) -> torch.Tensor:
     The (B, N, N) distances are taken a chunk of clouds at a time, at most
     ``DENSITY_CHUNK`` of them per chunk: one masked-coalition batch of 1650
     clouds of 1024 points would otherwise hold 6.9 GB.  Each cloud's
-    arithmetic is the same either way.
+    arithmetic is the same either way.  It runs inside the profiler span
+    ``iq_density``.
     """
     B, N, _ = xyz.shape
     step = max(1, DENSITY_CHUNK // max(1, N * N))
     out = []
-    for s in range(0, B, step):
-        x = xyz[s:s + step]
-        g = torch.exp(-square_distance(x, x) / (2.0 * bandwidth * bandwidth))
-        out.append(torch.mean(g / (2.5 * bandwidth), dim=-1))
-    return torch.cat(out, dim=0)
+    with record_function("iq_density"):
+        for s in range(0, B, step):
+            x = xyz[s:s + step]
+            g = torch.exp(-square_distance(x, x) / (2.0 * bandwidth * bandwidth))
+            out.append(torch.mean(g / (2.5 * bandwidth), dim=-1))
+        return torch.cat(out, dim=0)

@@ -327,3 +327,18 @@ def test_kernel3_counts_distinct_rows_times_database_rows(monkeypatch):
         nb.knn_gather_extrema(xs, a, 4)
     assert len(launcher.calls) == 2
     assert profiling.counters() == {nb.K3_DISTANCES: (5 + 9) * n}
+
+
+def test_density_runs_in_its_span():
+    """PointConv's KDE density is one ``iq_density`` span a call, inside
+    the plan and in no forward on a plan."""
+    torch.manual_seed(0)
+    fwd = make_forward_fn(build_model("pointconv", 10))
+    x = torch.from_numpy(cloud(5, n=96)[0])[None]
+    with torch.no_grad():
+        plan, events = traced(lambda: fwd.plan_fn(x))
+        _, forward_events = traced(lambda: fwd.apply_plan_fn(x, plan))
+    density = [e for e in events if e.name == "iq_density"]
+    assert len(density) == 3
+    assert all("iq_plan" in parents(e) for e in density)
+    assert not [e for e in forward_events if e.name == "iq_density"]

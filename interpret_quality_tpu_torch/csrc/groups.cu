@@ -26,16 +26,19 @@
 // lowest index (the xyz route of knn_xyz.cuh or the tiled select_knn, both
 // shared with neighbors.cu), compared as the keys of the launch's selection
 // class (exact, packed or bf16: knn_select.cuh select_key).  iq_ball_mlp3
-// and iq_pointconv_sa run their layers 2 and 3 on the tensor cores through
-// one piece of code (order_weights_kernel, WeightRing, mma_layer,
-// mlp_layers23; see iq_ball_mlp3; the product's helpers, shared with
-// dense.cu, in mma_tf32.cuh), at the matmul precision `prec` a template
-// parameter: at kPrecHighest a three-product TF32 split that keeps f32
-// accuracy, at kPrecHigh one product of operands rounded to TF32, at
+// and iq_pointconv_sa run their layers 2 and 3 on the tensor cores, in the
+// weights' fragment order of order_weights_kernel (the product's helpers,
+// shared with dense.cu, in mma_tf32.cuh), at the matmul precision `prec` a
+// template parameter: at kPrecHighest a three-product TF32 split that keeps
+// f32 accuracy, at kPrecHigh one product of operands rounded to TF32, at
 // kPrecDefault one product of operands rounded to bf16 (exact in TF32: one
-// bf16 pass).  Each
-// brings its own front (a ball query, a gather of given neighbours) and its
-// own epilogue (a max over the ball, a contraction over the neighbours).
+// bf16 pass).  iq_pointconv_sa runs its phases in turn on all its warps
+// (WeightRing, mma_layer, mlp_layers23); iq_ball_mlp3 is a warp-specialised
+// pipeline with its own weight stream (K5Stream, k5_layer): a producer
+// warpgroup runs its ball query and layer 1 beside the consumer
+// warpgroups' products (see there).  Each brings its own front (a ball
+// query, a gather of given neighbours) and its own epilogue (a max over
+// the ball, a contraction over the neighbours).
 // All other arithmetic is f32 on the CUDA cores, iq_pointconv_sa's
 // WeightNet on operands rounded for `prec`.  The (B, S, K, C) grouped
 // tensors never exist in device memory.
@@ -72,56 +75,86 @@ constexpr int kWnetFloats = 3 * kWH + kWH + kWH * kWH + kWH + kWH * kWO + kWO;
 // digits and is not used anywhere here.  The instruction is
 // mma.sync.m16n8k8 (row.col, tf32 in, f32 out).
 //
-// The design.  order_weights_kernel writes both layers' weights once per
+// The weights.  order_weights_kernel writes both layers' weights once per
 // launch, still whole f32 values, in the order the mma's B fragments are
 // read: for every (k-step of 8, column tile of 8) 32 lanes x float2 (b0, b1),
 // so a warp fetches a B fragment with one conflict-free 8-byte load per lane
 // and splits it in registers (8 operations beside 12 mma).  Storing hi and
 // lo apart would double the bytes, and the stream from L2 costs more than the
-// split (PERF.md).  The stream is cut into slabs of at most
-// 16 KB and copied to a ring in shared memory with cp.async: a branch whose
-// slabs all fit keeps them resident for the life of the block (four of
-// PointNet++'s six); otherwise four buffers hold a stream that runs three
-// slabs ahead of the products, across layer and tile boundaries, one
-// block-wide barrier per slab.
+// split (PERF.md).  The stream is cut into slabs of at most 16 KB
+// (slab_ksteps), layer 2's then layer 3's.
 //
-// Blocks are persistent (one per SM).  A block draws batches of centres of
-// one cloud from a global counter; one warp per centre scans the cloud in
-// index order (128 points a step, twelve loads in flight) and a ballot and a
-// popcount per 32 rank the in-ball points, so the first K land in their slots
-// in order and the scan stops at K.  Slots beyond the in-ball count repeat slot 0 and cannot change
-// the max, so only the filled slots become rows; without feature rows (SA1)
-// neither can a slot whose point has the very coordinates of an earlier one
-// (first_copy_kernel: about a third to a half of the slots of a masked
-// batch), so it becomes no row either.  The rows of all centres go
-// to a circular queue, whatever their cloud, and leave it as full tiles of
-// 128 rows: layer 1 is elementwise (exact f32 offsets against the three xyz
-// rows of A1, plus the hoisted feature row), then each of the 8 warps owns 64
-// rows x a quarter of the layer's columns of both products (A fragments
-// split in registers; two column tiles at a time, pass by pass, so that 8
-// independent accumulators lie between two products into the same one).
-// Layer 3's outputs go back to shared memory with bias and ReLU, where a
-// thread per four columns and stretch of rows folds each centre's run and
-// sends one atomicMax on the f32 bits per run and column to `out` (zeroed by the launcher; all
-// kept values are > 0, where the order of the bits is the order of the
-// floats).  An atomicMax per thread and row run straight from the
-// accumulators would cost more than the products themselves.
+// The ball query.  One warp per centre scans the cloud in index order (128
+// points a step, twelve loads in flight) and a ballot and a popcount per 32
+// rank the in-ball points, so the first K land in their slots in order and
+// the scan stops at K.  Slots beyond the in-ball count repeat slot 0 and
+// cannot change the max, so only the filled slots become rows; without
+// feature rows (SA1) neither can a slot whose point has the very coordinates
+// of an earlier one (first_copy_kernel: about a third to a half of the slots
+// of a masked batch), so it becomes no row either.  Membership uses the
+// distance form of ops/geometry.square_distance, (|c|^2 - 2 c.p) + |p|^2,
+// against r2 = f32(radius^2) with <=; the norms and the dot product are fmaf
+// chains.  An empty ball takes index 0, as query_ball_point does.
 //
-// Membership uses the distance form of ops/geometry.square_distance,
-// (|c|^2 - 2 c.p) + |p|^2, against r2 = f32(radius^2) with <=; the norms and
-// the dot product are fmaf chains.  An empty ball takes index 0, as
-// query_ball_point does.
-constexpr int kBallRows = 128;              // rows of a tile
+// The design: a warp-specialised pipeline (ball_mlp3_kernel).  The ball
+// query and layer 1 run on the CUDA cores and the load pipe, layers 2-3 on
+// the tensor cores.  A block that ran them in turn, every warp on each
+// phase with block-wide barriers between, left one side idle while the
+// other worked (PERF.md).  So a persistent block (one per SM, 384 threads)
+// runs them side by side in two roles:
+//   producers one warpgroup, or two where a row's products are few
+//             (C1 C2 + C2 C3 <= kK5TwoFrontsMacs: SA1 b0), setmaxnreg down
+//             to k5_front_regs: they draw batches of centres of one cloud
+//             from a global counter, run their ball queries (a warp per
+//             centre), and write the batch's rows in order into a ring of h1
+//             tiles of kK5Rows = 64 rows: layer 1, exact f32 offsets against
+//             A1's three xyz rows plus the hoisted feature row, bias and
+//             ReLU, and each row's centre;
+//   consumers the other warpgroups (setmaxnreg up to kK5ConsumerRegs),
+//             taking the tiles in turn: each of a group's four warps owns the
+//             tile's 64 rows x a quarter of the layer's columns of both
+//             products (A fragments split in registers; two column tiles at
+//             a time, pass by pass, so that 8 independent accumulators lie
+//             between two products into the same one), mma_layer's
+//             instructions in its order.  Layer 2 reads the h1 tile, layer 3
+//             the group's own h2.
+// What bounds it now: the consumers' products and fold where layers 2-3
+// are wide (SA1 b2, SA2 b1-b2: the producers finish a tile before it is
+// wanted at all but 1-3% of tiles); the producers' ball query and layer 1
+// elsewhere (k5_front_waits counts the tiles a consumer had to wait for).
+// Hand-offs are mbarriers, never a block-wide barrier: a tile's full barrier
+// (every producer thread arrives after its rows) and empty barrier (each
+// warp of the consuming group arrives once its layer-2 products have read
+// the tile, so the producers refill it while layer 3 runs); the producers'
+// phases sync on a named barrier of their own, a consumer group's on one of
+// its own (h2 written, h2 read).  Weights: a branch whose slabs fit beside
+// two h1 tiles keeps them resident, copied once at the start by bulk copies
+// (four of PointNet++'s six); otherwise kK5StreamBufs buffers hold a stream
+// that every group reads once a round of tiles (the producers pad the tile
+// count to whole rounds), and the last consumer warp done with a slab
+// starts the bulk copy of the slab kK5StreamBufs ahead into its buffer,
+// each buffer with a full barrier.  The max over the slots: a warp stages
+// its layer-3 outputs (bias, ReLU) half its columns at a time in its
+// quarter of the group's dead h2, a lane folds a float4 of columns down a
+// stretch of rows, and the lanes of a column join the runs that cross
+// their stretches by doubling, so each centre's run and column sends one
+// atomicMax on the f32 bits to `out` (zeroed by the launcher; all kept
+// values are > 0, where the order of the bits is the order of the floats).
+//
+// Shared memory (the launcher's k5_smem_bytes): h1 tiles of 64 x (C1 + 4)
+// floats, an h2 of 64 x (C2 + 4) a consumer group, weight buffers of 16 KB,
+// 11 KB of batch, row and barrier arrays.  The launcher gives the ring
+// kK5MaxStages tiles where they fit, so at PointNet++'s widths, in bytes:
+// SA1 b0 (32-32-64, two producers) 4 x 9,216 + 9,216 + 2 x 16 K resident =
+// 90,712; SA1 b1 and SA2 b0 (64-64-128) 4 x 17,408 + 2 x 17,408 + 3 x 16 K
+// resident = 165,464; SA1 b2 (64-96-128) 4 x 17,408 + 2 x 25,600 + 5 x 16 K
+// resident = 214,616; SA2 b1 and b2 (128-128-256) 2 x 33,792 + 2 x 33,792 +
+// 4 x 16 K streamed (12 slabs a round) = 212,056.
+constexpr int kBallRows = 128;              // rows of a tile (iq_pointconv_sa)
 constexpr int kSlabFloats = 4096;           // floats of one ring buffer (16 KB)
 constexpr int kAhead = 3;                   // slabs in flight when streaming
-constexpr int kQueueCap = 2048;             // circular row queue (a power of two)
 constexpr int kMaxBatchRows = 1024;         // centres of a batch x K
 constexpr int kMaxBatch = 32;               // centres of a batch
-// floats of shared memory beside the activations and the weight ring:
-// queue (centre, point), slots, row centre/point, offsets, nball, first, unit
-constexpr int kBallFixedFloats =
-    2 * kQueueCap + kMaxBatchRows + 2 * kBallRows + 3 * kBallRows + kMaxBatch +
-    (kMaxBatch + 1) + 3;
 
 // w (cin, cout) row-major -> the order the B fragments are read in: float2
 // number (ks * (cout / 8) + nt) * 32 + lane holds w[ks*8 + lane%4][nt*8 +
@@ -342,42 +375,562 @@ __device__ __forceinline__ float* mlp_layers23(const float* h1, float* h2, int C
   return o3;
 }
 
-// iq_ball_mlp3's layers 2 and 3 of one tile and its epilogue: a thread per
-// four columns folds each centre's run of rows into `out`.
-template <int NT2, int NT3, int PREC>
-__device__ __forceinline__ void ball_layers23(const float* h1, float* h2, int C1, int C2,
-                                              int C3, WeightRing& wr,
-                                              const float* __restrict__ b2,
-                                              const float* __restrict__ b3,
-                                              const int* row_c, float* __restrict__ out) {
-  const float* o3 =
-      mlp_layers23<NT2, NT3, false, PREC>(h1, h2, C1, C2, C3, C3 + 4, wr, b2, b3, nullptr);
-  // a thread takes four columns of a stretch of 128 / parts rows
-  const int cg = C3 / 4, rows_per = kBallRows / (kThreads / cg);
-  const int c = (threadIdx.x % cg) * 4, r0 = (threadIdx.x / cg) * rows_per;
-  int* o = reinterpret_cast<int*>(out) + c;
-  auto flush = [&](int centre, const float4& m) {
-    if (centre < 0) return;
-    int* at = o + (size_t)centre * C3;
-    if (m.x > 0.f) atomicMax(at, __float_as_int(m.x));
-    if (m.y > 0.f) atomicMax(at + 1, __float_as_int(m.y));
-    if (m.z > 0.f) atomicMax(at + 2, __float_as_int(m.z));
-    if (m.w > 0.f) atomicMax(at + 3, __float_as_int(m.w));
-  };
-  int cur = -1;
-  float4 m = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-  for (int r = r0; r < r0 + rows_per; ++r) {
-    const int rc = row_c[r];
-    const float4 v = *reinterpret_cast<const float4*>(o3 + r * (C3 + 4) + c);
-    if (rc != cur) {
-      flush(cur, m);
-      cur = rc;
-      m = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    m = make_float4(fmaxf(m.x, v.x), fmaxf(m.y, v.y), fmaxf(m.z, v.z), fmaxf(m.w, v.w));
+// ---------------------------------------- iq_ball_mlp3's pipeline pieces
+constexpr int kK5Rows = 64;                 // rows of an h1 tile: one consumer group's
+constexpr int kK5Threads = 384;             // three warpgroups: consumers, then producers
+constexpr int kK5MaxConsumers = 2;          // consumer warpgroups (the rest produce)
+// setmaxnreg by the producer warpgroups F: 128 (3 - F) x 216 + 128 F x
+// k5_front_regs(F) = 384 x 168, the registers of the launch
+constexpr int kK5ConsumerRegs = 216;
+__host__ __device__ __forceinline__ constexpr int k5_front_regs(int fronts) {
+  return fronts == 1 ? 72 : 144;
+}
+constexpr int kK5MaxStages = 4;             // h1 tiles in the ring
+constexpr int kK5MaxBufs = 14;              // weight buffers of a resident branch
+constexpr int kK5StreamBufs = kAhead + 1;   // weight buffers of a streamed branch
+constexpr int kK5TwoFrontsMacs = 4096;      // C1 C2 + C2 C3 up to which two warpgroups produce
+constexpr int kK5FrontBar = 1, kK5GroupBar = 2, kK5ConsumersBar = 2 + kK5MaxConsumers;
+constexpr int kK5BarBytes = 256;            // full[4], empty[4], weights' full[14]
+// ints of shared memory beside the barriers, weights, h1 and h2: the consumer
+// warps' row centres, slots, batch rows, nball, first, unit, counts, done,
+// tile_end (the tiles' row centres come with the tiles)
+constexpr int kK5Ints = 4 * kK5MaxConsumers * kK5Rows + 2 * kMaxBatchRows + kMaxBatch +
+                        (kMaxBatch + 1) + 1 + 2 + kK5MaxBufs + kK5MaxStages;
+
+// Bytes of shared memory of a launch with `consumers` consumer groups,
+// `stages` h1 tiles and `nbuf` weight buffers, in the order
+// ball_mlp3_kernel lays them out.
+__host__ __device__ __forceinline__ size_t k5_smem_bytes(int C1, int C2, int consumers,
+                                                         int stages, int nbuf) {
+  return kK5BarBytes + (size_t)nbuf * kSlabFloats * 4 +
+         (size_t)stages * kK5Rows * (C1 + 4) * 4 + (size_t)consumers * kK5Rows * (C2 + 4) * 4 +
+         ((size_t)stages * kK5Rows + kK5Ints) * 4;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+// has the phase of this parity completed (without waiting)
+__device__ __forceinline__ bool mbar_done(unsigned long long* bar, int parity) {
+  unsigned ok;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}"
+      : "=r"(ok)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, int parity) {
+  unsigned ok;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(ok)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!ok);
+}
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+// bytes of device memory into shared memory, completing on `bar` (one thread)
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src, int bytes,
+                                          unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Kernel 5's weight stream: layer 2's slabs, then layer 3's, read once a
+// round of tiles (one a consumer group) by every consumer group, in nbuf
+// buffers of kSlabFloats, each with a full barrier.  Resident (nbuf ==
+// nsl): every slab copied once at the start.  Streamed: the last of the
+// consumer warps done with slab g copies slab g + nbuf into its buffer.
+// All fields are uniform.
+struct K5Stream {
+  const float* frag;           // device memory: layer 2's fragments, then layer 3's
+  float* ring;                 // shared memory: the buffers
+  unsigned long long* full;    // [nbuf] the buffer's slab has landed
+  int* done;                   // [nbuf] consumer warps done with the buffer, all told
+  int n2, s2, s3, nsl, nbuf;   // layer 2's slabs, floats a slab of each layer, slabs, buffers
+  int warps;                   // consumer warps, each reading every slab
+
+  __device__ __forceinline__ bool resident() const { return nsl == nbuf; }
+
+  // start the copy of stream slab g into its buffer (one thread)
+  __device__ __forceinline__ void copy(int g) const {
+    const int j = g % nsl;
+    const float* src = j < n2 ? frag + (size_t)j * s2
+                              : frag + (size_t)n2 * s2 + (size_t)(j - n2) * s3;
+    bulk_copy(ring + (g % nbuf) * kSlabFloats, src, 4 * (j < n2 ? s2 : s3), full + g % nbuf);
   }
-  flush(cur, m);
+
+  // stream slab g, landed
+  __device__ __forceinline__ const float2* acquire(int g) const {
+    mbar_wait(full + g % nbuf, resident() ? 0 : (g / nbuf) & 1);
+    return reinterpret_cast<const float2*>(ring + (g % nbuf) * kSlabFloats);
+  }
+
+  // this warp has read slab g
+  __device__ __forceinline__ void release(int g) const {
+    if (resident()) return;
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) {
+      __threadfence_block();
+      if (atomicAdd(done + g % nbuf, 1) % warps == warps - 1) {
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        copy(g + nbuf);
+      }
+    }
+  }
+
+  // wait for the copies still in flight once `passes` rounds are done
+  __device__ __forceinline__ void drain(int passes) const {
+    const int g0 = resident() ? 0 : passes * nsl;
+    for (int g = g0; g < g0 + nbuf; ++g) acquire(g);
+  }
+};
+
+// Kernel 5's shared memory (ball_mlp3_kernel lays it out).
+struct K5Smem {
+  unsigned long long* full;    // [stages] an h1 tile is written
+  unsigned long long* empty;   // [stages] its consumer group has read it
+  float* h1;                   // [stages][kK5Rows][C1 + 4] layer 1
+  int* tile_c;                 // [stages][kK5Rows] each row's centre b*S + s, -1: none
+  int* tile_end;               // [stages] 1: no more tiles for the group
+  float* h2;                   // [consumers][kK5Rows][C2 + 4]; then the fold's staging
+  int* warp_c;                 // [4 consumers][kK5Rows] a consumer warp's copy of tile_c
+  int* slots;                  // [kMaxBatchRows] the batch's ball members, [centre][K]
+  int* row_q;                  // [kMaxBatchRows] the centre of each of the batch's rows
+  int* nball;                  // [kMaxBatch] rows of each centre of the batch
+  int* first;                  // [kMaxBatch + 1] their prefix sums
+  int* unit;                   // [1] the batch drawn
+  int* counts;                 // [2] tiles multiplied, tiles waited for
+  int consumers, stages;       // consumer groups (the rest of the block produces), h1 tiles
+  int c1s, c2s;                // row strides C1 + 4 and C2 + 4
+};
+
+// acc = x @ w for this warp's 64 rows x NT column tiles (cq*NT..), w from
+// the stream's slabs g0..: mma_layer's instructions in its order.  x is
+// [kK5Rows][xs] in shared memory.
+template <int NT, int PREC>
+__device__ __forceinline__ void k5_layer(const float* x, int xs, int cin, int cout,
+                                         int nslabs, int g0, const K5Stream& ws,
+                                         float (&acc)[4][NT][4]) {
+  const int lane = threadIdx.x & 31, cq = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int ntc = cout / 8;
+  const int kps = (cin / 8) / nslabs;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+  const float* xrow = x + g * xs + t;
+  for (int slab = 0; slab < nslabs; ++slab) {
+    const float2* wb = ws.acquire(g0 + slab) + (cq * NT) * 32 + lane;
+    for (int kk = 0; kk < kps; ++kk) {
+      const float* xa = xrow + (slab * kps + kk) * 8;
+      float ahi[4][4], alo[4][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        const float* p = xa + mt * 16 * xs;
+        const float v[4] = {p[0], p[8 * xs], p[4], p[8 * xs + 4]};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (one_pass(PREC)) {
+            ahi[mt][i] = round_operand(PREC, v[i]);
+          } else {
+            ahi[mt][i] = tf32_hi(v[i]);
+            alo[mt][i] = tf32_lo(v[i], ahi[mt][i]);
+          }
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; nt += 2) {
+        float bh[2][2], bl[2][2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          if (nt + j < NT) {
+            const float2 b = wb[(kk * ntc + nt + j) * 32];
+            if (one_pass(PREC)) {
+              bh[j][0] = b.x;
+              bh[j][1] = b.y;
+            } else {
+              bh[j][0] = tf32_hi(b.x);
+              bh[j][1] = tf32_hi(b.y);
+              bl[j][0] = tf32_lo(b.x, bh[j][0]);
+              bl[j][1] = tf32_lo(b.y, bh[j][1]);
+            }
+          }
+        if (!one_pass(PREC)) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int mt = 0; mt < 4; ++mt)
+              if (nt + j < NT) mma_tf32(acc[mt][nt + j], alo[mt], bh[j][0], bh[j][1]);
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int mt = 0; mt < 4; ++mt)
+              if (nt + j < NT) mma_tf32(acc[mt][nt + j], ahi[mt], bl[j][0], bl[j][1]);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt)
+            if (nt + j < NT) mma_tf32(acc[mt][nt + j], ahi[mt], bh[j][0], bh[j][1]);
+      }
+    }
+    ws.release(g0 + slab);
+  }
+}
+
+// A consumer group's life: its tiles (consumers * pass + group) through layers 2-3
+// and the max fold into `out`, until the producer sends the end.  Counts
+// its tiles and those whose full barrier it found incomplete into
+// sm.counts.  NT2/NT3: column tiles of 8 per warp (a quarter of a layer's).
+template <int NT2, int NT3, int PREC>
+__device__ __forceinline__ void k5_consume(const K5Smem& sm, const K5Stream& ws, int C1,
+                                           int C2, int C3, const float* __restrict__ b2,
+                                           const float* __restrict__ b3,
+                                           float* __restrict__ out) {
+  const int group = threadIdx.x >> 7, warp = threadIdx.x >> 5, cq = warp & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool leader = (threadIdx.x & 127) == 0;
+  float* h2 = sm.h2 + group * kK5Rows * sm.c2s;
+  int* rc = sm.warp_c + warp * kK5Rows;
+  // The fold, in two chunks of half this warp's columns, NQ float4s wide:
+  // the chunk goes through the warp's staging, a quarter of the group's
+  // dead h2 (16 (C2 + 4) floats: C3 <= 2 C2 leaves room), and lane
+  // (fs, fq) scans float4 column fq down the R rows of stretch fs.
+  constexpr int NQ = NT3, R = 2 * NT3, SN = kK5Rows / R;
+  float* stg = h2 + cq * 16 * sm.c2s;
+  const int fs = lane / NQ, fq = lane % NQ;
+  const int4* frc = reinterpret_cast<const int4*>(rc + fs * R);
+  // a row between stretches where it fits keeps 8-row stretches of 4
+  // float4s off each other's banks
+  const int gap = NT3 == 4 && (kK5Rows + SN) * 4 * NQ <= 16 * sm.c2s ? 1 : 0;
+  // float offset of (row r, float4 column q): rows of 4 NQ floats, and the
+  // float4s of a row permuted so the accumulators' stores miss each other
+  auto at = [&](int r, int q) {
+    const int swz = NT3 == 8 ? 2 * (r & 3) : NT3 == 4 ? 2 * ((r >> 1) & 1) : 0;
+    return ((r + gap * (r / R)) * NQ + (q ^ swz)) * 4;
+  };
+  int* o = reinterpret_cast<int*>(out);
+  int tiles = 0, waits = 0, pass = 0;
+  for (;; ++pass) {
+    const int tile = sm.consumers * pass + group, st = tile % sm.stages;
+    const int par = (tile / sm.stages) & 1;
+    const bool ready = !leader || mbar_done(sm.full + st, par);
+    mbar_wait(sm.full + st, par);
+    if (sm.tile_end[st]) {         // handed back too: one h1 tile may serve two groups' ends
+      __syncwarp();
+      if (lane == 0) mbar_arrive(sm.empty + st);
+      break;
+    }
+    tiles += leader;
+    waits += !ready;
+    const int g0 = pass * ws.nsl;
+    {
+      float acc[4][NT2][4];
+      k5_layer<NT2, PREC>(sm.h1 + st * kK5Rows * sm.c1s, sm.c1s, C1, C2, ws.n2, g0, ws, acc);
+      rc[lane] = sm.tile_c[st * kK5Rows + lane];
+      rc[lane + 32] = sm.tile_c[st * kK5Rows + lane + 32];
+      __syncwarp();
+      if (lane == 0) mbar_arrive(sm.empty + st);   // the producer may refill the tile
+      named_sync(kK5GroupBar + group, 128);        // the group's last fold is done with h2
+#pragma unroll
+      for (int nt = 0; nt < NT2; ++nt) {
+        const int c = (cq * NT2 + nt) * 8 + 2 * t;
+        const float2 bias = __ldg(reinterpret_cast<const float2*>(b2 + c));
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          float* dst = h2 + (mt * 16 + g) * sm.c2s + c;
+          *reinterpret_cast<float2*>(dst) =
+              make_float2(fmaxf(__fadd_rn(acc[mt][nt][0], bias.x), 0.f),
+                          fmaxf(__fadd_rn(acc[mt][nt][1], bias.y), 0.f));
+          *reinterpret_cast<float2*>(dst + 8 * sm.c2s) =
+              make_float2(fmaxf(__fadd_rn(acc[mt][nt][2], bias.x), 0.f),
+                          fmaxf(__fadd_rn(acc[mt][nt][3], bias.y), 0.f));
+        }
+      }
+    }
+    named_sync(kK5GroupBar + group, 128);          // h2 is written
+    float acc[4][NT3][4];
+    k5_layer<NT3, PREC>(h2, sm.c2s, C2, C3, ws.nsl - ws.n2, g0 + ws.n2, ws, acc);
+    named_sync(kK5GroupBar + group, 128);          // every warp has read h2
+    auto flush = [&](int centre, const float4& m, int col) {
+      if (centre < 0) return;
+      int* to = o + (size_t)centre * C3 + col;
+      if (m.x > 0.f) atomicMax(to, __float_as_int(m.x));
+      if (m.y > 0.f) atomicMax(to + 1, __float_as_int(m.y));
+      if (m.z > 0.f) atomicMax(to + 2, __float_as_int(m.z));
+      if (m.w > 0.f) atomicMax(to + 3, __float_as_int(m.w));
+    };
+    auto max4 = [](const float4& a, const float4& b) {
+      return make_float4(fmaxf(a.x, b.x), fmaxf(a.y, b.y), fmaxf(a.z, b.z), fmaxf(a.w, b.w));
+    };
+    auto down4 = [](const float4& v, int d) {
+      return make_float4(__shfl_down_sync(0xffffffffu, v.x, d),
+                         __shfl_down_sync(0xffffffffu, v.y, d),
+                         __shfl_down_sync(0xffffffffu, v.z, d),
+                         __shfl_down_sync(0xffffffffu, v.w, d));
+    };
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      // layer 3's outputs of the chunk, with bias and ReLU
+#pragma unroll
+      for (int j = 0; j < NT3 / 2; ++j) {
+        const int nt = half * (NT3 / 2) + j;
+        const float2 bias =
+            __ldg(reinterpret_cast<const float2*>(b3 + (cq * NT3 + nt) * 8 + 2 * t));
+        const int q = 2 * j + (t >> 1), off = 2 * (t & 1);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          *reinterpret_cast<float2*>(stg + at(mt * 16 + g, q) + off) =
+              make_float2(fmaxf(__fadd_rn(acc[mt][nt][0], bias.x), 0.f),
+                          fmaxf(__fadd_rn(acc[mt][nt][1], bias.y), 0.f));
+          *reinterpret_cast<float2*>(stg + at(mt * 16 + g + 8, q) + off) =
+              make_float2(fmaxf(__fadd_rn(acc[mt][nt][2], bias.x), 0.f),
+                          fmaxf(__fadd_rn(acc[mt][nt][3], bias.y), 0.f));
+        }
+      }
+      __syncwarp();
+      const int col = (cq * NT3 + half * (NT3 / 2)) * 8 + 4 * fq;
+      // this lane's stretch: its first run (head, hm), its last (cur, m);
+      // runs in between are whole and sent here
+      const int r0 = fs * R;
+      int cur = reinterpret_cast<const int*>(frc)[0];
+      float4 m = *reinterpret_cast<const float4*>(stg + at(r0, fq));
+      const int head = cur;
+      float4 hm = m;
+      bool split = false;
+#pragma unroll
+      for (int i4 = 0; i4 < R / 4; ++i4) {
+        const int4 c4 = frc[i4];
+        const int cs[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int i = 4 * i4 + k;
+          if (i == 0) continue;
+          const float4 v = *reinterpret_cast<const float4*>(stg + at(r0 + i, fq));
+          if (cs[k] != cur) {
+            if (split) flush(cur, m, col);
+            else hm = m;
+            split = true;
+            cur = cs[k];
+            m = v;
+          } else {
+            m = max4(m, v);
+          }
+        }
+      }
+      if (!split) hm = m;
+      // Rows are in centre order.  x: the max of this stretch's first run
+      // over it and the later stretches that run on with it, by doubling
+      // (open: the run fills every stretch summed so far).
+      float4 x = hm;
+      bool open = !split;
+#pragma unroll
+      for (int d = 1; d < SN; d *= 2) {
+        const float4 ox = down4(x, d * NQ);
+        const int oh = __shfl_down_sync(0xffffffffu, head, d * NQ);
+        const bool oo = __shfl_down_sync(0xffffffffu, (int)open, d * NQ) != 0;
+        if (open && fs + d < SN && oh == head) {
+          x = max4(x, ox);
+          open = oo;
+        } else {
+          open = false;
+        }
+      }
+      // the last run takes the first runs of the later stretches with its
+      // centre; the first run is sent here unless the stretch before runs on
+      const float4 nx = down4(x, NQ);
+      const int nh = __shfl_down_sync(0xffffffffu, head, NQ);
+      const int before = __shfl_up_sync(0xffffffffu, cur, NQ);
+      if (fs + 1 < SN && nh == cur) m = max4(m, nx);
+      const bool runs_on = fs > 0 && before == head;
+      if (split && !runs_on) flush(head, hm, col);
+      if (split || !runs_on) flush(cur, m, col);
+      __syncwarp();
+    }
+  }
+  ws.drain(pass);
+  if (leader) {
+    atomicAdd(sm.counts, tiles);
+    atomicAdd(sm.counts + 1, waits);
+  }
+}
+
+// The producer's life: batches of centres from `counter`, their balls, and
+// their rows through layer 1 into the h1 tiles, in order; then a padded last
+// tile, pad tiles to a whole round, and an end tile for each group.
+template <bool HAS_UF>
+__device__ __forceinline__ void k5_front(const K5Smem& sm, const float* __restrict__ new_xyz,
+                                         const float* __restrict__ xyz,
+                                         const float* __restrict__ uf,
+                                         const float* __restrict__ b1,
+                                         const float* __restrict__ a1x,
+                                         int* __restrict__ counter,
+                                         unsigned long long* __restrict__ rows_count,
+                                         const int* __restrict__ first_copy, int B, int S,
+                                         int N, int K, int C1, float r2, int CB) {
+  const int fthreads = kK5Threads - 128 * sm.consumers, fwarps = fthreads / 32;
+  const int ft = threadIdx.x - 128 * sm.consumers;
+  const int fw = ft >> 5, lane = ft & 31;
+  const int nqb = (S + CB - 1) / CB;
+  const int total = B * nqb;
+  // layer 1's four columns of this thread (C1 / 4 divides 128), their weights,
+  // and its rows of a tile
+  const int cg = C1 / 4;
+  const int c1 = (ft % cg) * 4, j1 = ft / cg, jstep = fthreads / cg;
+  const float4 w1x = *reinterpret_cast<const float4*>(a1x + c1);
+  const float4 w1y = *reinterpret_cast<const float4*>(a1x + C1 + c1);
+  const float4 w1z = *reinterpret_cast<const float4*>(a1x + 2 * C1 + c1);
+  const float4 w1b = *reinterpret_cast<const float4*>(b1 + c1);
+  int tile = 0, fill = 0;                  // the tile being written, its rows so far
+  // wait until the tile's h1 is free; end: it tells its group to stop
+  auto open = [&](int end) {
+    const int st = tile % sm.stages;
+    if (tile >= sm.stages) mbar_wait(sm.empty + st, (tile / sm.stages - 1) & 1);
+    if (ft == 0) sm.tile_end[st] = end;
+  };
+  // rows from `fill` on are zero and of no centre; hand the tile over
+  auto close = [&]() {
+    const int st = tile % sm.stages;
+    for (int r = fill + j1; r < kK5Rows; r += jstep) {
+      *reinterpret_cast<float4*>(sm.h1 + (st * kK5Rows + r) * sm.c1s + c1) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+      if (c1 == 0) sm.tile_c[st * kK5Rows + r] = -1;
+    }
+    mbar_arrive(sm.full + st);
+    ++tile;
+    fill = 0;
+  };
+  while (true) {
+    if (ft == 0) sm.unit[0] = atomicAdd(counter, 1);
+    named_sync(kK5FrontBar, fthreads);
+    const int batch = sm.unit[0];
+    if (batch >= total) break;
+    const int b = batch / nqb;
+    const int s0 = (batch - b * nqb) * CB;
+    const int nc = min(CB, S - s0);
+    const float* xb = xyz + (size_t)b * N * 3;
+    for (int q = fw; q < nc; q += fwarps) {
+      const float* c = new_xyz + ((size_t)b * S + s0 + q) * 3;
+      const float cx = c[0], cy = c[1], cz = c[2];
+      const float q2 = fmaf(cz, cz, fmaf(cy, cy, fmaf(cx, cx, 0.f)));
+      int* mine = sm.slots + q * K;
+      int count = 0, rows = 0;          // in-ball points, and those that become rows
+      // 128 points a step, so that twelve loads are in flight at once
+      for (int base = 0; base < N && count < K; base += 128) {
+        bool in[4], fresh[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int j = base + 32 * u + lane;
+          in[u] = false;
+          fresh[u] = true;
+          if (j < N) {
+            if (!HAS_UF) fresh[u] = first_copy[(size_t)b * N + j] == j;
+            const float px = xb[3 * j], py = xb[3 * j + 1], pz = xb[3 * j + 2];
+            const float p2 = fmaf(pz, pz, fmaf(py, py, fmaf(px, px, 0.f)));
+            const float dot = fmaf(cz, pz, fmaf(cy, py, fmaf(cx, px, 0.f)));
+            in[u] = __fadd_rn(__fsub_rn(q2, __fmul_rn(2.f, dot)), p2) <= r2;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const unsigned m = __ballot_sync(0xffffffffu, in[u]);
+          const unsigned below = (1u << lane) - 1u;
+          // a slot is one of the first K in-ball points; it becomes a row
+          // unless an earlier point of the cloud has its very coordinates
+          const bool row = in[u] && count + __popc(m & below) < K && fresh[u];
+          const unsigned mr = __ballot_sync(0xffffffffu, row);
+          if (row) mine[rows + __popc(mr & below)] = base + 32 * u + lane;
+          count += __popc(m);
+          rows += __popc(mr);
+        }
+      }
+      if (lane == 0) {
+        if (count == 0) mine[0] = 0;
+        sm.nball[q] = count == 0 ? 1 : rows;
+      }
+    }
+    named_sync(kK5FrontBar, fthreads);
+    if (ft == 0) {
+      sm.first[0] = 0;
+      for (int q = 0; q < nc; ++q) sm.first[q + 1] = sm.first[q] + sm.nball[q];
+      if (rows_count != nullptr) atomicAdd(rows_count, (unsigned long long)sm.first[nc]);
+    }
+    named_sync(kK5FrontBar, fthreads);
+    for (int q = fw; q < nc; q += fwarps)
+      for (int i = lane; i < sm.nball[q]; i += 32) sm.row_q[sm.first[q] + i] = q;
+    named_sync(kK5FrontBar, fthreads);
+    // the batch's rows, in order, through layer 1 into the tiles:
+    // relu(((offset @ A1x) + b1) + uf[p]), a thread per four columns
+    const int nrows = sm.first[nc];
+    for (int e0 = 0; e0 < nrows;) {
+      if (fill == 0) open(0);
+      const int st = tile % sm.stages, n = min(kK5Rows - fill, nrows - e0);
+      float* h1 = sm.h1 + (st * kK5Rows + fill) * sm.c1s + c1;
+      int* tc = sm.tile_c + st * kK5Rows + fill;
+#pragma unroll 2
+      for (int r = j1; r < n; r += jstep) {
+        const int e = e0 + r, q = sm.row_q[e];
+        const int centre = b * S + s0 + q;
+        const int p = b * N + sm.slots[q * K + e - sm.first[q]];
+        const float* pt = xyz + (size_t)p * 3;
+        const float* c = new_xyz + (size_t)centre * 3;
+        const float ox = __fsub_rn(pt[0], c[0]);
+        const float oy = __fsub_rn(pt[1], c[1]);
+        const float oz = __fsub_rn(pt[2], c[2]);
+        float4 v;
+        v.x = __fadd_rn(fmaf(oz, w1z.x, fmaf(oy, w1y.x, __fmul_rn(ox, w1x.x))), w1b.x);
+        v.y = __fadd_rn(fmaf(oz, w1z.y, fmaf(oy, w1y.y, __fmul_rn(ox, w1x.y))), w1b.y);
+        v.z = __fadd_rn(fmaf(oz, w1z.z, fmaf(oy, w1y.z, __fmul_rn(ox, w1x.z))), w1b.z);
+        v.w = __fadd_rn(fmaf(oz, w1z.w, fmaf(oy, w1y.w, __fmul_rn(ox, w1x.w))), w1b.w);
+        if (HAS_UF) {
+          const float4 u = __ldg(reinterpret_cast<const float4*>(uf + (size_t)p * C1 + c1));
+          v.x = __fadd_rn(v.x, u.x);
+          v.y = __fadd_rn(v.y, u.y);
+          v.z = __fadd_rn(v.z, u.z);
+          v.w = __fadd_rn(v.w, u.w);
+        }
+        *reinterpret_cast<float4*>(h1 + r * sm.c1s) =
+            make_float4(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f), fmaxf(v.z, 0.f), fmaxf(v.w, 0.f));
+        if (c1 == 0) tc[r] = centre;
+      }
+      fill += n;
+      e0 += n;
+      if (fill == kK5Rows) close();
+    }
+    named_sync(kK5FrontBar, fthreads);    // the batch's arrays are read
+  }
+  if (fill > 0) close();
+  while (tile % sm.consumers != 0) {  // whole rounds: a round reads the weights once
+    open(0);
+    close();
+  }
+  for (int group = 0; group < sm.consumers; ++group) {
+    open(1);
+    close();
+  }
 }
 
 // first_copy[b, n] = the lowest index whose coordinates are bit for bit those
@@ -396,187 +949,98 @@ first_copy_kernel(const float* __restrict__ xyz, int* __restrict__ first_copy, i
   }
 }
 
-template <bool HAS_UF, int PREC>
-__global__ void __launch_bounds__(kThreads, 1)
+// tiles_count, waits_count: nullptr, or 64-bit counters to which each block
+// adds the tiles its consumer groups multiplied and those at which a group
+// found the tile not yet written (one atomicAdd each a block, at its end).
+// FRONTS: producer warpgroups, 1 or 2 (the launcher's choice by shape).
+template <bool HAS_UF, int PREC, int FRONTS>
+__global__ void __launch_bounds__(kK5Threads, 1)
 ball_mlp3_kernel(const float* __restrict__ new_xyz, const float* __restrict__ xyz,
                  const float* __restrict__ uf, const float* __restrict__ b1,
                  const float* __restrict__ a1x, const float* __restrict__ wfrag,
                  const float* __restrict__ b2, const float* __restrict__ b3,
                  float* __restrict__ out, int* __restrict__ counter,
                  unsigned long long* __restrict__ rows_count,
+                 unsigned long long* __restrict__ tiles_count,
+                 unsigned long long* __restrict__ waits_count,
                  const int* __restrict__ first_copy, int B, int S, int N, int K, int C1,
-                 int C2, int C3, float r2, int CB, int nbuf) {
+                 int C2, int C3, float r2, int CB, int stages, int nbuf) {
   extern __shared__ __align__(16) float smem[];
-  float* h1 = smem;                                       // [kBallRows][C1 + 4]
-  float* h2 = h1 + kBallRows * (C1 + 4);                  // [kBallRows][C2 + 4]
-  float* ring = h2 + kBallRows * (C2 + 4);                // [nbuf][kSlabFloats]
-  int* qc = reinterpret_cast<int*>(ring + nbuf * kSlabFloats);  // queue: centre b*S + s
-  int* qp = qc + kQueueCap;                               // queue: point b*N + p
-  int* slots = qp + kQueueCap;                            // [CB][K] ball members
-  int* row_c = slots + kMaxBatchRows;                     // [kBallRows] centre, -1: none
-  int* row_p = row_c + kBallRows;                         // [kBallRows] point
-  float* offs = reinterpret_cast<float*>(row_p + kBallRows);  // [kBallRows][3]
-  int* nball = reinterpret_cast<int*>(offs + 3 * kBallRows);  // [kMaxBatch]
-  int* first = nball + kMaxBatch;                         // [kMaxBatch + 1]
-  int* unit = first + kMaxBatch + 1;                      // [1] the batch drawn
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem);
+  K5Stream ws;
+  ws.frag = wfrag;
+  ws.full = bars + 2 * kK5MaxStages;
+  ws.ring = smem + kK5BarBytes / 4;                       // [nbuf][kSlabFloats]
+  ws.n2 = (C1 / 8) / slab_ksteps(C1, C2);
+  ws.s2 = slab_ksteps(C1, C2) * C2 * 8;
+  ws.s3 = slab_ksteps(C2, C3) * C3 * 8;
+  ws.nsl = ws.n2 + (C2 / 8) / slab_ksteps(C2, C3);
+  ws.nbuf = nbuf;
+  constexpr int kConsumers = 3 - FRONTS;
+  ws.warps = 4 * kConsumers;
+  K5Smem sm;
+  sm.consumers = kConsumers;
+  sm.stages = stages;
+  sm.c1s = C1 + 4;
+  sm.c2s = C2 + 4;
+  sm.full = bars;
+  sm.empty = bars + kK5MaxStages;
+  sm.h1 = ws.ring + nbuf * kSlabFloats;
+  sm.h2 = sm.h1 + stages * kK5Rows * sm.c1s;
+  sm.tile_c = reinterpret_cast<int*>(sm.h2 + kConsumers * kK5Rows * sm.c2s);
+  sm.warp_c = sm.tile_c + stages * kK5Rows;
+  sm.slots = sm.warp_c + 4 * kK5MaxConsumers * kK5Rows;
+  sm.row_q = sm.slots + kMaxBatchRows;
+  sm.nball = sm.row_q + kMaxBatchRows;
+  sm.first = sm.nball + kMaxBatch;
+  sm.unit = sm.first + kMaxBatch + 1;
+  sm.counts = sm.unit + 1;
+  ws.done = sm.counts + 2;
+  sm.tile_end = ws.done + kK5MaxBufs;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nqb = (S + CB - 1) / CB;
-  const int total = B * nqb;
-
-  WeightRing wr;
-  wr.frag = wfrag;
-  wr.ring = ring;
-  wr.n2 = (C1 / 8) / slab_ksteps(C1, C2);
-  wr.s2 = slab_ksteps(C1, C2) * C2 * 8;
-  wr.n3 = (C2 / 8) / slab_ksteps(C2, C3);
-  wr.s3 = slab_ksteps(C2, C3) * C3 * 8;
-  wr.nbuf = nbuf;
-  wr.start();
-
-  // layer 1's four columns of this thread (C1 / 4 divides kThreads), their weights
-  const int c1 = (threadIdx.x % (C1 / 4)) * 4;
-  const float4 w1x = *reinterpret_cast<const float4*>(a1x + c1);
-  const float4 w1y = *reinterpret_cast<const float4*>(a1x + C1 + c1);
-  const float4 w1z = *reinterpret_cast<const float4*>(a1x + 2 * C1 + c1);
-  const float4 w1b = *reinterpret_cast<const float4*>(b1 + c1);
-  int head = 0, qlen = 0;
-  bool done = false;
-  while (true) {
-    while (!done && qlen < kBallRows) {
-      if (threadIdx.x == 0) unit[0] = atomicAdd(counter, 1);
-      __syncthreads();
-      const int batch = unit[0];
-      if (batch >= total) {
-        done = true;
-        break;
-      }
-      const int b = batch / nqb;
-      const int s0 = (batch - b * nqb) * CB;
-      const int nc = min(CB, S - s0);
-      const float* xb = xyz + (size_t)b * N * 3;
-      for (int q = warp; q < nc; q += kThreads / 32) {
-        const float* c = new_xyz + ((size_t)b * S + s0 + q) * 3;
-        const float cx = c[0], cy = c[1], cz = c[2];
-        const float q2 = fmaf(cz, cz, fmaf(cy, cy, fmaf(cx, cx, 0.f)));
-        int* mine = slots + q * K;
-        int count = 0, rows = 0;        // in-ball points, and those that become rows
-        // 128 points a step, so that twelve loads are in flight at once
-        for (int base = 0; base < N && count < K; base += 128) {
-          bool in[4], fresh[4];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const int j = base + 32 * u + lane;
-            in[u] = false;
-            fresh[u] = true;
-            if (j < N) {
-              if (!HAS_UF) fresh[u] = first_copy[(size_t)b * N + j] == j;
-              const float px = xb[3 * j], py = xb[3 * j + 1], pz = xb[3 * j + 2];
-              const float p2 = fmaf(pz, pz, fmaf(py, py, fmaf(px, px, 0.f)));
-              const float dot = fmaf(cz, pz, fmaf(cy, py, fmaf(cx, px, 0.f)));
-              in[u] = __fadd_rn(__fsub_rn(q2, __fmul_rn(2.f, dot)), p2) <= r2;
-            }
-          }
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const unsigned m = __ballot_sync(0xffffffffu, in[u]);
-            const unsigned below = (1u << lane) - 1u;
-            // a slot is one of the first K in-ball points; it becomes a row
-            // unless an earlier point of the cloud has its very coordinates
-            const bool row = in[u] && count + __popc(m & below) < K && fresh[u];
-            const unsigned mr = __ballot_sync(0xffffffffu, row);
-            if (row) mine[rows + __popc(mr & below)] = base + 32 * u + lane;
-            count += __popc(m);
-            rows += __popc(mr);
-          }
-        }
-        if (lane == 0) {
-          if (count == 0) mine[0] = 0;
-          nball[q] = count == 0 ? 1 : rows;
-        }
-      }
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        first[0] = 0;
-        for (int q = 0; q < nc; ++q) first[q + 1] = first[q] + nball[q];
-        if (rows_count != nullptr) atomicAdd(rows_count, (unsigned long long)first[nc]);
-      }
-      __syncthreads();
-      for (int q = warp; q < nc; q += kThreads / 32)
-        for (int i = lane; i < nball[q]; i += 32) {
-          const int at = (head + qlen + first[q] + i) & (kQueueCap - 1);
-          qc[at] = b * S + s0 + q;
-          qp[at] = b * N + slots[q * K + i];
-        }
-      qlen += first[nc];
-      __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(sm.full + st, 128 * FRONTS);
+      mbar_init(sm.empty + st, 4);
     }
-    if (qlen == 0) break;
+    for (int i = 0; i < nbuf; ++i) {
+      mbar_init(ws.full + i, 1);
+      ws.done[i] = 0;
+    }
+    sm.counts[0] = sm.counts[1] = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int g = 0; g < nbuf; ++g) ws.copy(g);
+  }
+  __syncthreads();
 
-    const int rows = min(kBallRows, qlen);
-    if (threadIdx.x < kBallRows) {
-      const int r = threadIdx.x;
-      int cq = -1, p = 0;
-      float ox = 0.f, oy = 0.f, oz = 0.f;
-      if (r < rows) {
-        const int at = (head + r) & (kQueueCap - 1);
-        cq = qc[at];
-        p = qp[at];
-        const float* pt = xyz + (size_t)p * 3;
-        const float* c = new_xyz + (size_t)cq * 3;
-        ox = __fsub_rn(pt[0], c[0]);
-        oy = __fsub_rn(pt[1], c[1]);
-        oz = __fsub_rn(pt[2], c[2]);
-      }
-      row_c[r] = cq;
-      row_p[r] = p;
-      offs[3 * r] = ox;
-      offs[3 * r + 1] = oy;
-      offs[3 * r + 2] = oz;
-    }
-    head = (head + rows) & (kQueueCap - 1);
-    qlen -= rows;
-    __syncthreads();
-    // layer 1: relu(((offset @ A1x) + b1) + uf[p]); a thread keeps its four columns
-#pragma unroll 2
-    for (int r = threadIdx.x / (C1 / 4); r < kBallRows; r += kThreads / (C1 / 4)) {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row_c[r] >= 0) {
-        const float ox = offs[3 * r], oy = offs[3 * r + 1], oz = offs[3 * r + 2];
-        v.x = __fadd_rn(fmaf(oz, w1z.x, fmaf(oy, w1y.x, __fmul_rn(ox, w1x.x))), w1b.x);
-        v.y = __fadd_rn(fmaf(oz, w1z.y, fmaf(oy, w1y.y, __fmul_rn(ox, w1x.y))), w1b.y);
-        v.z = __fadd_rn(fmaf(oz, w1z.z, fmaf(oy, w1y.z, __fmul_rn(ox, w1x.z))), w1b.z);
-        v.w = __fadd_rn(fmaf(oz, w1z.w, fmaf(oy, w1y.w, __fmul_rn(ox, w1x.w))), w1b.w);
-        if (HAS_UF) {
-          const float4 u = __ldg(
-              reinterpret_cast<const float4*>(uf + (size_t)row_p[r] * C1 + c1));
-          v.x = __fadd_rn(v.x, u.x);
-          v.y = __fadd_rn(v.y, u.y);
-          v.z = __fadd_rn(v.z, u.z);
-          v.w = __fadd_rn(v.w, u.w);
-        }
-        v = make_float4(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f), fmaxf(v.z, 0.f), fmaxf(v.w, 0.f));
-      }
-      *reinterpret_cast<float4*>(h1 + r * (C1 + 4) + c1) = v;
-    }
-    __syncthreads();
+  if (threadIdx.x >= 128 * kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(k5_front_regs(FRONTS)));
+    k5_front<HAS_UF>(sm, new_xyz, xyz, uf, b1, a1x, counter, rows_count, first_copy, B, S, N,
+                     K, C1, r2, CB);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kK5ConsumerRegs));
     switch ((C2 / 32) * 16 + C3 / 32) {
       case 1 * 16 + 2:
-        ball_layers23<1, 2, PREC>(h1, h2, C1, C2, C3, wr, b2, b3, row_c, out);
+        k5_consume<1, 2, PREC>(sm, ws, C1, C2, C3, b2, b3, out);
         break;
       case 2 * 16 + 4:
-        ball_layers23<2, 4, PREC>(h1, h2, C1, C2, C3, wr, b2, b3, row_c, out);
+        k5_consume<2, 4, PREC>(sm, ws, C1, C2, C3, b2, b3, out);
         break;
       case 3 * 16 + 4:
-        ball_layers23<3, 4, PREC>(h1, h2, C1, C2, C3, wr, b2, b3, row_c, out);
+        k5_consume<3, 4, PREC>(sm, ws, C1, C2, C3, b2, b3, out);
         break;
-      default:
-        ball_layers23<4, 8, PREC>(h1, h2, C1, C2, C3, wr, b2, b3, row_c, out);
+      default:  // two producers only where layer 3 has at most 128 columns
+        if constexpr (FRONTS == 1) k5_consume<4, 8, PREC>(sm, ws, C1, C2, C3, b2, b3, out);
         break;
     }
-    __syncthreads();
+    if (tiles_count != nullptr || waits_count != nullptr) {
+      named_sync(kK5ConsumersBar, 128 * kConsumers);
+      if (threadIdx.x == 0) {
+        if (tiles_count != nullptr) atomicAdd(tiles_count, (unsigned long long)sm.counts[0]);
+        if (waits_count != nullptr) atomicAdd(waits_count, (unsigned long long)sm.counts[1]);
+      }
+    }
   }
-  cp_async_wait<0>();
 }
 
 // ---------------------------------------------------------- iq_knn_density
@@ -1096,12 +1560,16 @@ extern "C" {
 // (the batch counter, then both layers' weights in fragment order), and
 // without uf B*N more (each point's first copy).  rows_count: nullptr, or a
 // 64-bit counter to which each batch of centres adds the rows it queues
-// for layers 2-3 (one atomicAdd a batch).  prec: the matmul precision of
-// layers 2-3 (kPrecHighest, kPrecHigh or kPrecDefault).
+// for layers 2-3 (one atomicAdd a batch).  tiles_count, waits_count:
+// nullptr, or 64-bit counters of the h1 tiles the consumer groups
+// multiplied and of those they found not yet written (one atomicAdd each a
+// block).  prec: the matmul precision of layers 2-3 (kPrecHighest,
+// kPrecHigh or kPrecDefault).
 int iq_ball_mlp3(const float* new_xyz, const float* xyz, const float* uf, const float* b1,
                  const float* a1x, const float* a2, const float* b2, const float* a3,
                  const float* b3, float* out, float* scratch, unsigned long long* rows_count,
-                 int B, int S, int N, int K, int C1, int C2, int C3, float r2, int prec,
+                 unsigned long long* tiles_count, unsigned long long* waits_count, int B,
+                 int S, int N, int K, int C1, int C2, int C3, float r2, int prec,
                  void* stream) {
   if (B <= 0 || S <= 0) return cudaSuccess;
   const int widths = (C2 / 32) * 16 + C3 / 32;
@@ -1113,12 +1581,21 @@ int iq_ball_mlp3(const float* new_xyz, const float* xyz, const float* uf, const 
       (long long)B * S > 0x7fffffffLL || (long long)B * N > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   const int CB = min(kMaxBatch, kMaxBatchRows / K);
+  // the weights resident where they fit beside two h1 tiles, else streamed;
+  // then as many h1 tiles as fit, up to kK5MaxStages
   const int nslabs = (C1 / 8) / slab_ksteps(C1, C2) + (C2 / 8) / slab_ksteps(C2, C3);
-  const int fixed = kBallFixedFloats + kBallRows * (C1 + 4) + kBallRows * (C2 + 4);
-  const int room = (kMaxSmem / 4 - fixed) / kSlabFloats;
-  const int nbuf = nslabs <= room ? nslabs : kAhead + 1;
-  if (nbuf > room) return cudaErrorInvalidValue;
-  const size_t smem = ((size_t)fixed + (size_t)nbuf * kSlabFloats) * sizeof(float);
+  // two producer warpgroups beside one consumer group where a row costs
+  // the products little against its share of the ball query and layer 1
+  const int fronts = C1 * C2 + C2 * C3 <= kK5TwoFrontsMacs && C3 <= 128 ? 2 : 1;
+  const int consumers = 3 - fronts;
+  const int nbuf =
+      nslabs <= kK5MaxBufs && k5_smem_bytes(C1, C2, consumers, 2, nslabs) <= kMaxSmem
+          ? nslabs
+          : kK5StreamBufs;
+  int stages = kK5MaxStages;
+  while (stages > 1 && k5_smem_bytes(C1, C2, consumers, stages, nbuf) > kMaxSmem) --stages;
+  const size_t smem = k5_smem_bytes(C1, C2, consumers, stages, nbuf);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -1142,17 +1619,22 @@ int iq_ball_mlp3(const float* new_xyz, const float* xyz, const float* uf, const 
       a3, C2, C3, reinterpret_cast<float2*>(frag3), prec);
   const long long units = (long long)B * ((S + CB - 1) / CB);
   const unsigned grid = (unsigned)(units < sms ? units : sms);
-  using Kernel = decltype(&ball_mlp3_kernel<true, kPrecHighest>);
-  static const Kernel kernels[2][3] = {
-      {ball_mlp3_kernel<false, kPrecHighest>, ball_mlp3_kernel<false, kPrecHigh>,
-       ball_mlp3_kernel<false, kPrecDefault>},
-      {ball_mlp3_kernel<true, kPrecHighest>, ball_mlp3_kernel<true, kPrecHigh>,
-       ball_mlp3_kernel<true, kPrecDefault>}};
-  const Kernel kernel = kernels[uf != nullptr][prec];
+  using Kernel = decltype(&ball_mlp3_kernel<true, kPrecHighest, 1>);
+  static const Kernel kernels[2][2][3] = {
+      {{ball_mlp3_kernel<false, kPrecHighest, 1>, ball_mlp3_kernel<false, kPrecHigh, 1>,
+        ball_mlp3_kernel<false, kPrecDefault, 1>},
+       {ball_mlp3_kernel<true, kPrecHighest, 1>, ball_mlp3_kernel<true, kPrecHigh, 1>,
+        ball_mlp3_kernel<true, kPrecDefault, 1>}},
+      {{ball_mlp3_kernel<false, kPrecHighest, 2>, ball_mlp3_kernel<false, kPrecHigh, 2>,
+        ball_mlp3_kernel<false, kPrecDefault, 2>},
+       {ball_mlp3_kernel<true, kPrecHighest, 2>, ball_mlp3_kernel<true, kPrecHigh, 2>,
+        ball_mlp3_kernel<true, kPrecDefault, 2>}}};
+  const Kernel kernel = kernels[fronts - 1][uf != nullptr][prec];
   if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, s>>>(new_xyz, xyz, uf, b1, a1x, frag2, b2, b3, out, counter,
-                                      rows_count, uf != nullptr ? nullptr : first_copy, B, S,
-                                      N, K, C1, C2, C3, r2, CB, nbuf);
+  kernel<<<grid, kK5Threads, smem, s>>>(
+      new_xyz, xyz, uf, b1, a1x, frag2, b2, b3, out, counter, rows_count, tiles_count,
+      waits_count, uf != nullptr ? nullptr : first_copy, B, S, N, K, C1, C2, C3, r2, CB,
+      stages, nbuf);
   return cudaGetLastError();
 }
 

@@ -27,8 +27,9 @@ bf16, to nearest even; xyz offsets are exact at every setting, as in the JAX
 package.  ``parts=None`` takes the process's setting on the card and exact
 gathers on the CPU (``precision.value_parts``).  The kernels of
 ``fused_ball_mlp3`` and ``fused_pointconv_sa`` run their layers 2-3 (and the
-latter its contraction) on the tensor cores, through one piece of code: at
-the ``highest`` matmul precision as three TF32 products that keep f32
+latter its contraction) on the tensor cores with the same instructions (the
+former in a warp-specialised pipeline, its ball query and layer 1 beside
+the products): at the ``highest`` matmul precision as three TF32 products that keep f32
 accuracy, at ``high`` as one product of TF32-rounded operands, at
 ``default`` as one product of bf16-rounded operands, as the process's
 ``--matmul_precision`` says (``ops/cuda/emulation.py`` repeats each).
@@ -49,7 +50,9 @@ its launcher (``iq_ball_mlp3``, ...); a launch at another setting than the
 exact one counts in ``ROUTE_LAUNCHES`` as well (``gather_rows:bf16``,
 ``fused_ball_mlp3:default``, ...).  While a profiler records,
 ``fused_ball_mlp3``'s kernel adds the rows it multiplies to the work counter
-``K5_ROWS`` (``utils.profiling``).
+``K5_ROWS``, and the tiles its consumer warpgroups multiply and those they
+found not yet written by its producer warpgroup to ``K5_TILES`` and
+``K5_FRONT_WAITS`` (``utils.profiling``).
 """
 from __future__ import annotations
 
@@ -84,11 +87,18 @@ ROUTE_LAUNCHES = {"gather_rows:bf16": 0, "fused_ball_mlp3:high": 0,
 # (without feature rows the fresh ones: no earlier point at its very
 # coordinates), every centre counted, repeated ones too
 K5_ROWS = "k5_rows"
+# its pipeline's work counters: the 64-row tiles of layer-1 rows its consumer
+# warpgroups multiplied through layers 2-3 (pads included), and those at
+# which a consumer found the tile not yet written, so the producer's ball
+# query and layer 1 set the pace there
+K5_TILES = "k5_tiles"
+K5_FRONT_WAITS = "k5_front_waits"
 # the prec argument of iq_ball_mlp3 and iq_pointconv_sa (kPrec* in the source)
 PRECISION_CODES = {"highest": 0, "high": 1, "default": 2}
 
 MAX_DENSITY_K = 64   # largest k of knn_with_density (kMaxDensityK)
 MAX_BALL_K = 1024    # largest k of fused_ball_mlp3 (kMaxBatchRows)
+BALL_TILE_ROWS = 64  # rows of fused_ball_mlp3's tiles through layers 2-3 (kK5Rows)
 # (C2 / 32, C3 / 32) that the kernels of fused_ball_mlp3 and
 # fused_pointconv_sa are instantiated for: each warp owns a quarter of a
 # layer's columns in tiles of 8
@@ -108,7 +118,7 @@ def reset_launches() -> None:
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load("groups")
-    lib.iq_ball_mlp3.argtypes = [P] * 12 + [I] * 7 + [F, I, P]
+    lib.iq_ball_mlp3.argtypes = [P] * 14 + [I] * 7 + [F, I, P]
     lib.iq_knn_density.argtypes = [P] * 7 + [I] * 7 + [P]
     lib.iq_knn_density_route.argtypes = [I, I, I, P]
     lib.iq_pointconv_sa.argtypes = [P] * 13 + [I] * 8 + [P]
@@ -226,16 +236,17 @@ def fused_ball_mlp3(new_xyz: torch.Tensor, xyz: torch.Tensor,
     scratch = torch.empty(4 + C1 * C2 + C2 * C3 + (B * N if uf is None else 0),
                           dtype=torch.float32,
                           device=xyz.device)
-    # the rows layers 2-3 multiply, counted by the kernel while a profiler
-    # records (``K5_ROWS``); otherwise it gets no counter
-    rows = (profiling.accumulator(K5_ROWS, xyz.device) if profiling.tracing()
-            else None)
+    # the rows layers 2-3 multiply, the tiles and the waits for them,
+    # counted by the kernel while a profiler records; otherwise it gets no
+    # counters
+    counts = ([profiling.accumulator(name, xyz.device).data_ptr()
+               for name in (K5_ROWS, K5_TILES, K5_FRONT_WAITS)]
+              if profiling.tracing() else [None] * 3)
     with record_function("iq_ball_mlp3"):
         rc = _lib().iq_ball_mlp3(new_xyz.data_ptr(), xyz.data_ptr(),
                                  None if uf is None else uf.data_ptr(),
                                  *[t.data_ptr() for t in w], out.data_ptr(),
-                                 scratch.data_ptr(),
-                                 None if rows is None else rows.data_ptr(),
+                                 scratch.data_ptr(), *counts,
                                  B, S, N, k, C1, C2, C3,
                                  radius ** 2, PRECISION_CODES[precision],
                                  stream(xyz))

@@ -187,27 +187,34 @@ def test_ball_mlp3_matches_plain(cuda, widths, k, radius, with_uf):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_uf", [False, True])
-def test_ball_mlp3_empty_and_overfull_balls(cuda, with_uf):
+@pytest.mark.parametrize("B,S,empty,widths,k", [
+    (3, 77, 5, (64, 64, 128), 32),
+    (3, 77, 5, (128, 128, 256), 128),
+    (1, 5, 1, (64, 96, 128), 128)])
+def test_ball_mlp3_empty_and_overfull_balls(cuda, with_uf, B, S, empty, widths, k):
     """A centre with no point in its ball takes point 0; a centre with more
     than K members (a collapsed region: 600 copies of one point, then 300
     points around it) takes the first K in index order; 77 centres and 999
-    points fill no tile and no batch evenly."""
+    points fill no tile and no batch evenly.  At K = 128 with streamed
+    weights a centre's rows straddle two 64-row tiles and two ring stages
+    (the empty balls' single rows come first); one cloud of 5 centres is
+    one batch, so every block but one finds no work and must still end."""
     g = torch.Generator().manual_seed(7)
-    xyz = torch.rand(3, 999, 3, generator=g) - 0.5
+    xyz = torch.rand(B, 999, 3, generator=g) - 0.5
     xyz[:, 100:700] = xyz[:, 100:101]
-    xyz[:, 700:] = xyz[:, 100:101] + 0.05 * (torch.rand(3, 299, 3, generator=g) - 0.5)
-    new_xyz = xyz[:, 90:167].clone()
-    new_xyz[:, :5] += 10.0                                    # empty balls
+    xyz[:, 700:] = xyz[:, 100:101] + 0.05 * (torch.rand(B, 299, 3, generator=g) - 0.5)
+    new_xyz = xyz[:, 90:90 + S].clone()
+    new_xyz[:, :empty] += 10.0                                # empty balls
     xyz, new_xyz = xyz.to(cuda), new_xyz.contiguous().to(cuda)
-    w, a1f = _ball_weights(g, (64, 64, 128), with_uf, cuda)
-    uf = torch.randn(3, 999, 5, generator=g).to(cuda) @ a1f if with_uf else None
+    w, a1f = _ball_weights(g, widths, with_uf, cuda)
+    uf = torch.randn(B, 999, 5, generator=g).to(cuda) @ a1f if with_uf else None
     from interpret_quality_tpu_torch.ops.geometry import query_ball_point
-    idx = query_ball_point(0.1, 32, xyz, new_xyz)
-    assert bool((idx[:, :5] == 0).all())                      # empty: index 0
+    idx = query_ball_point(0.1, k, xyz, new_xyz)
+    assert bool((idx[:, :empty] == 0).all())                  # empty: index 0
     inside = ((xyz[:, None] - new_xyz[:, :, None]) ** 2).sum(-1) <= 0.1 ** 2
-    assert int(inside.sum(-1).max()) > 32                     # overfull
-    got = gr.fused_ball_mlp3(new_xyz, xyz, uf, *w, radius=0.1, k=32)
-    want = gr.fused_ball_mlp3_plain(new_xyz, xyz, uf, *w, radius=0.1, k=32)
+    assert int(inside.sum(-1).max()) > (k if S > 5 else 0)   # overfull
+    got = gr.fused_ball_mlp3(new_xyz, xyz, uf, *w, radius=0.1, k=k)
+    want = gr.fused_ball_mlp3_plain(new_xyz, xyz, uf, *w, radius=0.1, k=k)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
@@ -976,11 +983,13 @@ def test_gather_rows_bf16_bit_equal_to_plain(cuda, F, offset):
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision,parts", [("high", 2), ("default", 1)])
 @pytest.mark.parametrize("with_uf", [False, True])
-@pytest.mark.parametrize("widths,k,radius", [BALL_BRANCHES[1], BALL_BRANCHES[4]])
+@pytest.mark.parametrize("widths,k,radius", [BALL_BRANCHES[1], BALL_BRANCHES[4],
+                                              BALL_BRANCHES[5]])
 def test_ball_mlp3_one_pass_matches_emulation(cuda, widths, k, radius,
                                               with_uf, precision, parts):
     """Kernel 5 at a one-pass setting against ``emulation.ball_mlp3_at``;
-    resident (64, 128) and streamed (128, 256) weights."""
+    resident (64, 128) and streamed (128, 256) weights, the latter also at
+    K = 128, where a centre's rows cross tiles."""
     from interpret_quality_tpu_torch.ops.cuda import emulation as em
     g = torch.Generator().manual_seed(k + widths[0])
     xyz = _cloud(cuda, 2, 512, k, collapse=False)
@@ -1064,17 +1073,21 @@ def _traced(fn):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_uf", [False, True])
-def test_ball_mlp3_counts_its_rows(cuda, with_uf):
+@pytest.mark.parametrize("widths", [(64, 64, 128), (128, 128, 256)])
+def test_ball_mlp3_counts_its_rows(cuda, with_uf, widths):
     """Traced, kernel 5 counts each centre's filled slots (the first k
     in-ball points; without feature rows those with no earlier point at
-    their very coordinates), every centre, a repeated one too; its output
-    is bit-equal to the untraced launch's.  Half of each cloud sits on its
-    first point and every third point is a centre; no point lies within
-    4e-5 of a ball's boundary, so f32 rounding decides no membership."""
+    their very coordinates), every centre, a repeated one too; its
+    consumers multiply at least those rows' tiles of ``BALL_TILE_ROWS``,
+    and wait for the producer at no more tiles than they multiply; its
+    output is bit-equal to the untraced launch's.  Half of each cloud sits
+    on its first point and every third point is a centre; no point lies
+    within 4e-5 of a ball's boundary, so f32 rounding decides no
+    membership.  Resident and streamed weights."""
     g = torch.Generator().manual_seed(12)
     xyz = _cloud(cuda, 2, 512, 12)
     new_xyz = xyz[:, ::3].contiguous()
-    w, a1f = _ball_weights(g, (64, 64, 128), with_uf, cuda)
+    w, a1f = _ball_weights(g, widths, with_uf, cuda)
     uf = torch.randn(2, 512, 5, generator=g).to(cuda) @ a1f if with_uf else None
     radius, k = 0.2, 32
     off = gr.fused_ball_mlp3(new_xyz, xyz, uf, *w, radius=radius, k=k)
@@ -1090,7 +1103,11 @@ def test_ball_mlp3_counts_its_rows(cuda, with_uf):
         copy = torch.tril(same, diagonal=-1).any(-1)            # an earlier twin
         rows &= ~copy[:, None, :]
     per_centre = torch.where(inside.any(-1), rows.sum(-1), 1)
-    assert counts == {gr.K5_ROWS: int(per_centre.sum())}
+    assert counts[gr.K5_ROWS] == int(per_centre.sum())
+    tiles = counts[gr.K5_TILES]
+    assert tiles >= -(-int(per_centre.sum()) // gr.BALL_TILE_ROWS)
+    assert 0 <= counts.get(gr.K5_FRONT_WAITS, 0) <= tiles
+    assert set(counts) <= {gr.K5_ROWS, gr.K5_TILES, gr.K5_FRONT_WAITS}
 
 
 @pytest.mark.cuda

@@ -294,21 +294,25 @@ def ball_args():
 
 
 def test_kernel5_gets_a_counter_only_while_tracing(monkeypatch):
-    """The launcher's row counter: None untraced; traced, the counter's
-    accumulator, into which the kernel adds (here the stand-in adds 7)."""
-    def add_rows(args):
-        if args[11] is not None:
-            (ctypes.c_longlong * 1).from_address(args[11])[0] += 7
-    launcher = stand_in(monkeypatch, gr, "iq_ball_mlp3", add_rows)
+    """The launcher's row, tile and wait counters: None untraced; traced,
+    each counter's accumulator, into which the kernel adds (here the
+    stand-in adds 7 rows, 3 tiles and 1 wait)."""
+    def add_counts(args):
+        for at, n in zip(args[11:14], (7, 3, 1)):
+            if at is not None:
+                (ctypes.c_longlong * 1).from_address(at)[0] += n
+    launcher = stand_in(monkeypatch, gr, "iq_ball_mlp3", add_counts)
     gr.fused_ball_mlp3(*ball_args(), radius=0.3, k=8)
-    assert launcher.calls[-1][11] is None
+    assert launcher.calls[-1][11:14] == (None, None, None)
     assert profiling.counters() == {}
     with profile(activities=[ProfilerActivity.CPU]):
         gr.fused_ball_mlp3(*ball_args(), radius=0.3, k=8)
         gr.fused_ball_mlp3(*ball_args(), radius=0.3, k=8)
-    assert launcher.calls[-1][11] == profiling.accumulator(
-        gr.K5_ROWS, "cpu").data_ptr()
-    assert profiling.counters() == {gr.K5_ROWS: 14}
+    names = (gr.K5_ROWS, gr.K5_TILES, gr.K5_FRONT_WAITS)
+    assert launcher.calls[-1][11:14] == tuple(
+        profiling.accumulator(name, "cpu").data_ptr() for name in names)
+    assert profiling.counters() == {gr.K5_ROWS: 14, gr.K5_TILES: 6,
+                                    gr.K5_FRONT_WAITS: 2}
 
 
 def test_kernel3_counts_distinct_rows_times_database_rows(monkeypatch):

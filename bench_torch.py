@@ -91,22 +91,6 @@ def reference_fwds_per_sec(model: str, num_points: int = 1024):
     return _TITAN_EFF_FLOPS / (GFLOP_PER_FORWARD[model] * 1e9)
 
 
-def _counters():
-    from interpret_quality_tpu_torch.ops.cuda import (dense, fps, groups,
-                                                      neighbors)
-    return (neighbors, fps, groups, dense)
-
-
-def reset_launches() -> None:
-    for c in _counters():
-        c.reset_launches()
-
-
-def kernel_launches() -> dict:
-    """The kernels launched since ``reset_launches``, with their counts."""
-    return {k: v for c in _counters() for k, v in c.LAUNCHES.items() if v}
-
-
 def bench_model(name: str, orders: int | None, steps: int, warmup: int,
                 num_points: int, device: str = "cuda") -> dict:
     import numpy as np
@@ -119,6 +103,7 @@ def bench_model(name: str, orders: int | None, steps: int, warmup: int,
     from interpret_quality_tpu_torch.models import (build_model,
                                                     make_forward_fn)
     from interpret_quality_tpu_torch.models.common import resolve_device
+    from interpret_quality_tpu_torch.ops.cuda import launch
 
     dev = resolve_device(device)
     R = 32
@@ -141,7 +126,7 @@ def bench_model(name: str, orders: int | None, steps: int, warmup: int,
         perms = np.stack([r.permutation(R) for _ in range(n)])
         return engine.shapley_for_pose(cloud, 1, region_id, perms)
 
-    reset_launches()
+    launch.reset_launches()
     for w in range(warmup):
         run_orders(orders_per_step, w)
 
@@ -159,7 +144,7 @@ def bench_model(name: str, orders: int | None, steps: int, warmup: int,
         "orders_per_step": orders_per_step,
         "vs_baseline": round(fps / ref, 3) if ref else None,
         "seconds": dt,
-        "kernel_launches": kernel_launches(),
+        "kernel_launches": {k: v for k, v in launch.launches().items() if v},
     }
 
 
@@ -173,10 +158,11 @@ def bench_enum_stage(name: str, num_points: int, max_poses: int,
     from interpret_quality_tpu_torch.attrib.stages import (run_enum,
                                                            run_shapley_init)
     from interpret_quality_tpu_torch.config import ExperimentConfig
+    from interpret_quality_tpu_torch.ops.cuda import launch
 
     extra = ({"num_samples_save": orders, "num_samples": orders}
              if orders else {})
-    reset_launches()
+    launch.reset_launches()
     with tempfile.TemporaryDirectory() as tmp, \
             contextlib.redirect_stdout(sys.stderr):   # the stages' prints
         cwd = os.getcwd()
@@ -203,7 +189,8 @@ def bench_enum_stage(name: str, num_points: int, max_poses: int,
             "poses": max_poses,
             "sustained_forwards_per_sec": round(forwards / dt, 1),
             "vs_baseline": round(forwards / dt / ref, 3) if ref else None,
-            "seconds": dt, "kernel_launches": kernel_launches()}
+            "seconds": dt, "kernel_launches": {
+                k: v for k, v in launch.launches().items() if v}}
 
 
 # Derived reference workload per model/dataset (BASELINE.md):

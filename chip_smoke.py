@@ -159,69 +159,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
              than ROBUST_TOP2_REL apart (the excused rows counted); the
              card's rotated accuracy recomputed equal to the script's;
              kNN and gather_extrema launched.
-  8c. data_parallel  the data-parallel train step of every family at full
-             width (DP_BATCH clouds of 1024 points, a padded tail) over one
-             NCCL rank and over two gloo ranks on the card, each set of
-             ranks spawned once: one step against trainer.make_train_step
-             on the whole batch in this process, dropout on with the same
-             seed (the same masks, checked where the inputs are nonzero),
-             loss, gradients and running statistics within STEP_*, every
-             parameter within DP_PARAM_TOL of the first step of the two
-             gradients; DGCNN's clouds excused only where a feature-space
-             selection first differs at a near tie (REL_LIMIT); then
-             DP_TIMED_STEPS timed steps (ms per step on the
-             data_parallel_times line, beside the train phase's single
-             step and the time to start the ranks: world 2 on one card is
-             no scaling number); kNN in the edge-conv steps and FPS in
-             PointNet++'s and PointConv's; then dryrun_multichip(1).  Each
-             family's record names the parameter behind its largest
-             gradient gap (grad_worst: gap over the single step's norm
-             plus the floor, the figure the check bounds) and the one
-             whose gap is largest over its own norm alone
-             (grad_worst_without_floor), each with its gap and norm.  Each
-             set of ranks also takes DGCNN's step on the train phase's
-             tie-free batch (tie_free_dgcnn_batch), where every kNN
-             selection of every cloud must equal the single step's (the
-             neighbour sets; at world 2 two neighbours may swap places in
-             a list only where rounding can swap them,
-             check_tie_free_selections); and
-             PointConv's DP_GAP_PARAM gradient is measured against the
-             single step run again and against the same step in float64 on
-             the card, and PointConv's DP step runs in float64 as well,
-             within DP_F64_TOL of the single float64 step
-             (pointconv_gradient_gap).
-  9. mesh    cli.shapley_value --mesh_devices 1 against no flag (DGCNN,
-             equal artifacts); a virtual split over [cuda, cuda] of
-             DGCNN's and PointNet++'s forward and plan path on the masked
-             batch, equal to the unsplit forward of the same parts and
-             within 1e-3 of the whole batch's (its equal rows reported);
-             one Shapley init with --trace_dir, whose trace must name the
-             kernels' iq_* launch spans; the number of visible devices.
-  10. bench  bench_torch.py in a subprocess over the five families
-             (BENCH_ARGS) with --checkpoints_root at the main path's tree:
-             DGCNN, PointNet++ and PointConv take their sustained rates
-             from its enum logs, PointNet and GCNN run the enum probe; the
-             last line keeps bench.py's keys, every engine rate is finite,
-             each family's kernels launch in its engine run and kernels 1-7
-             over the run; then scripts/suite_wallclock_torch.py,
-             collect_evidence_torch.py (DGCNN), make_results_md_torch.py
-             and make_compare_md_torch.py on that tree, their outputs under
-             build/chip_smoke/; then bench_torch.py for DGCNN with no tree,
-             whose rates must come from that evidence and whose measured
-             line from that wall-clock file.  Any non-zero exit, missing
-             rate or basis not from the port's own logs, evidence or probes
-             fails the phase.
 
 Plots (matplotlib) and flax .msgpack checkpoints (msgpack) are held by the
 CPU tests only (tests/test_torch_results.py, tests/test_torch_checkpoint.py):
 this script imports neither, so it needs neither on the card's machine.
+The port's rates are measured by the benchmark (iqbench/run.py); the
+data-parallel step, the split over cards and --mesh_devices are held on the
+card by tests/test_torch_cuda.py.
 
 Every line on stdout is one JSON object.  The first ("device") carries the
 card's name and power limit as nvidia-smi prints them; the "kernels" line
 comes just before the last, which is {"ok": true, "device": {...}}; its
-rows carry each kernel's launches on the main path, in the train,
-adversarial, adv_robustness and data_parallel phases, and in the bench
-phase's first bench_torch.py run; the rows of the precision phase's routes
+rows carry each kernel's launches on the main path and in the train,
+adversarial and adv_robustness phases; the rows of the precision phase's routes
 ("gather_extrema:bf16", "fused_ball_mlp3:default", ...) follow, their
 launches those of that phase's Shapley runs, then those of the selection
 phase's classes ("knn:packed", "knn_gather_extrema:bf16", ...), their
@@ -232,7 +182,6 @@ Artifacts go to build/chip_smoke/ in the checkout.
 from __future__ import annotations
 
 import contextlib
-import glob
 import io
 import json
 import os
@@ -356,36 +305,6 @@ ADV_CUTS = ("cli.train_adv: 2 epochs of 400 on the 64 synthetic training "
             "clouds (16 test clouds) at 1024 points, batch 16; Shapley init "
             "on its model_best.t7 at 50 orders of 1000, one cloud; weights "
             "resumed from the train phase's 2-epoch GCNN")
-# The mesh phase: --mesh_devices 1 against no flag (DGCNN init), a virtual
-# split over [cuda, cuda] of these families' forwards and plan paths, and
-# one init with --trace_dir.
-MESH_ORDERS = 50
-MESH_MODELS = ("dgcnn", "pointnet2")
-# The data_parallel phase: the data-parallel train step of every family at
-# full width (DP_BATCH clouds of N points, the last row a padded tail) over
-# the ranks of DP_RUNS, all on the one card: world 1 through NCCL, world 2
-# through gloo (NCCL refuses two ranks on one card).  Each set of ranks is
-# spawned once and loops over the families: one step held against
-# trainer.make_train_step on the whole batch in this process, dropout on
-# with the same generator seed (the same masks), then DP_TIMED_STEPS timed
-# steps.  Loss, gradients and running statistics within the STEP_*
-# bounds; each parameter within DP_PARAM_TOL of its buffer's largest value
-# of where the optimiser's first step puts the two runs' gradients apart.
-# Then dryrun_multichip(1) on the card.
-DP_RUNS = (("nccl", 1), ("gloo", 2))
-DP_BATCH, DP_VALID, DP_TIMED_STEPS = 32, 31, 3
-DP_PARAM_TOL = 1e-6
-# the PointConv gradient whose world-2 gap the phase explains: measured
-# against the single step run again and against the step in float64; in
-# float64 the DP step must give the single step's gradients within
-# DP_F64_TOL of their norm plus the floor (the same semantics: only f32
-# rounding can part them)
-DP_GAP_PARAM = "sa2.densitynet.mlp_convs.0.weight"
-DP_F64_TOL = 1e-8
-DP_CUTS = ("one checked and three timed steps per family on one fixed "
-           "batch of 32 synthetic clouds at 1024 points and full width; "
-           "random weights from a seed; both worlds on one card, so no "
-           "scaling number")
 # The adv_robustness phase: scripts/adv_robustness_torch.py at its defaults
 # (1024 points, 16 clouds, 8 rotation draws) on the train phase's GCNN and
 # the adversarial phase's adv-GCNN; the same clouds on the CPU, whose
@@ -394,13 +313,6 @@ DP_CUTS = ("one checked and three timed steps per family on one fixed "
 ROBUST_TOP2_REL = 1e-3
 ROBUST_CUTS = ("checkpoints of the train phase's 2-epoch GCNN and the "
                "adversarial phase's 2-epoch adv-GCNN, not trained models")
-# The bench phase: bench_torch.py at these depths over the five families;
-# the families the main path does not enumerate run its enum probe.
-BENCH_ARGS = ("--steps", "3", "--warmup", "1", "--max_poses", "2")
-BENCH_PROBED = ("pointnet", "gcnn")
-BENCH_HEADLINE_KEYS = ["metric", "value", "unit", "vs_baseline",
-                       "suite_speedup_vs_ref_geomean", "suite_basis",
-                       "measured_suite_speedup_pointnet"]
 # The precision phase: the JAX package's default numerics on the card
 # (--matmul_precision default with --gather_precision bf16) and
 # --matmul_precision high, each against the port's exact settings (highest,
@@ -1459,7 +1371,8 @@ def check_gather_rows(gr, values, idx):
     torch.gather call (library_ms).  Returns (numbers, detail, launches of
     this phase)."""
     import torch
-    gr.reset_launches()
+    from interpret_quality_tpu_torch.ops.cuda import launch
+    launch.reset_launches()
     got = gr.gather_rows(values, idx)
     want = gr.gather_rows_plain(values, idx)
     torch.cuda.synchronize()
@@ -1481,7 +1394,7 @@ def check_gather_rows(gr, values, idx):
               "output_gb": B * S * K_ * F * 4 / 1e9}
     return (dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p, bound_ms=bound,
                  bound_by=by, library_ms=t_l), detail,
-            gr.LAUNCHES["gather_rows"])
+            launch.LAUNCHES["gather_rows"])
 
 
 def check_dense(dn, masked, device):
@@ -1751,25 +1664,6 @@ def precision_setting(matmul: str, parts: int):
         config.set_gather_value_parts(2)
 
 
-def launch_counters():
-    """The kernel modules: each counts its launches in LAUNCHES, and all
-    but fps those at a non-exact setting in ROUTE_LAUNCHES."""
-    from interpret_quality_tpu_torch.ops.cuda import (dense, fps, groups,
-                                                      neighbors)
-    return (neighbors, fps, groups, dense)
-
-
-def reset_all_launches():
-    for c in launch_counters():
-        c.reset_launches()
-
-
-def route_launches():
-    """Launches of each route of a non-exact setting (ROUTE_LAUNCHES)."""
-    return {k: v for c in launch_counters()
-            for k, v in getattr(c, "ROUTE_LAUNCHES", {}).items()}
-
-
 def check_gather_bf16(nb, layers, idx):
     """Kernel 2's bf16 route at each GCNN layer, on the route the shape
     takes and on the row route forced: bit-equal on every chunk to the
@@ -1827,8 +1721,9 @@ def check_gather_rows_bf16(gr, values, idx):
     values (the same function once they are rounded).  Returns (numbers,
     detail, launches of the route here)."""
     import torch
+    from interpret_quality_tpu_torch.ops.cuda import launch
     from interpret_quality_tpu_torch.ops.precision import round_bf16
-    before = gr.ROUTE_LAUNCHES["gather_rows:bf16"]
+    before = launch.LAUNCHES["gather_rows:bf16"]
     got = gr.gather_rows(values, idx, parts=1)
     want = gr.gather_rows_plain(values, idx, parts=1)
     torch.cuda.synchronize()
@@ -1853,7 +1748,7 @@ def check_gather_rows_bf16(gr, values, idx):
               "bound_ms": bound}
     return (dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p, bound_ms=bound,
                  bound_by=by, library_ms=t_l, kernel_ms=t_kernel), detail,
-            gr.ROUTE_LAUNCHES["gather_rows:bf16"] - before)
+            launch.LAUNCHES["gather_rows:bf16"] - before)
 
 
 def one_pass_gap(name, got, emulated, exact, excused=None):
@@ -2109,6 +2004,7 @@ def precision_shapley(device, ck, workdir):
         ShapleyEngine, generate_all_orders, region_id_from_fps)
     from interpret_quality_tpu_torch.data.datasets import SyntheticClouds
     from interpret_quality_tpu_torch.models import make_forward_fn
+    from interpret_quality_tpu_torch.ops.cuda import launch
     from interpret_quality_tpu_torch.ops.geometry import farthest_point_sample
     data, label = SyntheticClouds(30, N, 10, seed=1)[0]
     x = torch.from_numpy(data).to(device)
@@ -2153,10 +2049,10 @@ def precision_shapley(device, ck, workdir):
                           "epochs, too small to hold a setting to")
         for mm, parts in PRECISION_SETTINGS:
             with precision_setting(mm, parts):
-                reset_all_launches()
+                launch.reset_launches()
                 sv, per, rate = run(model)
                 ids = region_id_from_fps(x, centres)
-                for key, v in {**all_launches(), **route_launches()}.items():
+                for key, v in launch.LAUNCHES.items():
                     launches[mm][key] = launches[mm].get(key, 0) + v
             dev = sv - sv_h
             spread, moved = np.sqrt((se ** 2).mean()), np.sqrt((dev ** 2).mean())
@@ -2384,13 +2280,14 @@ def check_nq_layout(nb, xs, a):
     class whatever IQTPU_KNN_SELECT says (the JAX package's nq twin sweeps
     packed keys only), bit-equal to the packed launch, and counts as it."""
     import torch
+    from interpret_quality_tpu_torch.ops.cuda import launch
     want = nb._knn_gather_extrema(xs, a, K, 2, "packed")
     out = {}
     for select in ("two_pass", "bf16", "packed"):
         with knn_env(IQTPU_KNN_SELECT=select, IQTPU_KNN_LAYOUT="nq"):
-            before = nb.ROUTE_LAUNCHES["knn_gather_extrema:packed"]
+            before = launch.LAUNCHES["knn_gather_extrema:packed"]
             got = nb.knn_gather_extrema(xs, a, K)
-            counted = nb.ROUTE_LAUNCHES["knn_gather_extrema:packed"] - before
+            counted = launch.LAUNCHES["knn_gather_extrema:packed"] - before
         if not (all(torch.equal(g, w) for g, w in zip(got, want))
                 and counted == 1):
             raise AssertionError(f"knn_gather_extrema at layout nq with "
@@ -2492,6 +2389,7 @@ def selection_shapley(device, states):
         ShapleyEngine, generate_all_orders, region_id_from_fps)
     from interpret_quality_tpu_torch.data.datasets import SyntheticClouds
     from interpret_quality_tpu_torch.models import make_forward_fn
+    from interpret_quality_tpu_torch.ops.cuda import launch
     from interpret_quality_tpu_torch.ops.geometry import farthest_point_sample
     data, label = SyntheticClouds(30, N, 10, seed=1)[0]
     x = torch.from_numpy(data).to(device)
@@ -2523,9 +2421,9 @@ def selection_shapley(device, states):
                "shapley_rms": float(np.sqrt((sv_e ** 2).mean()))}
         for select, cls in classes.items():
             with knn_env(IQTPU_KNN_SELECT=select):
-                reset_all_launches()
+                launch.reset_launches()
                 sv, per, rate = run(model)
-                for key, v in {**all_launches(), **route_launches()}.items():
+                for key, v in launch.LAUNCHES.items():
                     launches[cls][key] = launches[cls].get(key, 0) + v
             dev = sv - sv_e
             moved = np.sqrt((dev ** 2).mean())
@@ -2564,6 +2462,7 @@ def selection_train_step(device):
     The step without the variable runs twice (the second a control of the
     step's own determinism)."""
     import torch
+    from interpret_quality_tpu_torch.ops.cuda import launch
     x, labels = grid_batch(N, 0)
     x = torch.from_numpy(x).to(device)
     labels = torch.from_numpy(labels).to(device)
@@ -2576,19 +2475,20 @@ def selection_train_step(device):
             if n.endswith(("running_mean", "running_var"))]
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        reset_all_launches()
+        launch.reset_launches()
         exact = step()
         control = step()
         with knn_env(IQTPU_KNN_SELECT="packed"):
             packed = step()
-        routes = {k: v for k, v in route_launches().items() if v}
+        routes = {k: v for k, v in launch.LAUNCHES.items()
+                  if v and k not in launch.KERNELS}
     finally:
         torch.use_deterministic_algorithms(False)
     rec = {"control_bit_equal": all(torch.equal(a, b)
                                     for a, b in zip(exact, control)),
            "packed_bit_equal": all(torch.equal(a, b)
                                    for a, b in zip(exact, packed)),
-           "tensors": len(exact), "knn_launches": all_launches()["knn"],
+           "tensors": len(exact), "knn_launches": launch.LAUNCHES["knn"],
            "route_launches": routes}
     failed = []
     if not rec["control_bit_equal"]:
@@ -2713,17 +2613,13 @@ def run_main_path(workdir):
 
     import torch
     from interpret_quality_tpu_torch.config import ExperimentConfig
+    from interpret_quality_tpu_torch.ops.cuda import launch
     common = ["--synthetic", "--allow_random_init", "--device", "cuda",
               "--checkpoints_root", workdir + "/ck",
               "--num_points", str(N), "--num_regions", str(R)]
     spec = main_path()
-    counters = launch_counters()
-    for c in counters:
-        c.reset_launches()
-
-    def launches():
-        return {k: v for c in counters for k, v in c.LAUNCHES.items()}
-    stages, tables, prev = {}, {}, launches()
+    launch.reset_launches()
+    stages, tables, prev = {}, {}, launch.launches()
     for stage, cli, argv in spec:
         t0 = time.perf_counter()
         out = io.StringIO()
@@ -2731,14 +2627,14 @@ def run_main_path(workdir):
             importlib.import_module(
                 f"interpret_quality_tpu_torch.cli.{cli}").main(argv + common)
         torch.cuda.synchronize()
-        now = launches()
+        now = launch.launches()
         stages[stage] = {"seconds": time.perf_counter() - t0,
                          "launches": {k: now[k] - prev[k] for k in now}}
         prev = now
         sys.stderr.write(out.getvalue())
         if cli == "result":
             tables[stage] = table_numbers(out.getvalue())
-    total = launches()
+    total = launch.launches()
     missing = [k for k, v in total.items() if v == 0 and k not in OFF_PATH]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
@@ -2964,12 +2860,12 @@ def run_real_data(workdir):
     from interpret_quality_tpu_torch.config import ExperimentConfig
     from interpret_quality_tpu_torch.data.datasets import (
         farthest_point_sample_np)
+    from interpret_quality_tpu_torch.ops.cuda import launch
     from interpret_quality_tpu_torch.pipeline import resolve_dataset
     root, ck = os.path.join(workdir, "data"), os.path.join(workdir, "ck")
     write_real_trees(root)
-    out, counters = {}, launch_counters()
-    for c in counters:
-        c.reset_launches()
+    out = {}
+    launch.reset_launches()
     for dataset in ("modelnet10", "shapenet"):
         def cfg(model):
             return ExperimentConfig(model=model, dataset=dataset, data_root=root,
@@ -3037,38 +2933,30 @@ def run_real_data(workdir):
             out[f"{dataset}/shapley_init_{model}"].update(
                 norm_factor=nf, efficiency_err=err)
         out[f"{dataset}/cloud_max_abs_diff_to_fixture"] = diff
-    out["launches"] = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+    out["launches"] = launch.launches()
     if not (out["launches"]["knn"] and out["launches"]["gather_extrema"]):
         raise AssertionError(f"GCNN's kernels did not run: {out['launches']}")
     return out
 
 
 # ------------------------------------------------------------------- train
-def all_launches():
-    return {k: v for c in launch_counters() for k, v in c.LAUNCHES.items()}
-
-
-def launches_since(before):
-    now = all_launches()
-    return {k: now[k] - before[k] for k in now}
-
-
 @contextlib.contextmanager
 def eval_pass_launches(counter):
     """Counts into ``counter`` the launches made inside fit's eval passes
     (``trainer.evaluate``), and their seconds under "seconds"; the rest of
     a cli.train run is train steps and set-up."""
     import torch
+    from interpret_quality_tpu_torch.ops.cuda import launch
     from interpret_quality_tpu_torch.train import trainer
     original = trainer.evaluate
 
     def evaluate(*args, **kwargs):
-        before, t0 = all_launches(), time.perf_counter()
+        before, t0 = launch.launches(), time.perf_counter()
         out = original(*args, **kwargs)
         torch.cuda.synchronize()
         counter["seconds"] = counter.get("seconds", 0.0) + (
             time.perf_counter() - t0)
-        for k, v in launches_since(before).items():
+        for k, v in launch.launches(since=before).items():
             counter[k] = counter.get(k, 0) + v
         return out
 
@@ -3211,6 +3099,7 @@ def train_step_rate(name, device):
     with a CUDA synchronise at both ends; the launches of the steps."""
     import torch
     from interpret_quality_tpu_torch.data.datasets import SyntheticClouds
+    from interpret_quality_tpu_torch.ops.cuda import launch
     from interpret_quality_tpu_torch.train.trainer import (make_optimizer,
                                                            make_train_step)
     ds = SyntheticClouds(TRAIN_BATCH, N, 10, seed=7)
@@ -3223,7 +3112,7 @@ def train_step_rate(name, device):
     optimizer, scheduler, _ = make_optimizer(model, name, TRAIN_STEPS, 1)
     step = make_train_step(model, optimizer, scheduler, name,
                            torch.Generator(device=device).manual_seed(0))
-    before = all_launches()
+    before = launch.launches()
     losses = []
     t_first = time.perf_counter()
     for i in range(TRAIN_STEPS):
@@ -3234,17 +3123,17 @@ def train_step_rate(name, device):
             first_s = t0 - t_first
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launched = launches_since(before)
+    launched = launch.launches(since=before)
     losses = [float(v) for v in losses]
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"{name}: train losses {losses}")
     ms_per_step = seconds / (TRAIN_STEPS - 1) * 1e3
+    profile = profile_steps(lambda: step(x, labels, TRAIN_BATCH), ms_per_step)
     return {"losses": losses,
             "clouds_per_s": (TRAIN_STEPS - 1) * TRAIN_BATCH / seconds,
             "ms_per_step": ms_per_step, "first_step_s": first_s,
             "launches": {k: v for k, v in launched.items() if v},
-            "profile": profile_steps(lambda: step(x, labels, TRAIN_BATCH),
-                                     ms_per_step)}, launches_since(before)
+            "profile": profile}, launch.launches(since=before)
 
 
 def profile_steps(run_step, ms_per_step, steps: int = 2):
@@ -3288,6 +3177,7 @@ def check_cli_train(name, workdir, device):
     import torch
     from interpret_quality_tpu_torch.config import ExperimentConfig
     from interpret_quality_tpu_torch.models import build_model
+    from interpret_quality_tpu_torch.ops.cuda import launch
     ck = os.path.join(workdir, "ck")
     argv = ["--model", name, "--synthetic", "--device", str(device),
             "--epochs", str(TRAIN_EPOCHS), "--train_samples",
@@ -3295,7 +3185,7 @@ def check_cli_train(name, workdir, device):
             "--best_acc_gate", "0", "--checkpoints_root", ck,
             "--num_points", str(N)]
     eval_launches = {}
-    before = all_launches()
+    before = launch.launches()
     t0 = time.perf_counter()
     with eval_pass_launches(eval_launches):
         importlib.import_module("interpret_quality_tpu_torch.cli.train").main(
@@ -3303,7 +3193,7 @@ def check_cli_train(name, workdir, device):
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     eval_s = eval_launches.pop("seconds")
-    total = launches_since(before)
+    total = launch.launches(since=before)
     step_launches = {k: total[k] - eval_launches.get(k, 0) for k in total}
     cfg = ExperimentConfig(model=name, checkpoints_root=ck, num_points=N,
                            num_regions=R, num_samples_save=TRAIN_ORDERS)
@@ -3352,7 +3242,7 @@ def check_cli_train(name, workdir, device):
             "losses": numbers, "efficiency_err": err,
             "step_launches": {k: v for k, v in step_launches.items() if v},
             "eval_launches": {k: v for k, v in eval_launches.items() if v}
-            }, launches_since(before)
+            }, launch.launches(since=before)
 
 
 def run_train(workdir, device):
@@ -3361,7 +3251,8 @@ def run_train(workdir, device):
     card-vs-CPU step; its record holds the launches of the whole phase per
     kernel."""
     import torch
-    out, phase = {}, dict.fromkeys(all_launches(), 0)
+    from interpret_quality_tpu_torch.ops.cuda import launch
+    out, phase = {}, dict.fromkeys(launch.launches(), 0)
     t0 = time.perf_counter()
     # the process's first optimiser pays a one-time set-up in torch.optim;
     # taken here, it stays out of the first family's numbers
@@ -3378,9 +3269,9 @@ def run_train(workdir, device):
         if wrong:
             raise AssertionError(f"{name}: train steps launched "
                                  f"{rate['launches']}")
-        before = all_launches()
+        before = launch.launches()
         rec["card_vs_cpu_step"] = check_train_step(name, device)
-        for k, v in launches_since(before).items():
+        for k, v in launch.launches(since=before).items():
             phase[k] += v
         rec["fixed_batch_steps"] = rate
         out[name] = rec
@@ -3411,8 +3302,9 @@ def check_cli_train_adv(workdir, device, resume_path):
     import torch
     from interpret_quality_tpu_torch.config import ExperimentConfig
     from interpret_quality_tpu_torch.models import build_model
+    from interpret_quality_tpu_torch.ops.cuda import launch
     ck = os.path.join(workdir, "ck")
-    before = all_launches()
+    before = launch.launches()
     t0 = time.perf_counter()
     importlib.import_module("interpret_quality_tpu_torch.cli.train_adv").main(
         ["--synthetic", "--device", str(device), "--num_points", str(N),
@@ -3421,7 +3313,7 @@ def check_cli_train_adv(workdir, device, resume_path):
          "--train_rot_all_perturbation", "--resume_path", resume_path])
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launched = launches_since(before)
+    launched = launch.launches(since=before)
     cfg = ExperimentConfig(model="gcnn_adv", checkpoints_root=ck,
                            num_points=N, num_regions=R,
                            num_samples_save=ADV_ORDERS)
@@ -3514,6 +3406,7 @@ def adv_step_rate(device):
     import torch
     from interpret_quality_tpu_torch.data.datasets import SyntheticClouds
     from interpret_quality_tpu_torch.models import build_model
+    from interpret_quality_tpu_torch.ops.cuda import launch
     from interpret_quality_tpu_torch.train import adversarial as adv
     from interpret_quality_tpu_torch.train.trainer import make_optimizer
     ds = SyntheticClouds(ADV_BATCH, N, 10, seed=7)
@@ -3526,7 +3419,7 @@ def adv_step_rate(device):
     step = adv.make_adv_step(model, optimizer, scheduler,
                              torch.Generator(device=device).manual_seed(0))
     marks, steps, losses = [], [], []
-    before = all_launches()
+    before = launch.launches()
     torch.cuda.reset_peak_memory_stats()
     with attack_events(marks):
         for i in range(ADV_STEPS):
@@ -3541,7 +3434,7 @@ def adv_step_rate(device):
                 t0 = time.perf_counter()
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launched = launches_since(before)
+    launched = launch.launches(since=before)
     losses = [float(v) for v in losses]
     if not np.isfinite(losses).all():
         raise AssertionError(f"adv step losses {losses}")
@@ -3691,7 +3584,8 @@ def run_adversarial(workdir, device, resume_path):
     import gc
 
     import torch
-    before = all_launches()
+    from interpret_quality_tpu_torch.ops.cuda import launch
+    before = launch.launches()
     gc.collect()                 # the train phase's cycles (optimisers)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3704,7 +3598,7 @@ def run_adversarial(workdir, device, resume_path):
     out["attack_card_vs_cpu"] = check_attack(device)
     out["seconds"] = time.perf_counter() - t0
     out["allocated_at_start_gb"] = allocated_gb
-    launched = launches_since(before)
+    launched = launch.launches(since=before)
     out["launches"] = {k: v for k, v in launched.items() if v}
     return out, launched
 
@@ -3740,15 +3634,16 @@ def run_adv_robustness(workdir, device):
     script's.  Returns (record, launches)."""
     import torch
     from interpret_quality_tpu_torch.models.registry import _logits
+    from interpret_quality_tpu_torch.ops.cuda import launch
     script = robustness_script()
     out_path = os.path.join(workdir, "robustness", "rob.json")
-    before = all_launches()
+    before = launch.launches()
     t0 = time.perf_counter()
     out = script.main(["--device", str(device), "--checkpoints_root",
                        os.path.join(workdir, "ck"), "--out", out_path])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launched = launches_since(before)
+    launched = launch.launches(since=before)
     with open(out_path) as f:
         if json.load(f) != out:
             raise AssertionError("the robustness JSON differs from the run")
@@ -3797,736 +3692,6 @@ def run_adv_robustness(workdir, device):
     if set(rec["launches"]) != set(FAMILY_KERNELS["gcnn"]):
         raise AssertionError(f"robustness launched {rec['launches']}")
     return rec, launched
-
-
-# ----------------------------------------------------------- data_parallel
-@contextlib.contextmanager
-def stdout_to_stderr_fd():
-    """File descriptor 1 on stderr while the block runs, so the processes
-    it starts print nothing onto this script's JSON lines."""
-    sys.stdout.flush()
-    saved = os.dup(1)
-    os.dup2(2, 1)
-    try:
-        yield
-    finally:
-        sys.stdout.flush()
-        os.dup2(saved, 1)
-        os.close(saved)
-
-
-@contextlib.contextmanager
-def recorded_step(model, name):
-    """What one step draws and selects: each Dropout's kept values and
-    where its input is nonzero, and for DGCNN each kNN call's query rows
-    and indices, on the CPU."""
-    from interpret_quality_tpu_torch.models import dgcnn
-    from interpret_quality_tpu_torch.models.common import Dropout
-    rec = {"masks": [], "knn": []}
-
-    def hook(_module, inputs, output):
-        rec["masks"].append(((output != 0).cpu(), (inputs[0] != 0).cpu()))
-    handles = [m.register_forward_hook(hook) for m in model.modules()
-               if isinstance(m, Dropout)]
-    original = dgcnn.knn
-
-    def knn(query, database, k, select=None):
-        idx = original(query, database, k, select=select)
-        rec["knn"].append((query.detach().cpu(), idx.cpu()))
-        return idx
-    if name == "dgcnn":
-        dgcnn.knn = knn
-    try:
-        yield rec
-    finally:
-        dgcnn.knn = original
-        for h in handles:
-            h.remove()
-
-
-def dp_batch():
-    """DP_BATCH full-width synthetic clouds and their labels."""
-    from interpret_quality_tpu_torch.data.datasets import SyntheticClouds
-    ds = SyntheticClouds(DP_BATCH, N, 10, seed=11)
-    return (np.stack([ds[i][0] for i in range(DP_BATCH)]),
-            np.array([ds[i][1] for i in range(DP_BATCH)], np.int64))
-
-
-def dp_rank(group, states, x, labels, t_spawn, tie_free):
-    """The data_parallel phase in one rank: per family one checked step
-    (its record, the gradients and state on rank 0 only: the replicas are
-    equal) and DP_TIMED_STEPS timed ones; then DGCNN's step on the
-    tie-free batch (x, labels), its kNN selections recorded."""
-    import torch
-    from interpret_quality_tpu_torch.models import build_model
-    from interpret_quality_tpu_torch.parallel import make_dp_train_step
-    from interpret_quality_tpu_torch.train.trainer import make_optimizer
-    out = {"start_s": time.time() - t_spawn, "families": {}}
-    dev = group.device
-    xd, ld = torch.from_numpy(x).to(dev), torch.from_numpy(labels).to(dev)
-    model = build_model("dgcnn", 10, K)
-    model.load_state_dict(states["dgcnn"])
-    model = model.to(dev).train()
-    optimizer, scheduler, _ = make_optimizer(model, "dgcnn", 1, 1)
-    step = make_dp_train_step(model, optimizer, scheduler, "dgcnn", group,
-                              torch.Generator(device=dev).manual_seed(0))
-    with recorded_step(model, "dgcnn") as rec:
-        step(torch.from_numpy(tie_free[0]).to(dev),
-             torch.from_numpy(tie_free[1]).to(dev), STEP_VALID)
-    out["dgcnn_tie_free_knn"] = rec["knn"]
-    del model, optimizer, step
-    # PointConv's step in float64, for its gradient gap (rank 0's gradients)
-    model = build_model("pointconv", 10, K)
-    model.load_state_dict(states["pointconv"])
-    model = model.to(device=dev, dtype=torch.float64).train()
-    optimizer, scheduler, _ = make_optimizer(model, "pointconv",
-                                             1 + DP_TIMED_STEPS, 1)
-    step = make_dp_train_step(model, optimizer, scheduler, "pointconv",
-                              group, torch.Generator(device=dev).manual_seed(0))
-    with f32_fps():
-        step(xd.double(), ld, DP_VALID)
-    if group.rank == 0:
-        out["pointconv_f64_grads"] = {n: p.grad.to("cpu", copy=True)
-                                      for n, p in model.named_parameters()}
-    del model, optimizer, step
-    for name in TRAIN_MODELS:
-        model = build_model(name, 10, K)
-        model.load_state_dict(states[name])
-        model = model.to(dev).train()
-        optimizer, scheduler, _ = make_optimizer(model, name,
-                                                 1 + DP_TIMED_STEPS, 1)
-        step = make_dp_train_step(model, optimizer, scheduler, name, group,
-                                  torch.Generator(device=dev).manual_seed(0))
-        before = all_launches()
-        with recorded_step(model, name) as rec:
-            loss, preds = step(xd, ld, DP_VALID)
-        fam = {"loss": loss.cpu(), "preds": preds.cpu(), **rec}
-        if group.rank == 0:       # copies: the timed steps go on in place
-            fam["grads"] = {n: p.grad.to("cpu", copy=True)
-                            for n, p in model.named_parameters()}
-            fam["state"] = {k: v.to("cpu", copy=True) for k, v in
-                            model.state_dict().items()}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(DP_TIMED_STEPS):
-            step(xd, ld, DP_BATCH)
-        torch.cuda.synchronize()
-        fam["ms_per_step"] = (time.perf_counter() - t0) / DP_TIMED_STEPS * 1e3
-        fam["launches"] = launches_since(before)
-        out["families"][name] = fam
-        del model, optimizer, step
-        torch.cuda.empty_cache()
-    return out
-
-
-@contextlib.contextmanager
-def f32_fps():
-    """PointConv's FPS on an f32 copy of its float64 clouds: the kernel
-    takes f32, and clouds that were f32 give the same indices."""
-    from interpret_quality_tpu_torch.models import pointconv
-    original = pointconv.fps
-    pointconv.fps = lambda xyz, npoint: original(xyz.float().contiguous(),
-                                                 npoint)
-    try:
-        yield
-    finally:
-        pointconv.fps = original
-
-
-def single_dp_reference(name, state, x, labels, device, valid=DP_VALID,
-                        dtype=None):
-    """trainer.make_train_step on the whole batch, as the ranks start, in
-    the model's own f32 or in ``dtype``."""
-    import torch
-    from interpret_quality_tpu_torch.models import build_model
-    from interpret_quality_tpu_torch.train.trainer import (make_optimizer,
-                                                           make_train_step)
-    model = build_model(name, 10, K)
-    model.load_state_dict(state)
-    model = (model.to(device) if dtype is None
-             else model.to(device=device, dtype=dtype)).train()
-    optimizer, scheduler, _ = make_optimizer(model, name,
-                                             1 + DP_TIMED_STEPS, 1)
-    step = make_train_step(model, optimizer, scheduler, name,
-                           torch.Generator(device=device).manual_seed(0))
-    with recorded_step(model, name) as rec:
-        loss, preds = step(torch.from_numpy(x).to(device=device, dtype=dtype),
-                           torch.from_numpy(labels).to(device), valid)
-    return {"loss": loss.cpu(), "preds": preds.cpu(), **rec,
-            "grads": {n: p.grad.cpu() for n, p in model.named_parameters()},
-            "state": {k: v.cpu() for k, v in model.state_dict().items()}}
-
-
-def first_step_gap(name, g_a, g_b, p0):
-    """How far the optimiser's first step puts the parameters of two
-    gradients apart: SGD's lr * g, Adam's lr * g / (|g| + eps), g with the
-    weight decay."""
-    from interpret_quality_tpu_torch.train.trainer import (WEIGHT_DECAY,
-                                                           lr_schedule_for)
-    lr = lr_schedule_for(name, 1 + DP_TIMED_STEPS, 1)(0)
-    ga, gb = g_a + WEIGHT_DECAY * p0, g_b + WEIGHT_DECAY * p0
-    if name in ("pointnet", "pointnet2"):
-        return lr * (ga / (ga.abs() + 1e-8) - gb / (gb.abs() + 1e-8)).abs()
-    return lr * (ga - gb).abs()
-
-
-def dgcnn_excused_clouds(ranks, ref):
-    """Clouds whose DGCNN selections differ between the DP step and the
-    single step: at the first call where a cloud differs, every differing
-    row must be a near tie (selection_gap within REL_LIMIT of the single
-    step's own features); later calls of that cloud follow from it."""
-    import torch
-    excused, worst = set(), 0.0
-    for call, (query, idx) in enumerate(ref["knn"]):
-        got = torch.cat([r["knn"][call][1] for r in ranks])
-        differ = (got != idx).any(-1).any(-1)
-        for b in differ.nonzero().flatten().tolist():
-            if b in excused:
-                continue
-            rel = selection_gap(query[b:b + 1], query[b:b + 1],
-                                got[b:b + 1], idx[b:b + 1])[3]
-            if rel > REL_LIMIT:
-                raise AssertionError(f"dgcnn DP step: cloud {b} selects "
-                                     f"other neighbours at kNN call {call}, "
-                                     f"{rel} apart")
-            excused.add(b)
-            worst = max(worst, rel)
-    return sorted(excused), worst
-
-
-def gradient_gaps(grads, ref):
-    """Each gradient's gap to ``ref``'s over the reference's norm, plus
-    STEP_GRAD_FLOOR of its largest norm (the figure STEP_* bounds): the
-    worst tensor, and the gap of DP_GAP_PARAM."""
-    largest = max(float(g.norm()) for g in ref.values())
-    floor = STEP_GRAD_FLOOR * largest
-    gaps = {}
-    for pname, want in ref.items():
-        err = float((grads[pname].double() - want.double()).norm())
-        norm = float(want.norm())
-        gaps[pname] = {"gap_norm": err, "norm": norm,
-                       "rel_gap": err / norm if norm > 0 else float(err > 0),
-                       "rel_gap_with_floor": err / (norm + floor)}
-    worst = max(gaps, key=lambda p: gaps[p]["rel_gap_with_floor"])
-    return {"worst": {"param": worst, **gaps[worst]},
-            DP_GAP_PARAM: gaps[DP_GAP_PARAM]}
-
-
-def check_tie_free_selections(ranks, ref, run):
-    """DGCNN's DP step on the tie-free batch against the single step, kNN
-    call by call: every row selects the single step's neighbour set (the
-    batch has no near tie at a k-th neighbour).  Where the features are
-    the single step's bit for bit (world 1) the index lists are equal too.
-    Where the all-reduced BatchNorm statistics move them (world 2), a list
-    may order two neighbours otherwise only where rounding can swap them:
-    each position's distances in the two lists (exact, at the single
-    step's features, over the cloud's largest |x|^2) at most twice the
-    largest change of any distance between the two steps' features.
-    Returns per call the rows listed alike, that change and the widest
-    swap."""
-    import torch
-    out = []
-    for call, (query, idx) in enumerate(ref["knn"]):
-        got_q = torch.cat([r["dgcnn_tie_free_knn"][call][0] for r in ranks])
-        got = torch.cat([r["dgcnn_tie_free_knn"][call][1] for r in ranks])
-        sets = (got.sort(-1).values != idx.sort(-1).values).any(-1)
-        if bool(sets.any()):
-            raise AssertionError(
-                f"dgcnn DP step ({run}) on the tie-free batch: "
-                f"{int(sets.sum())} rows of kNN call {call} select another "
-                "neighbour set")
-        differ = (got != idx).any(-1)                           # (B, N)
-        rec = {"call": call, "rows_listed_alike": float(
-                   (~differ).float().mean()),
-               "features_equal": bool(torch.equal(got_q, query))}
-        if bool(differ.any()):
-            q, g = query.double(), got_q.double()
-            scale = (q ** 2).sum(-1).amax(-1)                   # (B,)
-            moved = float(((((g[:, :, None] - g[:, None]) ** 2).sum(-1)
-                            - ((q[:, :, None] - q[:, None]) ** 2).sum(-1)
-                            ).abs() / scale[:, None, None]).max())
-            b, r = differ.nonzero(as_tuple=True)
-
-            def listed(ix):          # (M, k) distances in list order
-                nb_ = q[b[:, None], ix[b, r].long()]
-                return ((nb_ - q[b, r][:, None]) ** 2).sum(-1)
-            swap = float(((listed(got) - listed(idx)).abs()
-                          / scale[b, None]).max())
-            rec.update(distance_change=moved, widest_swap=swap)
-            if rec["features_equal"] or swap > 2 * moved:
-                raise AssertionError(
-                    f"dgcnn DP step ({run}) on the tie-free batch: kNN call "
-                    f"{call} orders neighbours {swap} of |x|^2 apart "
-                    f"otherwise, where the features moved distances by "
-                    f"{moved}")
-        out.append(rec)
-    return out
-
-
-def check_dp_family(name, ranks, ref, p0):
-    """One family's DP step (every rank's record) against the single
-    step: loss, dropout masks, DGCNN's selections, gradients, running
-    statistics and parameters."""
-    import torch
-    fam = [r["families"][name] for r in ranks]
-    got = fam[0]
-    if not torch.allclose(got["loss"], ref["loss"], rtol=STEP_LOGIT_TOL,
-                          atol=STEP_LOGIT_TOL):
-        raise AssertionError(f"{name} DP loss {got['loss']} vs {ref['loss']}")
-    mask_diff = 0
-    for call, (kept, nonzero) in enumerate(ref["masks"]):
-        k = torch.cat([f["masks"][call][0] for f in fam])
-        nz = torch.cat([f["masks"][call][1] for f in fam]) & nonzero
-        mask_diff += int(((k != kept) & nz).sum())
-    if mask_diff:
-        raise AssertionError(f"{name} DP dropout: {mask_diff} values kept "
-                             f"or dropped otherwise than the single step")
-    excused, worst = dgcnn_excused_clouds(fam, ref) if name == "dgcnn" \
-        else ([], 0.0)
-    g_ref = ref["grads"]
-    largest = max(float(g.norm()) for g in g_ref.values())
-    floor = STEP_GRAD_FLOOR * largest
-    grad_err, worst_gap, worst_unfloored = 0.0, None, None
-    for pname, want in g_ref.items():
-        err, norm = float((got["grads"][pname] - want).norm()), \
-            float(want.norm())
-        if not err <= STEP_GRAD_REL * norm + floor:
-            raise AssertionError(f"{name} DP gradient {pname}: {err} vs "
-                                 f"|single| {norm}")
-        gap = {"param": pname, "gap_norm": err, "single_norm": norm,
-               "rel_gap": err / norm if norm > 0 else 0.0,
-               "rel_gap_with_floor": err / (norm + floor)}
-        if worst_gap is None or gap["rel_gap_with_floor"] > \
-                worst_gap["rel_gap_with_floor"]:
-            worst_gap = gap
-        if worst_unfloored is None or gap["rel_gap"] > \
-                worst_unfloored["rel_gap"]:
-            worst_unfloored = gap
-        grad_err = max(grad_err, gap["rel_gap_with_floor"])
-    stat_err = param_err = 0.0
-    for key, want in ref["state"].items():
-        diff = (got["state"][key] - want).abs()
-        scale = float(want.abs().max())
-        if key.endswith(("running_mean", "running_var")):
-            err = float(diff.max()) / scale
-            if not err <= STEP_STAT_TOL:
-                raise AssertionError(f"{name} DP {key}: {err}")
-            stat_err = max(stat_err, err)
-        elif key in g_ref:
-            over = diff - first_step_gap(name, got["grads"][key],
-                                         g_ref[key], p0[key])
-            err = float(over.max()) / max(scale, 1e-30)
-            if not err <= DP_PARAM_TOL:
-                raise AssertionError(f"{name} DP parameter {key}: {err}")
-            param_err = max(param_err, err)
-    return {"loss_abs_diff": float((got["loss"] - ref["loss"]).abs()),
-            "grad_max_rel_norm_err": grad_err,
-            "grad_worst": worst_gap,
-            "grad_worst_without_floor": worst_unfloored,
-            "grad_floor": floor, "stats_max_rel_err": stat_err,
-            "param_max_rel_err_beyond_first_step": param_err,
-            "dropout_calls": len(ref["masks"]),
-            "preds_equal_share": float((got["preds"] == ref["preds"]
-                                        ).float().mean()),
-            "excused_clouds": excused, "excused_max_rel_gap": worst}
-
-
-def run_data_parallel(device):
-    """The data_parallel phase: per DP_RUNS entry one set of ranks on the
-    card over every family, held against the single step; then
-    dryrun_multichip(1).  Returns (record, times, launches)."""
-    import torch
-    from interpret_quality_tpu_torch.parallel import spawn
-    from interpret_quality_tpu_torch.parallel.dryrun import dryrun_multichip
-    x, labels = dp_batch()
-    states = {name: seeded_model(name, "cpu").state_dict()
-              for name in TRAIN_MODELS}
-    xt, lt, t_seed, t_margin = tie_free_dgcnn_batch()
-    phase = dict.fromkeys(all_launches(), 0)
-    before = all_launches()
-    refs = {name: single_dp_reference(name, states[name], x, labels, device)
-            for name in TRAIN_MODELS}
-    tie_ref = single_dp_reference("dgcnn", states["dgcnn"], xt, lt, device,
-                                  valid=STEP_VALID)
-    # PointConv's gradient gap: the single step once more (the same
-    # inputs; CUDA's atomics sum in another order), and in float64 on the
-    # card, the same dropout masks drawn from the same generator
-    pc_again = single_dp_reference("pointconv", states["pointconv"], x,
-                                   labels, device)
-    with f32_fps():
-        pc_f64 = single_dp_reference("pointconv", states["pointconv"], x,
-                                     labels, device, dtype=torch.float64)
-    for k, v in launches_since(before).items():
-        phase[k] += v
-    torch.cuda.empty_cache()
-    out, times = {"cuts": DP_CUTS}, {}
-    gap = {"param": DP_GAP_PARAM,
-           "single_rerun": gradient_gaps(pc_again["grads"],
-                                         refs["pointconv"]["grads"]),
-           "single_vs_f64": gradient_gaps(refs["pointconv"]["grads"],
-                                          pc_f64["grads"])}
-    out["tie_free_dgcnn"] = {"points": STEP_DGCNN_POINTS,
-                             "clouds": int(xt.shape[0]), "batch_seed": t_seed,
-                             "feature_knn_margin": t_margin}
-    for backend, world in DP_RUNS:
-        run = f"{backend}_world{world}"
-        t0 = time.time()
-        with stdout_to_stderr_fd():
-            ranks = spawn(dp_rank, world, backend, [device] * world,
-                          args=(states, x, labels, t0, (xt, lt)))
-        out["tie_free_dgcnn"][run] = check_tie_free_selections(ranks,
-                                                               tie_ref, run)
-        gap[f"{run}_vs_f64"] = gradient_gaps(
-            ranks[0]["families"]["pointconv"]["grads"], pc_f64["grads"])
-        gap[f"{run}_f64_vs_single_f64"] = gradient_gaps(
-            ranks[0]["pointconv_f64_grads"], pc_f64["grads"])
-        if not gap[f"{run}_f64_vs_single_f64"]["worst"][
-                "rel_gap_with_floor"] <= DP_F64_TOL:
-            raise AssertionError(f"pointconv DP step ({run}) in float64: "
-                                 f"{gap[f'{run}_f64_vs_single_f64']}")
-        times[run] = {"spawn_to_rank_start_s": max(r["start_s"]
-                                                   for r in ranks),
-                      "spawn_total_s": time.time() - t0,
-                      "ms_per_step": {}}
-        out[run] = {}
-        for name in TRAIN_MODELS:
-            out[run][name] = check_dp_family(name, ranks, refs[name],
-                                             states[name])
-            times[run]["ms_per_step"][name] = max(
-                r["families"][name]["ms_per_step"] for r in ranks)
-            launched = {}
-            for r in ranks:
-                for k, v in r["families"][name]["launches"].items():
-                    launched[k] = launched.get(k, 0) + v
-                    phase[k] += v
-            wrong = [k for k, v in launched.items()
-                     if bool(v) != (k in TRAIN_STEP_KERNELS[name])]
-            if wrong:
-                raise AssertionError(f"{name} DP steps launched {launched}")
-            out[run][name]["launches"] = {k: v for k, v in launched.items()
-                                          if v}
-    before = all_launches()
-    t0 = time.time()
-    printed = io.StringIO()
-    with stdout_to_stderr_fd(), contextlib.redirect_stdout(printed):
-        dryrun_multichip(1, "cuda")
-    lines = [line for line in printed.getvalue().splitlines()
-             if line.startswith("[dryrun]")]
-    log("\n".join(lines))
-    if len(lines) != 6:
-        raise AssertionError(f"dryrun_multichip(1): {lines}")
-    out["dryrun_multichip_1"] = {"ok_lines": len(lines),
-                                 "seconds": time.time() - t0}
-    out["pointconv_gradient_gap"] = gap
-    for k, v in launches_since(before).items():
-        phase[k] += v
-    out["launches"] = {k: v for k, v in phase.items() if v}
-    return out, times, phase
-
-
-# -------------------------------------------------------------------- mesh
-def check_mesh_cli(workdir, device):
-    """cli.shapley_value on DGCNN with --mesh_devices 1 and without: the
-    same artifacts, bit for bit."""
-    import importlib
-    from interpret_quality_tpu_torch.config import ExperimentConfig
-    trees = []
-    for flag in ([], ["--mesh_devices", "1"]):
-        ck = os.path.join(workdir, "ck_mesh%s" % "".join(flag[1:]))
-        importlib.import_module(
-            "interpret_quality_tpu_torch.cli.shapley_value").main(
-            ["--model", "dgcnn", "--synthetic", "--allow_random_init",
-             "--device", str(device), "--checkpoints_root", ck,
-             "--num_points", str(N), "--num_regions", str(R),
-             "--num_samples_save", str(MESH_ORDERS), "--samples", "0", *flag])
-        folder = ExperimentConfig(
-            model="dgcnn", checkpoints_root=ck, num_points=N,
-            num_regions=R).exp_folder + "synthetic_00/"
-        trees.append([np.load(folder + f) for f in (
-            "region_sv_all.npy", "norm_factor.npy", "region_id.npy")])
-    if not all(np.array_equal(a, b) for a, b in zip(*trees)):
-        raise AssertionError("--mesh_devices 1 changed Shapley init")
-    return {"orders": MESH_ORDERS, "equal": True}
-
-
-def check_virtual_split(masked, device):
-    """A split over [device, device] of DGCNN's and PointNet++'s forward
-    on the masked batch, and of their plan path: equal to the unsplit
-    forward of the same two parts, bit for bit (the split adds no
-    arithmetic); against the unsplit forward of the whole batch, the share
-    of equal rows and the largest difference, within rtol / atol 1e-3 (the
-    dense layers' library may sum in another order for another row count,
-    and a feature-space kNN near tie may then flip)."""
-    import torch
-    from interpret_quality_tpu_torch.models import make_forward_fn
-    from interpret_quality_tpu_torch.pipeline import split_forward
-    out = {}
-    for name in MESH_MODELS:
-        forward = make_forward_fn(seeded_model(name, device))
-        split, _ = split_forward(forward, device, [device, device])
-        parts = torch.tensor_split(masked, 2)
-        with torch.inference_mode():
-            whole = forward(masked)
-            plan = split.plan_fn(masked)
-            runs = {"forward": (split(masked), torch.cat(
-                        [forward(p) for p in parts]), whole),
-                    "plan": (split.apply_plan_fn(masked, plan), torch.cat(
-                        [forward.apply_plan_fn(p, q)
-                         for p, q in zip(parts, plan)]),
-                        forward.apply_plan_fn(masked,
-                                              forward.plan_fn(masked)))}
-        rec = {}
-        for path, (got, per_part, unsplit) in runs.items():
-            if not torch.equal(got, per_part):
-                raise AssertionError(f"{name} {path}: the split differs from "
-                                     f"the unsplit forward of its parts")
-            diff = (got - unsplit).abs()
-            if not bool((diff <= 1e-3 + 1e-3 * unsplit.abs()).all()):
-                raise AssertionError(f"{name} {path}: split vs unsplit "
-                                     f"{float(diff.max())}")
-            rec[path] = {"equal_to_per_part": True,
-                         "equal_to_unsplit": bool(torch.equal(got, unsplit)),
-                         "rows_equal_to_unsplit": float(
-                             (diff == 0).all(-1).float().mean()),
-                         "max_abs_diff_to_unsplit": float(diff.max())}
-        out[name] = rec
-    return out
-
-
-def repo_kernel_names():
-    """The __global__ functions of the kernel sources."""
-    names = set()
-    for path in glob.glob(os.path.join(
-            REPO, "interpret_quality_tpu_torch", "csrc", "*.cu")):
-        with open(path) as f:
-            names |= set(re.findall(
-                r"__global__ void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
-                r"(\w+)\(", f.read()))
-    return names
-
-
-def check_trace(workdir, device):
-    """Shapley init on GCNN with --trace_dir: one Chrome trace per cloud,
-    naming the kernels' launch spans (iq_*) and, where the profiler sees
-    the card, their device kernels."""
-    import importlib
-    traces = os.path.join(workdir, "traces")
-    t0 = time.perf_counter()
-    importlib.import_module("interpret_quality_tpu_torch.cli.shapley_value"
-                            ).main(["--model", "gcnn", "--synthetic",
-                                    "--allow_random_init", "--device",
-                                    str(device), "--checkpoints_root",
-                                    os.path.join(workdir, "ck_trace"),
-                                    "--num_points", str(N), "--num_regions",
-                                    str(R), "--num_samples_save",
-                                    str(MESH_ORDERS), "--samples", "0",
-                                    "--trace_dir", traces])
-    seconds = time.perf_counter() - t0
-    files = os.listdir(traces)
-    if files != ["shapley_init_synthetic_00.pt.trace.json"]:
-        raise AssertionError(f"trace files {files}")
-    with open(os.path.join(traces, files[0])) as f:
-        events = json.load(f)["traceEvents"]
-    spans = sorted({e["name"] for e in events
-                    if e.get("name", "").startswith("iq_")})
-    names = repo_kernel_names()
-    device = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
-    # the profiler may give a kernel's name mangled or demangled
-    kernels = sorted({n for n in names for d in device if n in d})
-    if not spans:
-        raise AssertionError("the trace names no iq_ launch span")
-    return {"file": files[0], "bytes": os.path.getsize(
-        os.path.join(traces, files[0])), "events": len(events),
-        "iq_spans": spans, "repo_device_kernels": kernels,
-        "device_kernel_events": sum(e.get("cat") == "kernel"
-                                    for e in events),
-        "device_kernel_names": [d[:80] for d in device],
-        "seconds_with_trace": seconds}
-
-
-def run_mesh(workdir, device):
-    import torch
-    t0 = time.perf_counter()
-    out = {"visible_devices": torch.cuda.device_count(),
-           "cli_mesh_devices_1": check_mesh_cli(workdir, device)}
-    masked = coalition_batch(device)
-    out["virtual_split"] = check_virtual_split(masked, device)
-    del masked
-    torch.cuda.empty_cache()
-    out["trace"] = check_trace(workdir, device)
-    out["seconds"] = time.perf_counter() - t0
-    return out
-
-
-# ------------------------------------------------------------------- bench
-def run_script(args, cwd, timeout: int = 600) -> str:
-    """stdout of ``python <args>`` run from ``cwd`` on this card; its
-    stderr goes to ours; raises on a non-zero exit."""
-    proc = subprocess.run([sys.executable, *args], cwd=cwd, text=True,
-                          capture_output=True, timeout=timeout,
-                          env=dict(os.environ, PYTHONPATH=REPO))
-    sys.stderr.write(proc.stderr)
-    if proc.returncode != 0:
-        raise AssertionError(f"{' '.join(args)} exited {proc.returncode}: "
-                             f"{proc.stderr[-3000:]}")
-    return proc.stdout
-
-
-def bench_output(stdout: str) -> dict:
-    """bench_torch.py's lines: the headline (last), with bench.py's keys,
-    and what its ``#`` lines carry."""
-    lines = stdout.strip().splitlines()
-    out = {"headline": json.loads(lines[-1]), "engine": {}, "probes": {}}
-    if list(out["headline"]) != BENCH_HEADLINE_KEYS:
-        raise AssertionError(f"bench headline {out['headline']}")
-    for line in lines[:-1]:
-        if not line.startswith("# "):
-            raise AssertionError(f"bench printed {line!r} before its result")
-        body = line[2:]
-        for tag in ("device", "enum_probe", "rate_sources",
-                    "measured_wallclock"):
-            if body.startswith(tag + " "):
-                rec = json.loads(body[len(tag) + 1:])
-                if tag == "enum_probe":
-                    out["probes"][rec["model"]] = rec
-                else:
-                    out[tag] = rec
-                break
-        else:
-            if body.startswith('{"per_model"'):
-                out["per_model"] = json.loads(body)["per_model"]
-            elif body.startswith('{"model"'):
-                rec = json.loads(body)
-                out["engine"][rec["model"]] = rec
-    return out
-
-
-def check_bench(out, smi, models, source_ok):
-    """Every family's engine rate finite and positive; each family's rates
-    from files that ``source_ok`` accepts (the main path's logs, the port's
-    evidence) or from a probe; the kernels of each family launched in its
-    engine run."""
-    if out["device"]["device"] != smi:
-        raise AssertionError(f"bench device {out['device']} vs {smi}")
-    if sorted(out["per_model"]) != sorted(models) or \
-            sorted(out["engine"]) != sorted(models):
-        raise AssertionError(f"bench models {sorted(out['per_model'])}")
-    for model in models:
-        rate = out["engine"][model]["forwards_per_sec"]
-        if not (np.isfinite(rate) and rate > 0):
-            raise AssertionError(f"bench {model}: engine rate {rate}")
-        launched = out["engine"][model]["kernel_launches"]
-        if sorted(launched) != sorted(FAMILY_KERNELS[model]):
-            raise AssertionError(f"bench {model} engine launched {launched}")
-        basis = out["per_model"][model]["basis"]
-        sources = out["rate_sources"][model]
-        if model in BENCH_PROBED:
-            ok = basis == "enum_probe" and model in out["probes"] and \
-                not sources
-        else:
-            ok = basis in ("stage_logs", "stage_logs_partial") and \
-                sources and all(source_ok(p) for p in sources)
-        if not ok:
-            raise AssertionError(f"bench {model}: basis {basis} from "
-                                 f"{sources}")
-
-
-def run_bench(workdir, smi, main_rates):
-    """The bench phase: bench_torch.py over the five families on the main
-    path's tree (DGCNN, PointNet++ and PointConv read its enum logs,
-    PointNet and GCNN run the probe), the port's report scripts on that
-    tree, then bench_torch.py for DGCNN with no tree, whose rates come
-    from the port's evidence just collected.  Returns (kernel launches of
-    the first run, record)."""
-    t_phase = time.perf_counter()
-    ck = os.path.join(workdir, "ck")
-    bench_dir = os.path.join(workdir, "bench")
-    results = os.path.join(bench_dir, "results")
-    os.makedirs(results)
-    bench = os.path.join(REPO, "bench_torch.py")
-    t0 = time.perf_counter()
-    first = bench_output(run_script(
-        [bench, "--checkpoints_root", ck, *BENCH_ARGS], bench_dir))
-    bench_s = time.perf_counter() - t0
-    check_bench(first, smi, TRAIN_MODELS,
-                lambda path: path.startswith(ck + "/"))
-    if first["headline"]["suite_basis"] != "measured_mixed":
-        raise AssertionError(f"bench suite_basis {first['headline']}")
-    launches = {}
-    for rec in list(first["engine"].values()) + list(
-            first["probes"].values()):
-        for k, v in rec["kernel_launches"].items():
-            launches[k] = launches.get(k, 0) + v
-
-    scripts = os.path.join(REPO, "scripts")
-    t0 = time.perf_counter()
-    tree = ["--synthetic", "--checkpoints_root", ck, "--samples",
-            RESULT_SAMPLES]
-    wallclock = os.path.join(results, "suite_wallclock_torch.json")
-    run_script([os.path.join(scripts, "suite_wallclock_torch.py"),
-                "--checkpoints_root", ck, "--out", wallclock], bench_dir)
-    evidence = os.path.join(results, "dgcnn_synthetic_torch.json")
-    run_script([os.path.join(scripts, "collect_evidence_torch.py"),
-                "--model", "dgcnn", *tree, "--label", smi, "--out",
-                evidence], bench_dir)
-    md = os.path.join(workdir, "RESULTS_torch.md")
-    run_script([os.path.join(scripts, "make_results_md_torch.py"),
-                "--model", "dgcnn", *tree, "--label", smi, "--out", md],
-               bench_dir)
-    run_script([os.path.join(scripts, "make_compare_md_torch.py"), *tree,
-                "--models", ",".join(ENUM_MODELS), "--label", smi, "--out",
-                md], bench_dir)
-    reports_s = time.perf_counter() - t0
-    with open(wallclock) as f:
-        wc = json.load(f)
-    with open(evidence) as f:
-        ev = json.load(f)
-    with open(md) as f:
-        text = f.read()
-    if wc["hardware"] != smi or sorted(wc["families"]) != sorted(
-            TRAIN_MODELS):
-        raise AssertionError(f"suite_wallclock: {wc['hardware']}, "
-                             f"{sorted(wc['families'])}")
-    if ev["device"] != smi or not {"enum", "interaction", "shapley_init",
-                                   "smoothness"} <= set(
-                                       ev["stage_rates_by_stage"]):
-        raise AssertionError(f"evidence {ev['device']}: "
-                             f"{ev['stage_rates_by_stage']}")
-    sections = ("## Table 2", "## Table 3", "## Table 4",
-                "## Stage throughput", "# Cross-model comparison")
-    if not all(sec in text for sec in sections):
-        raise AssertionError(f"RESULTS_torch.md lacks a section: {text}")
-
-    t0 = time.perf_counter()
-    second = bench_output(run_script(
-        [bench, "--model", "dgcnn", "--checkpoints_root",
-         os.path.join(bench_dir, "no_tree"), "--no_probe", *BENCH_ARGS],
-        bench_dir))
-    evidence_s = time.perf_counter() - t0
-    check_bench(second, smi, ("dgcnn",),
-                lambda path: path == "results/dgcnn_synthetic_torch.json")
-    if second["headline"]["suite_basis"] != "stage_logs" or \
-            second["headline"]["measured_suite_speedup_pointnet"] is None:
-        raise AssertionError(f"bench from evidence: {second['headline']}, "
-                             f"{second['rate_sources']}")
-    return launches, {
-        "headline": first["headline"],
-        "engine_forwards_per_sec": {m: r["forwards_per_sec"]
-                                    for m, r in first["engine"].items()},
-        "main_path_init_forwards_per_s": {
-            m: main_rates[f"shapley_init_{m}"]["forwards_per_s"]
-            for m in TRAIN_MODELS},
-        "probe_forwards_per_sec": {m: r["sustained_forwards_per_sec"]
-                                   for m, r in first["probes"].items()},
-        "per_model": first["per_model"],
-        "kernel_launches": launches,
-        "from_evidence": {"headline": second["headline"],
-                          "per_model": second["per_model"]},
-        "suite_wallclock_families": sorted(wc["families"]),
-        "evidence_stage_rates": ev["stage_rates_by_stage"],
-        "args": list(BENCH_ARGS), "nvidia_smi": smi, "bench_s": bench_s,
-        "reports_s": reports_s, "bench_from_evidence_s": evidence_s,
-        "seconds": time.perf_counter() - t_phase}
 
 
 def main() -> int:
@@ -4661,45 +3826,6 @@ def main() -> int:
     emit({"phase": "adversarial", **adversarial, "nvidia_smi": smi,
           "cuts": ADV_CUTS})
     emit({"phase": "adv_robustness", **robustness, "cuts": ROBUST_CUTS})
-    torch.cuda.empty_cache()
-
-    with contextlib.redirect_stdout(sys.stderr):
-        dp, dp_times, dp_launches = run_data_parallel(device)
-    emit({"phase": "data_parallel", **dp})
-    emit({"phase": "data_parallel_times", **dp_times, "nvidia_smi": smi,
-          "single_step_ms": {name: train[name]["fixed_batch_steps"][
-              "ms_per_step"] for name in TRAIN_MODELS},
-          "note": "world 2 is two gloo ranks on one card: no scaling "
-                  "number; each step includes the replicas' checksum"})
-    torch.cuda.empty_cache()
-
-    mesh_dir = os.path.join(workdir, "mesh")
-    os.makedirs(mesh_dir)
-    os.chdir(mesh_dir)                      # Shapley init's FPS file
-    try:
-        with contextlib.redirect_stdout(sys.stderr):
-            mesh = run_mesh(mesh_dir, device)
-    finally:
-        os.chdir(cwd)
-    shutil.rmtree(mesh_dir, ignore_errors=True)
-    emit({"phase": "mesh", **mesh})
-
-    import gc
-    gc.collect()
-    torch.cuda.empty_cache()      # the bench's processes share the card
-    log(f"before bench: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
-        f"allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
-    os.chdir(workdir)
-    try:
-        bench_launches, bench = run_bench(workdir, smi, rates)
-    finally:
-        os.chdir(cwd)
-    missing = [k for k in launches if k not in OFF_PATH
-               and not bench_launches.get(k)]
-    if missing:
-        raise AssertionError(f"kernels never launched by bench_torch.py: "
-                             f"{missing}")
-    emit({"phase": "bench", **bench})
 
     def src(module):
         return os.path.relpath(build.source_path(module), REPO)
@@ -4719,8 +3845,7 @@ def main() -> int:
          **({"note": NO_TPU_KERNEL[kname]} if kname in NO_TPU_KERNEL else {}),
          "launches": launches[kname],
          "train_launches": train["launches"][kname] + adv_launches[kname]
-         + rob_launches[kname] + dp_launches[kname],
-         "bench_launches": bench_launches.get(kname, 0),
+         + rob_launches[kname],
          "library_ms": None, **numbers,
          **({"kernel_phase_launches": k8_launches, "off_path": OFF_PATH[kname]}
             if kname in OFF_PATH else {})}

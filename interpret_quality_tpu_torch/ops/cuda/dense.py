@@ -23,8 +23,9 @@ each).  On the CPU the plain version computes today's arithmetic
 
 A wrapper takes its plain version only for tensors on the CPU.  For CUDA
 tensors it launches its kernel or raises; there is no fallback.  Each launch
-adds one to ``LAUNCHES["dense_pool"]``, and at a setting other than
-``highest`` to ``ROUTE_LAUNCHES["dense_pool:<setting>"]``, and runs inside
+counts in the launch registry (``launch.count_launch``) under
+``"dense_pool"``, and at a setting other than ``highest`` under
+``"dense_pool:<setting>"`` as well, and runs inside
 the profiler span ``iq_dense_pool``; while a profiler records, its products
 (2 x B x N x in x out) count in the work counter ``dense_products``, as
 ``ops.precision.matmul`` counts the products it runs.
@@ -43,24 +44,12 @@ from ... import config
 from ...utils import profiling
 from ..precision import DENSE_PRODUCTS, matmul
 from . import build
-from .groups import PRECISION_CODES
-from .launch import I, P, check, on_cpu, raise_on, stream
-
-# launches of each kernel since the last reset_launches()
-LAUNCHES = {"dense_pool": 0}
-# launches at a precision setting other than the exact one, counted here as
-# well as in LAUNCHES
-ROUTE_LAUNCHES = {"dense_pool:high": 0, "dense_pool:default": 0}
+from .launch import (PRECISION_CODES, I, P, check, count_launch, on_cpu,
+                     raise_on, stream)
 
 MAX_SEGMENTS = 4     # feature segments the kernel reads (kMaxSegments)
 SEGMENT_QUANTUM = 32  # each segment's width a multiple of it (kKChunk)
 COLUMN_QUANTUM = 256  # the output width a multiple of it (kCols)
-
-
-def reset_launches() -> None:
-    for counts in (LAUNCHES, ROUTE_LAUNCHES):
-        for name in counts:
-            counts[name] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -169,7 +158,5 @@ def dense_pool(feats: Sequence[torch.Tensor], conv: nn.Module,
                                   out.data_ptr(), scratch.data_ptr(), B, N, C,
                                   PRECISION_CODES[precision], stream(w))
     raise_on(rc, "iq_dense_pool")
-    LAUNCHES["dense_pool"] += 1
-    if precision != "highest":
-        ROUTE_LAUNCHES[f"dense_pool:{precision}"] += 1
+    count_launch("dense_pool", precision)
     return out

@@ -3,8 +3,9 @@
 
 ``fps`` replaces ``interpret_quality_tpu/ops/pallas/fps.py`` ``fps_pallas``
 / ``_fps_kernel``.  It takes its plain version only for tensors on the CPU;
-for CUDA tensors it launches the kernel or raises.  Each launch adds one to
-``LAUNCHES["fps"]`` and runs inside a profiler span named ``iq_fps``.
+for CUDA tensors it launches the kernel or raises.  Each launch counts in
+the launch registry (``launch.count_launch``) and runs inside a profiler
+span named ``iq_fps``.
 
 The kernel keeps a cloud of up to ``REGISTER_ROUTE_MAX_N`` points in
 registers (a block of 128 threads per cloud, 1, 2, 4 or 8 points a thread,
@@ -22,17 +23,10 @@ from torch.profiler import record_function
 
 from ..geometry import farthest_point_sample
 from . import build
-from .launch import I, P, check, on_cpu, raise_on, stream
-
-# launches since the last reset_launches()
-LAUNCHES = {"fps": 0}
+from .launch import I, P, check, count_launch, on_cpu, raise_on, stream
 
 REGISTER_ROUTE_MAX_N = 1024   # 128 threads x 8 points (kRegThreads * kMaxPpt)
 MAX_N = 14528                 # the generic route: 4 N floats of shared memory
-
-
-def reset_launches() -> None:
-    LAUNCHES["fps"] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -72,7 +66,7 @@ def fps(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
         rc = _lib().iq_fps(xyz.data_ptr(), out.data_ptr(), B, N, npoint,
                            stream(xyz))
     raise_on(rc, "iq_fps")
-    LAUNCHES["fps"] += 1
+    count_launch("fps")
     return out
 
 

@@ -18,8 +18,8 @@ wrapper                     replaces (interpret_quality_tpu/ops/pallas/)
 Signatures and layouts are the JAX functions' (without their TPU knobs
 ``block_q`` and ``interpret``): kNN ties go to the lowest index, and
 ``knn_with_density`` takes the kNN selection setting ``select`` as
-``neighbors.knn`` does (``"knn_with_density:packed"``, ... in
-``ROUTE_LAUNCHES``),
+``neighbors.knn`` does (its launches at a class other than exact counted
+under ``"knn_with_density:packed"``, ...),
 and gathers are exact f32 unless ``parts`` (the JAX package's value planes,
 ``--gather_precision``) is 1: then the gathered feature values (kernel 5's
 ``uf`` rows, kernel 7's ``u`` rows, kernel 8's values) are each rounded to
@@ -45,13 +45,13 @@ in, and the DensityNet scale (``density_scale``).
 
 A wrapper takes its plain version only for tensors on the CPU.  For CUDA
 tensors it launches its kernel or raises; there is no fallback.  Each launch
-adds one to ``LAUNCHES[name]`` and runs inside a profiler span named after
-its launcher (``iq_ball_mlp3``, ...); a launch at another setting than the
-exact one counts in ``ROUTE_LAUNCHES`` as well (``gather_rows:bf16``,
-``fused_ball_mlp3:default``, ...).  While a profiler records,
-``fused_ball_mlp3``'s kernel adds the rows it multiplies to the work counter
-``K5_ROWS``, and the tiles its consumer warpgroups multiply and those they
-found not yet written by its producer warpgroup to ``K5_TILES`` and
+counts in the launch registry (``launch.count_launch``) and runs inside a
+profiler span named after its launcher (``iq_ball_mlp3``, ...); a launch at
+another setting than the exact one counts under its route as well
+(``gather_rows:bf16``, ``fused_ball_mlp3:default``, ...).  While a profiler
+records, ``fused_ball_mlp3``'s kernel adds the rows it multiplies to the work
+counter ``K5_ROWS``, and the tiles its consumer warpgroups multiply and those
+they found not yet written by its producer warpgroup to ``K5_TILES`` and
 ``K5_FRONT_WAITS`` (``utils.profiling``).
 """
 from __future__ import annotations
@@ -69,19 +69,11 @@ from ..geometry import (index_points, query_ball_point, sorted_topk_indices,
                         square_distance)
 from ..precision import gather_values, knn_class, value_parts
 from . import build
-from .launch import F, I, P, check, on_cpu, raise_on, stream
-from .neighbors import (KNN_ROUTES, MAX_QUERY_ROWS, SELECT_CODES,
-                        _distinct_rows_scratch, route_info)
+from .launch import (PRECISION_CODES, SELECT_CODES, F, I, P, check,
+                     count_launch, on_cpu, raise_on, stream)
+from .neighbors import (KNN_ROUTES, MAX_QUERY_ROWS, _distinct_rows_scratch,
+                        route_info)
 
-# launches of each kernel since the last reset_launches()
-LAUNCHES = {"fused_ball_mlp3": 0, "knn_with_density": 0,
-            "fused_pointconv_sa": 0, "gather_rows": 0}
-# launches at a precision setting other than the exact one, counted here as
-# well as in LAUNCHES
-ROUTE_LAUNCHES = {"gather_rows:bf16": 0, "fused_ball_mlp3:high": 0,
-                  "fused_ball_mlp3:default": 0, "fused_pointconv_sa:high": 0,
-                  "fused_pointconv_sa:default": 0,
-                  "knn_with_density:packed": 0, "knn_with_density:bf16": 0}
 # the work counter of fused_ball_mlp3 (``utils.profiling.accumulator``): the rows
 # the kernel multiplies through layers 2-3, each centre's filled slots
 # (without feature rows the fresh ones: no earlier point at its very
@@ -93,8 +85,6 @@ K5_ROWS = "k5_rows"
 # query and layer 1 set the pace there
 K5_TILES = "k5_tiles"
 K5_FRONT_WAITS = "k5_front_waits"
-# the prec argument of iq_ball_mlp3 and iq_pointconv_sa (kPrec* in the source)
-PRECISION_CODES = {"highest": 0, "high": 1, "default": 2}
 
 MAX_DENSITY_K = 64   # largest k of knn_with_density (kMaxDensityK)
 MAX_BALL_K = 1024    # largest k of fused_ball_mlp3 (kMaxBatchRows)
@@ -107,12 +97,6 @@ MAX_PCONV_K = 64     # largest k of fused_pointconv_sa (kMaxPconvK)
 WNET_WIDTHS = ((3, 8), (8, 8), (8, 16))    # WeightNet (in, out) per layer
 
 Affine = Tuple[torch.Tensor, torch.Tensor]
-
-
-def reset_launches() -> None:
-    for counts in (LAUNCHES, ROUTE_LAUNCHES):
-        for name in counts:
-            counts[name] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -143,12 +127,6 @@ def _weight(t: torch.Tensor, name: str, shape: Tuple[int, ...]) -> torch.Tensor:
 def _mlp23(h: torch.Tensor, a2, b2, a3, b3) -> torch.Tensor:
     h = torch.relu(torch.matmul(h, a2) + b2)
     return torch.relu(torch.matmul(h, a3) + b3)
-
-
-def _record_route(name: str, precision: str) -> None:
-    """Count a launch at a matmul precision other than the exact one."""
-    if precision != "highest":
-        ROUTE_LAUNCHES[f"{name}:{precision}"] += 1
 
 
 # --------------------------------------------------------- fused_ball_mlp3
@@ -251,8 +229,7 @@ def fused_ball_mlp3(new_xyz: torch.Tensor, xyz: torch.Tensor,
                                  radius ** 2, PRECISION_CODES[precision],
                                  stream(xyz))
     raise_on(rc, "iq_ball_mlp3")
-    LAUNCHES["fused_ball_mlp3"] += 1
-    _record_route("fused_ball_mlp3", precision)
+    count_launch("fused_ball_mlp3", precision)
     return out
 
 
@@ -318,9 +295,7 @@ def _knn_with_density(query: torch.Tensor, database: torch.Tensor,
             None if scratch is None else scratch.data_ptr(), B, S, N, C, k,
             route, SELECT_CODES[cls], stream(query))
     raise_on(rc, "iq_knn_density")
-    LAUNCHES["knn_with_density"] += 1
-    if cls != "exact":
-        ROUTE_LAUNCHES[f"knn_with_density:{cls}"] += 1
+    count_launch("knn_with_density", cls)
     return idx, den, dmax
 
 
@@ -455,8 +430,7 @@ def fused_pointconv_sa(idx, den, dmax, new_xyz, u, xyz, csw, a2, b2, a3, b3,
                                     C1, C2, C3, PRECISION_CODES[precision],
                                     stream(u))
     raise_on(rc, "iq_pointconv_sa")
-    LAUNCHES["fused_pointconv_sa"] += 1
-    _record_route("fused_pointconv_sa", precision)
+    count_launch("fused_pointconv_sa", precision)
     return out
 
 
@@ -508,7 +482,5 @@ def gather_rows(values: torch.Tensor, idx: torch.Tensor,
                                    out.data_ptr(), B, N, S * K, F, int(bf16),
                                    stream(values))
     raise_on(rc, "iq_gather_rows")
-    LAUNCHES["gather_rows"] += 1
-    if bf16:
-        ROUTE_LAUNCHES["gather_rows:bf16"] += 1
+    count_launch("gather_rows", "bf16" if bf16 else "f32")
     return out

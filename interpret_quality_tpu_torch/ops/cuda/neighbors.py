@@ -13,9 +13,10 @@ wrapper                     replaces (interpret_quality_tpu/ops/pallas/)
 
 A wrapper takes its plain version only for tensors on the CPU.  For CUDA
 tensors it launches its kernel or raises; there is no fallback.  Each launch
-adds one to ``LAUNCHES[name]``, so a run can show that its main path went
-through the kernels, and runs inside a profiler span named after its
-launcher (``iq_knn``, ...), which a stage's ``--trace_dir`` trace shows.
+counts in the launch registry (``launch.count_launch``), so a run can show
+that its main path went through the kernels, and runs inside a profiler
+span named after its launcher (``iq_knn``, ...), which a stage's
+``--trace_dir`` trace shows.
 ``knn`` and ``knn_gather_extrema`` select for the
 distinct query rows of a cloud only: a row that is a bit-for-bit copy of an
 earlier one (a masked coalition's collapsed regions) takes that row's
@@ -38,8 +39,8 @@ split the values into bf16 planes (``parts``): at ``bf16`` (parts 1) each
 value is rounded to bf16, to nearest even, and max and min are taken in
 f32 on the rounded values, which is what the TPU's one bf16 plane gives.
 ``gather_extrema`` then reads a bf16 copy of the values (half the bytes of
-the f32 rows; the launch counts in ``ROUTE_LAUNCHES["gather_extrema:bf16"]``
-beside ``LAUNCHES``); ``knn_gather_extrema``, bound by its selection, reads
+the f32 rows; the launch counts under ``"gather_extrema:bf16"`` as well as
+under its name); ``knn_gather_extrema``, bound by its selection, reads
 the rounded values in f32.  ``parts=None`` takes the process's setting on
 the card and exact gathers on the CPU (``precision.value_parts``).  The kNN
 distances stay f32 at every setting: the JAX package pins them to HIGHEST.
@@ -53,7 +54,7 @@ and the distinct-row pass keep their rules.  ``select=None`` takes the
 process's setting (``IQTPU_KNN_SELECT``) on the card and the exact one on
 the CPU (``precision.knn_class``); the plain versions take the class
 itself (``cls``).  A launch of the packed or bf16 class
-counts in ``ROUTE_LAUNCHES`` (``"knn:packed"``, ...) as well.
+counts under its route (``"knn:packed"``, ...) as well.
 """
 from __future__ import annotations
 
@@ -68,31 +69,16 @@ from ...utils import profiling
 from ..geometry import index_points, sorted_topk_indices, square_distance
 from ..precision import gather_values, knn_class, value_parts
 from . import build
-from .launch import I, P, check, on_cpu, raise_on, stream
+from .launch import (SELECT_CODES, I, P, check, count_launch, on_cpu,
+                     raise_on, stream)
 
-# launches of each kernel since the last reset_launches()
-LAUNCHES = {"knn": 0, "gather_extrema": 0, "knn_gather_extrema": 0}
-# launches of the routes of a non-default precision or selection setting,
-# counted here as well as in LAUNCHES
-ROUTE_LAUNCHES = {"gather_extrema:bf16": 0, "knn:packed": 0, "knn:bf16": 0,
-                  "knn_gather_extrema:packed": 0,
-                  "knn_gather_extrema:bf16": 0}
 # the work counter of knn_gather_extrema (``utils.profiling.accumulator``): per
 # launch, the sum over clouds of the distinct query rows times the N
 # database rows the kernel scans for each
 K3_DISTANCES = "k3_distances"
-# the sel argument of iq_knn, iq_knn_gather_extrema and iq_knn_density, by
-# selection class (kSel* in knn_select.cuh)
-SELECT_CODES = {"exact": 0, "packed": 1, "bf16": 2}
 
 MAX_K = 32      # largest neighbourhood the kernels take (kMaxK in the source)
 MAX_QUERY_ROWS = 12288    # most query rows of a cloud (kMaxDistinctRows)
-
-
-def reset_launches() -> None:
-    for counts in (LAUNCHES, ROUTE_LAUNCHES):
-        for name in counts:
-            counts[name] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -115,12 +101,6 @@ def _distinct_rows_scratch(B: int, S: int, device) -> torch.Tensor:
     list of distinct rows and their count per cloud (the kernels select for
     the distinct query rows only; copies take their original's result)."""
     return torch.empty(B * (2 * S + 1), dtype=torch.int32, device=device)
-
-
-def count_select(name: str, cls: str) -> None:
-    """Count a launch of ``name`` at a selection class other than exact."""
-    if cls != "exact":
-        ROUTE_LAUNCHES[f"{name}:{cls}"] += 1
 
 
 def _check_k(k: int, n: int):
@@ -192,8 +172,7 @@ def _knn(query: torch.Tensor, database: torch.Tensor, k: int, route: int,
                            out.data_ptr(), scratch.data_ptr(), B, S, N, C, k,
                            route, SELECT_CODES[cls], stream(query))
     raise_on(rc, "iq_knn")
-    LAUNCHES["knn"] += 1
-    count_select("knn", cls)
+    count_launch("knn", cls)
     return out
 
 
@@ -272,9 +251,7 @@ def _gather_extrema(idx: torch.Tensor, a: torch.Tensor, route: int,
                                       B, S, N, F, k, route, int(bf16),
                                       stream(a))
     raise_on(rc, "iq_gather_extrema")
-    LAUNCHES["gather_extrema"] += 1
-    if bf16:
-        ROUTE_LAUNCHES["gather_extrema:bf16"] += 1
+    count_launch("gather_extrema", "bf16" if bf16 else "f32")
     return amax, amin
 
 
@@ -355,6 +332,5 @@ def _knn_gather_extrema(xs: torch.Tensor, a: torch.Tensor, k: int,
     if profiling.tracing():     # after the span: the kernel's time is its own
         profiling.accumulator(K3_DISTANCES, xs.device).add_(
             scratch[2 * B * N:].sum(), alpha=N)
-    LAUNCHES["knn_gather_extrema"] += 1
-    count_select("knn_gather_extrema", cls)
+    count_launch("knn_gather_extrema", cls)
     return amax, amin

@@ -14,6 +14,7 @@ from interpret_quality_tpu_torch import config
 from interpret_quality_tpu_torch.ops.cuda import dense as dn
 from interpret_quality_tpu_torch.ops.cuda import fps as fp
 from interpret_quality_tpu_torch.ops.cuda import groups as gr
+from interpret_quality_tpu_torch.ops.cuda import launch
 from interpret_quality_tpu_torch.ops.cuda import neighbors as nb
 
 
@@ -36,7 +37,7 @@ def test_kernels_match_plain_versions(cuda, C, F):
     base = torch.randn(4, 128, C, generator=g)
     xs = base.repeat(1, 8, 1).contiguous().to(cuda)
     a = torch.randn(4, 1024, F, generator=g).to(cuda)
-    nb.reset_launches()
+    launch.reset_launches()
     idx = nb.knn(xs, xs, 20)
     assert torch.equal(idx, nb.knn_plain(xs, xs, 20))
     pmax, pmin = nb.gather_extrema_plain(idx, a)
@@ -45,8 +46,8 @@ def test_kernels_match_plain_versions(cuda, C, F):
     torch.cuda.synchronize()
     assert torch.equal(kmax, pmax) and torch.equal(kmin, pmin)
     assert torch.equal(gmax, pmax) and torch.equal(gmin, pmin)
-    assert nb.LAUNCHES == {"knn": 1, "gather_extrema": 1,
-                           "knn_gather_extrema": 1}
+    assert launch.launches("knn", "gather_extrema", "knn_gather_extrema") == {
+        "knn": 1, "gather_extrema": 1, "knn_gather_extrema": 1}
 
 
 @pytest.mark.cuda
@@ -95,14 +96,14 @@ def test_fps_bit_equal_to_plain(cuda, N, npoint):
     (N = 100, 300 and 1000 fill no block evenly; npoint > N keeps going), in
     shared memory beyond (1500, 2048); half of every cloud sits on one point."""
     xyz = _cloud(cuda, 5, N, N)
-    fp.reset_launches()
+    launch.reset_launches()
     got = fp.fps(xyz, npoint)
     assert torch.equal(got, fp.fps_plain(xyz, npoint))
-    assert (got[:, 0] == 0).all() and fp.LAUNCHES == {"fps": 1}
+    assert (got[:, 0] == 0).all() and launch.launches("fps") == {"fps": 1}
     route = fp.fps_occupancy(N)
     assert route["route"] == ("registers" if N <= fp.REGISTER_ROUTE_MAX_N
                               else "shared memory")
-    assert route["blocks_per_sm"] >= 1 and fp.LAUNCHES == {"fps": 1}
+    assert route["blocks_per_sm"] >= 1 and launch.launches("fps") == {"fps": 1}
 
 
 @pytest.mark.cuda
@@ -132,12 +133,12 @@ def test_knn_with_density_matches_plain(cuda, k, collapse):
     xyz = _cloud(cuda, 3, 256, k, collapse)
     query = xyz[:, :77].contiguous()
     inv = torch.rand(3, 256, device=cuda) + 0.5
-    gr.reset_launches()
+    launch.reset_launches()
     idx, den, dmax = gr.knn_with_density(query, xyz, inv, k)
     pidx, pden, pdmax = gr.knn_with_density_plain(query, xyz, inv, k)
     assert torch.equal(idx, pidx)
     assert torch.equal(den, pden) and torch.equal(dmax, pdmax)
-    assert gr.LAUNCHES["knn_with_density"] == 1
+    assert launch.LAUNCHES["knn_with_density"] == 1
 
 
 def _affine(g, cin, cout, cuda):
@@ -178,11 +179,11 @@ def test_ball_mlp3_matches_plain(cuda, widths, k, radius, with_uf):
     uf = None
     if with_uf:
         uf = torch.randn(2, 512, 5, generator=g).to(cuda) @ a1f
-    gr.reset_launches()
+    launch.reset_launches()
     got = gr.fused_ball_mlp3(new_xyz, xyz, uf, *w, radius=radius, k=k)
     want = gr.fused_ball_mlp3_plain(new_xyz, xyz, uf, *w, radius=radius, k=k)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
-    assert gr.LAUNCHES["fused_ball_mlp3"] == 1
+    assert launch.LAUNCHES["fused_ball_mlp3"] == 1
 
 
 @pytest.mark.cuda
@@ -324,10 +325,9 @@ def test_knn_select_classes_on_both_routes(cuda, cls, kind, k):
     """Kernels 1 and 6 at the kNN selection classes packed and bf16
     (IQTPU_KNN_SELECT), on both routes forced at ragged sizes: bit-equal to
     each other; on exact clouds (grid, coincident) equal to the plain
-    versions at the class; each launch counted in ROUTE_LAUNCHES."""
+    versions at the class; each launch counted under its route."""
     X, T = nb.KNN_ROUTES["xyz"], nb.KNN_ROUTES["tiled"]
-    nb.reset_launches()
-    gr.reset_launches()
+    launch.reset_launches()
     for N, S in ROUTE_SIZES:
         if k > N:
             continue
@@ -343,11 +343,10 @@ def test_knn_select_classes_on_both_routes(cuda, cls, kind, k):
         if kind != "masked":
             assert torch.equal(routes[0][0],
                                gr.knn_with_density_plain(q, db, inv, k, cls)[0])
-    assert gr.ROUTE_LAUNCHES[f"knn_with_density:{cls}"] > 0
-    assert nb.ROUTE_LAUNCHES[f"knn:{cls}"] == (
-        gr.ROUTE_LAUNCHES[f"knn_with_density:{cls}"] if k <= nb.MAX_K else 0)
-    nb.reset_launches()
-    gr.reset_launches()
+    assert launch.LAUNCHES[f"knn_with_density:{cls}"] > 0
+    assert launch.LAUNCHES[f"knn:{cls}"] == (
+        launch.LAUNCHES[f"knn_with_density:{cls}"] if k <= nb.MAX_K else 0)
+    launch.reset_launches()
 
 
 @pytest.mark.cuda
@@ -385,7 +384,7 @@ def test_knn_gather_extrema_select_classes(cuda, C):
                 os.environ.pop(key, None)
             else:
                 os.environ[key] = value
-    nb.reset_launches()
+    launch.reset_launches()
 
 
 @pytest.mark.cuda
@@ -408,8 +407,7 @@ def test_knn_truncation_example(cuda):
                 == want
     assert nb._lib().iq_knn(q.data_ptr(), db.data_ptr(), 0, 0, 1, 8, 8, 3, 4, 0,
                             3, 0) != 0         # an unknown class is refused
-    nb.reset_launches()
-    gr.reset_launches()
+    launch.reset_launches()
 
 
 @pytest.mark.cuda
@@ -437,10 +435,10 @@ def test_knn_routes_refuse_what_they_do_not_take(cuda):
     assert gr.knn_density_route(512, 3, 64)["route"] == "xyz"
     assert nb.knn_route(1024, 64, 20)["route"] == "tiled"
     assert nb.knn_route(20000, 3, 20)["route"] == "tiled"
-    nb.reset_launches()
+    launch.reset_launches()
     assert torch.equal(nb._knn(big[:, :16].contiguous(), big, 8, 0),
                        nb._knn(big[:, :16].contiguous(), big, 8, nb.KNN_ROUTES["tiled"]))
-    assert nb.LAUNCHES["knn"] == 2
+    assert launch.LAUNCHES["knn"] == 2
 
 
 def _pconv_args(cuda, widths, k, D, B, S, N=256):
@@ -482,13 +480,13 @@ def test_pointconv_sa_matches_plain(cuda, widths, k, D, B, S):
     the plain version (layers 2-3 and the contraction run as three TF32
     products on the tensor cores, f32 sums in another order)."""
     args = _pconv_args(cuda, widths, k, D, B, S)
-    gr.reset_launches()
+    launch.reset_launches()
     got = gr.fused_pointconv_sa(*args, k=k)
     want = gr.fused_pointconv_sa_plain(*args, k=k)
     assert got.shape == (B, S, widths[2] * 16)
     assert float((want != 0).float().mean()) > 0.05
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
-    assert gr.LAUNCHES["fused_pointconv_sa"] == 1
+    assert launch.LAUNCHES["fused_pointconv_sa"] == 1
 
 
 @pytest.mark.cuda
@@ -501,10 +499,10 @@ def test_pointconv_sa_refuses_what_the_kernel_does_not_take(cuda, widths, k):
     if k > 64:
         args[0] = torch.zeros(2, 16, k, dtype=torch.int32, device=cuda)
         args[1] = torch.ones(2, 16, k, device=cuda)
-    gr.reset_launches()
+    launch.reset_launches()
     with pytest.raises(ValueError):
         gr.fused_pointconv_sa(*args, k=k)
-    assert gr.LAUNCHES["fused_pointconv_sa"] == 0
+    assert launch.LAUNCHES["fused_pointconv_sa"] == 0
 
 
 @pytest.mark.cuda
@@ -517,12 +515,12 @@ def test_gather_rows_bit_equal_to_plain(cuda, F, offset):
     values = buf[offset:].view(3, 1024, F)
     idx = torch.randint(0, 1024, (3, 256, 20), generator=g,
                         dtype=torch.int32).to(cuda)
-    gr.reset_launches()
+    launch.reset_launches()
     got = gr.gather_rows(values, idx)
     torch.cuda.synchronize()
     assert got.shape == (3, 256, 20, F)
     assert torch.equal(got, gr.gather_rows_plain(values, idx))
-    assert gr.LAUNCHES["gather_rows"] == 1
+    assert launch.LAUNCHES["gather_rows"] == 1
 
 
 def _gather_case(cuda, B, S, N, F, k, seed, offset=0):
@@ -571,13 +569,13 @@ def test_gather_extrema_ragged_slices(cuda, S, N, F, k, offset):
     multiple of 4 and values off a 16-byte boundary (scalar copies and
     stores), k = 1 and 32, and a cloud near the slice route's limit."""
     idx, a = _gather_case(cuda, 2, S, N, F, k, seed=S + k, offset=offset)
-    nb.reset_launches()
+    launch.reset_launches()
     got = nb.gather_extrema(idx, a)
     torch.cuda.synchronize()
     assert nb.gather_extrema_route(N, F, k)["route"] == "slice"
     for g_, w_ in zip(got, nb.gather_extrema_plain(idx, a)):
         assert torch.equal(g_, w_)
-    assert nb.LAUNCHES["gather_extrema"] == 1
+    assert launch.LAUNCHES["gather_extrema"] == 1
 
 
 # ------------------------------------------------------------- training
@@ -590,13 +588,13 @@ TRAIN_LOGIT_TOL, TRAIN_GRAD_REL, TRAIN_GRAD_FLOOR, TRAIN_STAT_TOL = (
     1e-3, 2e-2, 1e-3, 1e-3)
 
 
-def _grid_clouds(n, seed):
+def _grid_clouds(n, seed, clouds=TRAIN_BATCH):
     """Synthetic clouds on a 1/64 grid (every xyz distance exact in f32,
     so FPS, kNN and ball queries select alike on both sides) and labels."""
     from interpret_quality_tpu_torch.data.datasets import SyntheticClouds
-    ds = SyntheticClouds(TRAIN_BATCH, n, 10, seed=seed)
-    x = torch.stack([torch.from_numpy(ds[i][0]) for i in range(TRAIN_BATCH)])
-    labels = torch.tensor([ds[i][1] for i in range(TRAIN_BATCH)])
+    ds = SyntheticClouds(clouds, n, 10, seed=seed)
+    x = torch.stack([torch.from_numpy(ds[i][0]) for i in range(clouds)])
+    labels = torch.tensor([ds[i][1] for i in range(clouds)])
     return torch.round(x * 64) / 64, labels
 
 
@@ -651,6 +649,20 @@ def _feature_knn_margin(x):
     return worst
 
 
+def _train_batch(name, seed=0):
+    """The grid batch of a train step on the card: 256 points from
+    ``seed``; DGCNN's 64 points from the first seed on whose feature-space
+    selections keep 1e-6 apart."""
+    if name != "dgcnn":
+        return _grid_clouds(256, seed)
+    x, labels = _grid_clouds(64, seed)
+    while _feature_knn_margin(x) < 1e-6:
+        seed += 1
+        assert seed < 64
+        x, labels = _grid_clouds(64, seed)
+    return x, labels
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["dgcnn", "gcnn", "pointnet2", "pointconv",
                                   "pointnet"])
@@ -659,12 +671,7 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, name):
     card against the plain versions on the CPU, from the same weights:
     loss, logits, every gradient and every running statistic.  DGCNN runs
     on the first seed whose feature-space selections keep 1e-6 apart."""
-    n, seed = (64, 0) if name == "dgcnn" else (256, 0)
-    x, labels = _grid_clouds(n, seed)
-    while name == "dgcnn" and _feature_knn_margin(x) < 1e-6:
-        seed += 1
-        assert seed < 64
-        x, labels = _grid_clouds(n, seed)
+    x, labels = _train_batch(name)
     out = {}
     for dev in ("cpu", cuda):
         model = _train_model(name, dev)
@@ -696,11 +703,10 @@ def test_train_steps_launch_the_index_kernels(cuda, name, kernel, per_step):
     BatchNorm (2, 3, 5, 6, 7, 9)."""
     x, labels = _grid_clouds(256, 1)
     model = _train_model(name, cuda)
-    for counter in (nb, fp, gr, dn):
-        counter.reset_launches()
+    launch.reset_launches()
     _train_step(name, model, x.to(cuda), labels.to(cuda))
     torch.cuda.synchronize()
-    launched = {**nb.LAUNCHES, **fp.LAUNCHES, **gr.LAUNCHES, **dn.LAUNCHES}
+    launched = launch.launches()
     assert launched.pop(kernel) == per_step
     assert all(v == 0 for v in launched.values()), launched
 
@@ -721,11 +727,10 @@ def test_adv_step_launches_knn_only_and_keeps_the_model_in_training(cuda):
     before = model.linear3.weight.detach().clone()
     step = adv.make_adv_step(model, optimizer, scheduler,
                              torch.Generator(device=cuda).manual_seed(0))
-    for counter in (nb, fp, gr, dn):
-        counter.reset_launches()
+    launch.reset_launches()
     loss, p1, p2 = step(x.to(cuda), labels.to(cuda), TRAIN_BATCH)
     torch.cuda.synchronize()
-    launched = {**nb.LAUNCHES, **fp.LAUNCHES, **gr.LAUNCHES, **dn.LAUNCHES}
+    launched = launch.launches()
     assert launched.pop("knn") == adv.ROT_ADV_ITER + adv.TRANS_ADV_ITER + 2
     assert all(v == 0 for v in launched.values()), launched
     assert model.training and torch.isfinite(loss)
@@ -736,20 +741,30 @@ def test_adv_step_launches_knn_only_and_keeps_the_model_in_training(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["dgcnn", "pointnet2"])
 def test_virtual_split_is_the_per_part_forward(cuda, name):
-    """A split over [cuda, cuda]: bit-equal to the unsplit forward of the
-    same parts, plan path included."""
+    """A split over [cuda, cuda] of 1024-point clouds half collapsed, as
+    masked coalitions are: bit-equal to the unsplit forward of the same
+    parts, plan path included (the split adds no arithmetic), and within
+    rtol/atol 1e-3 of the unsplit forward of the whole batch (a dense
+    layer may sum in another order for another row count, and a
+    feature-space kNN near tie may then flip)."""
     from interpret_quality_tpu_torch.models import build_model, make_forward_fn
     from interpret_quality_tpu_torch.pipeline import split_forward
     torch.manual_seed(0)
     forward = make_forward_fn(build_model(name, 10, 20).to(cuda))
     split, device = split_forward(forward, cuda, [cuda, cuda])
-    x = _cloud(cuda, 7, 256, 3)
+    x = _cloud(cuda, 7, 1024, 3)
     parts = torch.tensor_split(x, 2)
     with torch.inference_mode():
-        assert torch.equal(split(x), torch.cat([forward(p) for p in parts]))
+        got = split(x)
+        assert torch.equal(got, torch.cat([forward(p) for p in parts]))
+        torch.testing.assert_close(got, forward(x), rtol=1e-3, atol=1e-3)
         plan = split.plan_fn(x)
-        assert torch.equal(split.apply_plan_fn(x, plan), torch.cat(
+        got = split.apply_plan_fn(x, plan)
+        assert torch.equal(got, torch.cat(
             [forward.apply_plan_fn(p, q) for p, q in zip(parts, plan)]))
+        torch.testing.assert_close(
+            got, forward.apply_plan_fn(x, forward.plan_fn(x)), rtol=1e-3,
+            atol=1e-3)
 
 
 @pytest.mark.cuda
@@ -789,40 +804,93 @@ def test_split_over_the_visible_cards(cuda, name):
 
 
 @pytest.mark.cuda
-def test_cli_shapley_init_over_the_visible_cards(cuda, tmp_path, monkeypatch):
-    """cli.shapley_value --mesh_devices <all visible cards> (needs two or
-    more) against the run on one card: GCNN's estimates within f32
-    rounding (the parts' dense layers sum in another order for another row
-    count), efficient, and every card busy."""
+@pytest.mark.parametrize("name,cards", [("dgcnn", 1), ("gcnn", None)])
+def test_cli_shapley_init_over_the_visible_cards(cuda, tmp_path, monkeypatch,
+                                                 name, cards):
+    """cli.shapley_value --mesh_devices <cards> against the run without it.
+    Over every visible card (``None``; needs two or more): GCNN's estimates
+    within f32 rounding (the parts' dense layers sum in another order for
+    another row count), efficient, and every card busy.  Over one card at
+    50 orders: DGCNN's artifacts bit-equal, the run traced with
+    --trace_dir into one trace, which names the launch spans of DGCNN's
+    kernels."""
+    import json
+
     import numpy as np
 
     from interpret_quality_tpu_torch.cli import shapley_value
     from interpret_quality_tpu_torch.config import ExperimentConfig
-    n = torch.cuda.device_count()
-    if n < 2:
+    n = cards or torch.cuda.device_count()
+    if n < 2 and cards is None:
         pytest.skip("needs two or more cards")
     monkeypatch.chdir(tmp_path)
+    traces = tmp_path / "traces"
     out = []
     for flag in ("0", str(n)):
         root = str(tmp_path / f"ck{flag}")
-        shapley_value.main(["--model", "gcnn", "--synthetic",
+        traced = ["--trace_dir", str(traces)] if cards and flag != "0" else []
+        shapley_value.main(["--model", name, "--synthetic",
                             "--allow_random_init", "--checkpoints_root", root,
                             "--num_points", "1024", "--num_samples_save",
-                            "20", "--samples", "0", "--mesh_devices", flag])
-        folder = ExperimentConfig(model="gcnn", checkpoints_root=root
+                            "50" if cards else "20", "--samples", "0",
+                            "--mesh_devices", flag, *traced])
+        folder = ExperimentConfig(model=name, checkpoints_root=root
                                   ).exp_folder + "synthetic_00/"
-        out.append([np.load(folder + f) for f in ("region_sv_all.npy",
-                                                   "norm_factor.npy")])
+        out.append([np.load(folder + f) for f in (
+            "region_sv_all.npy", "norm_factor.npy", "region_id.npy")])
         if flag != "0":
             assert all(torch.cuda.max_memory_allocated(i) > 0
                        for i in range(n))
-    (sv1, nf1), (svn, nfn) = out
+    (sv1, nf1, id1), (svn, nfn, idn) = out
+    np.testing.assert_array_equal(idn, id1)
+    if cards:
+        np.testing.assert_array_equal(svn, sv1)
+        np.testing.assert_array_equal(nfn, nf1)
+        assert [p.name for p in traces.iterdir()] == [
+            "shapley_init_synthetic_00.pt.trace.json"]
+        with open(traces / "shapley_init_synthetic_00.pt.trace.json") as f:
+            spans = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        assert {"iq_knn_gather_extrema", "iq_dense_pool"} <= spans
+        return
     np.testing.assert_allclose(svn, sv1, rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(nfn, nf1, rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(svn.sum(1), nfn, rtol=1e-3, atol=1e-4)
 
 
 # -------------------------------------------------------- data parallel
+# Data-parallel steps on the card against trainer.make_train_step on the
+# whole batch, from the same weights, dropout on with the same generator
+# seed.  Every family at full width (DP_BATCH synthetic clouds of DP_POINTS
+# points, the last row a padded tail), DGCNN also on a tie-free grid batch,
+# and PointConv in float64 as well, where only f64 rounding parts the two
+# steps.  DP_TOL: the loss (rtol/atol), gradients
+# (of their norm, plus a floor of the largest norm), running statistics (of
+# their largest value).  In f32 the two steps sum in other orders only
+# where the all-reduce does: the train step's gradient bounds, the loss and
+# statistics five and ten times tighter than a card against the CPU.
+DP_BATCH, DP_POINTS = 32, 1024
+# DGCNN's tie-free batch: 8 grid clouds of 128 points from the first seed
+# on whose feature-space selections keep 1e-6 apart (the train step's
+# search, run once: it takes about a minute)
+DP_TIE_FREE_CLOUDS, DP_TIE_FREE_POINTS, DP_TIE_FREE_SEED = 8, 128, 20
+DP_CASES = [("dgcnn", torch.float32, "tie_free"),
+            ("dgcnn", torch.float32, "full"), ("gcnn", torch.float32, "full"),
+            ("pointnet2", torch.float32, "full"),
+            ("pointconv", torch.float32, "full"),
+            ("pointconv", torch.float64, "full"),
+            ("pointnet", torch.float32, "full")]
+DP_TOL = {torch.float32: (2e-4, TRAIN_GRAD_REL, TRAIN_GRAD_FLOOR, 1e-4),
+          torch.float64: (1e-8, 1e-8, 1e-11, 1e-8)}
+# on the full-width batch a DGCNN row may select other neighbours in the
+# two steps only at a near tie: selected distances this far apart,
+# relative to the cloud's largest |x|^2 (the f32 rounding of
+# |q|^2 - 2 q.d + |d|^2)
+DP_TIE_REL = 1e-5
+# the kernels a train step launches: kNN's graphs and FPS's centres
+STEP_KERNELS = {"dgcnn": {"knn"}, "gcnn": {"knn"}, "pointnet2": {"fps"},
+                "pointconv": {"fps"}, "pointnet": set()}
+
+
 def _first_step_gap(name, g_a, g_b, p0):
     """How far the optimiser's first step puts the parameters of two
     gradients apart: SGD's lr * g, Adam's lr * g / (|g| + eps), g with the
@@ -836,59 +904,174 @@ def _first_step_gap(name, g_a, g_b, p0):
     return lr * (ga - gb).abs()
 
 
-def _dp_against_the_single_step(name, backend, devices):
-    """One data-parallel step over ``devices`` (dropout on, a padded tail)
-    against trainer.make_train_step on the whole batch on the first card,
-    from the same weights and generator seed: loss, every gradient and
-    running statistic within the TRAIN_* bounds, every parameter within
-    1e-6 of its buffer's largest value of where the first step puts the
-    two gradients apart."""
-    import torch_dp_ranks
+def _dp_case(name, dtype=torch.float32, batch="full"):
+    """The arguments of ``dryrun.dp_step_rank`` for one data-parallel step:
+    the full-width batch or DGCNN's tie-free batch, the last row a padded
+    tail, seeded weights, dropout on, the generator seeded with 1."""
+    from interpret_quality_tpu_torch.data.datasets import SyntheticClouds
     from interpret_quality_tpu_torch.models import build_model
-    from interpret_quality_tpu_torch.parallel import spawn
-    from interpret_quality_tpu_torch.train.trainer import (make_optimizer,
-                                                           make_train_step)
-    world = len(devices)
-    xs, ls = zip(*(_grid_clouds(256, seed) for seed in range(world)))
-    x, labels = torch.cat(xs), torch.cat(ls)
-    valid = x.shape[0] - 1
+    if batch == "tie_free":
+        x, labels = _grid_clouds(DP_TIE_FREE_POINTS, DP_TIE_FREE_SEED,
+                                 DP_TIE_FREE_CLOUDS)
+        assert _feature_knn_margin(x) >= 1e-6
+    else:
+        ds = SyntheticClouds(DP_BATCH, DP_POINTS, 10, seed=11)
+        x = torch.stack([torch.from_numpy(ds[i][0]) for i in range(DP_BATCH)])
+        labels = torch.tensor([ds[i][1] for i in range(DP_BATCH)])
     torch.manual_seed(0)
     state = build_model(name, 10, 20).state_dict()
-    got = spawn(torch_dp_ranks.dp_step_cases, world, backend, devices,
-                args=([(name, state, x.numpy(), labels.numpy(), valid, 1,
-                        True, torch.float32)],))[0][0]
+    return (name, state, x.numpy(), labels.numpy(), x.shape[0] - 1, 1, True,
+            dtype)
+
+
+def _dp_ranks(backend, devices, cases):
+    """Every rank's result of each case, from one set of ranks over
+    ``devices``: per case, the list over ranks."""
+    import torch_dp_ranks
+    from interpret_quality_tpu_torch.parallel import spawn
+    ranks = spawn(torch_dp_ranks.dp_step_cases_on_card, len(devices),
+                  backend, devices, args=(cases,))
+    return [[r[i] for r in ranks] for i in range(len(cases))]
+
+
+def _check_selections(calls, ranks, tie_free):
+    """The data-parallel step's kNN selections (DGCNN's, every rank's)
+    against the single step's ``calls``, call by call.  Where the ranks'
+    features are the single step's bit for bit, the index lists are equal.
+    Elsewhere, on the tie-free batch, every row selects the single step's
+    neighbour set, and a list orders two neighbours otherwise only where
+    rounding can swap them: each position's distances in the two lists
+    (exact, at the single step's features, over the cloud's largest |x|^2)
+    at most twice the largest change of any distance between the two
+    steps' features.  On the full-width batch, where the single step took
+    the data-parallel step's selections, a row may select otherwise only at
+    a near tie: its selected distances, sorted, within DP_TIE_REL."""
+    assert len(ranks[0]["knn"]) == len(calls)
+    for call, (query, idx) in enumerate(calls):
+        have_q = torch.cat([r["knn"][call][0] for r in ranks])
+        have = torch.cat([r["knn"][call][1] for r in ranks])
+        if torch.equal(have_q, query):
+            assert torch.equal(have, idx), call
+            continue
+        q, g = query.double(), have_q.double()
+        scale = (q ** 2).sum(-1).amax(-1)                          # (B,)
+        b, r = (have != idx).any(-1).nonzero(as_tuple=True)
+        if not b.numel():
+            continue
+
+        def listed(ix):      # each differing row's distances in list order
+            nbrs = q[b[:, None], ix[b, r].long()]
+            return ((nbrs - q[b, r][:, None]) ** 2).sum(-1) / scale[b, None]
+        if tie_free:
+            assert torch.equal(have.sort(-1).values,
+                               idx.sort(-1).values), call
+            moved = ((((g[:, :, None] - g[:, None]) ** 2).sum(-1)
+                      - ((q[:, :, None] - q[:, None]) ** 2).sum(-1)
+                      ).abs() / scale[:, None, None]).max()
+            swap = (listed(have) - listed(idx)).abs().max()
+            assert float(swap) <= 2 * float(moved), (call, float(swap))
+        else:
+            gap = (listed(have).sort(-1).values
+                   - listed(idx).sort(-1).values).abs().max()
+            assert float(gap) <= DP_TIE_REL, (call, float(gap))
+
+
+def _dp_against_the_single_step(case, ranks, device, tie_free=False):
+    """One data-parallel step (every rank's result of ``case``) against
+    trainer.make_train_step on the whole batch on ``device``, from the same
+    weights and generator seed: loss, every gradient and running statistic
+    within DP_TOL, every parameter within 1e-6 of its buffer's largest
+    value of where the first step puts the two gradients apart; every
+    dropout value kept or dropped as in the single step; the kernels of a
+    train step launched and no other; DGCNN's kNN selections as
+    ``_check_selections`` holds them.  On DGCNN's full-width batch the
+    single step takes the data-parallel step's selections: a near tie that
+    rounding flips moves a gradient by more than rounding does, so the
+    gradients are held to rounding on the same neighbours, and the flips
+    to near ties."""
+    import torch_dp_ranks
+    from interpret_quality_tpu_torch.models import build_model
+    from interpret_quality_tpu_torch.train.trainer import (make_optimizer,
+                                                           make_train_step)
+    name, state, x, labels, valid, seed, _, dtype = case
     model = build_model(name, 10, 20)
     model.load_state_dict(state)
-    model = model.to(devices[0]).train()
+    model = model.to(device, dtype).train()
     optimizer, scheduler, _ = make_optimizer(model, name, 1, 1)
     step = make_train_step(model, optimizer, scheduler, name,
-                           torch.Generator(device=devices[0]).manual_seed(1))
-    loss, _ = step(x.to(devices[0]), labels.to(devices[0]), valid)
+                           torch.Generator(device=device).manual_seed(seed))
+    replay = None
+    if name == "dgcnn" and not tie_free:
+        replay = [torch.cat([r["knn"][call][1] for r in ranks])
+                  for call in range(len(ranks[0]["knn"]))]
+    with torch_dp_ranks.recorded_step(dtype is torch.float64, replay) as rec:
+        loss, _ = step(torch.from_numpy(x).to(device, dtype),
+                       torch.from_numpy(labels).to(device), valid)
     grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
-    tol = dict(rtol=TRAIN_LOGIT_TOL, atol=TRAIN_LOGIT_TOL)
-    assert torch.allclose(got["loss"], loss.cpu(), **tol)
-    floor = TRAIN_GRAD_FLOOR * max(float(g.norm()) for g in grads.values())
+    logit_tol, grad_rel, grad_floor, stat_tol = DP_TOL[dtype]
+    got = ranks[0]
+    assert torch.allclose(got["loss"], loss.cpu(), rtol=logit_tol,
+                          atol=logit_tol)
+    floor = grad_floor * max(float(g.norm()) for g in grads.values())
     for p, want in grads.items():
         assert float((got["grads"][p] - want).norm()) <= \
-            TRAIN_GRAD_REL * float(want.norm()) + floor, p
+            grad_rel * float(want.norm()) + floor, p
     for key, want in model.state_dict().items():
         want, have = want.cpu(), got["state"][key]
         if key.endswith(("running_mean", "running_var")):
             assert float((have - want).abs().max()) <= \
-                TRAIN_STAT_TOL * float(want.abs().max()), key
+                stat_tol * float(want.abs().max()), key
         elif key in grads:
             gap = _first_step_gap(name, got["grads"][key], grads[key],
                                   state[key])
             assert float(((have - want).abs() - gap).max()) <= \
                 1e-6 * float(want.abs().max()), key
+    assert len(got["masks"]) == len(rec["masks"]) > 0
+    for call, (kept, nonzero) in enumerate(rec["masks"]):
+        have = torch.cat([r["masks"][call][0] for r in ranks])
+        both = torch.cat([r["masks"][call][1] for r in ranks]) & nonzero
+        assert not bool(((have != kept) & both).any()), call
+    assert {k for r in ranks for k, v in r["launches"].items() if v} == \
+        STEP_KERNELS[name]
+    _check_selections(rec["knn"], ranks, tie_free)
+
+
+@pytest.fixture(scope="module")
+def dp_on_one_card():
+    """Every DP_CASES step over one NCCL rank and over two gloo ranks on
+    the first card (NCCL takes one rank a card), each set of ranks spawned
+    once: by (backend, case), the case's arguments and every rank's
+    result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    card, out = torch.device("cuda", 0), {}
+    cases = [_dp_case(*key) for key in DP_CASES]
+    for backend, world in (("nccl", 1), ("gloo", 2)):
+        for key, case, ranks in zip(DP_CASES, cases,
+                                    _dp_ranks(backend, [card] * world, cases)):
+            out[backend, key] = case, ranks
+    return out
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["gcnn", "pointnet2"])
-def test_dp_step_world_one_nccl_matches_the_single_step(cuda, name):
+@pytest.mark.parametrize("name,dtype,batch", DP_CASES)
+def test_dp_step_world_one_nccl_matches_the_single_step(cuda, dp_on_one_card,
+                                                        name, dtype, batch):
     """The data-parallel step on one rank through NCCL: the kNN or FPS
     kernel gives its graph or centres, and it is the single step."""
-    _dp_against_the_single_step(name, "nccl", [torch.device("cuda", 0)])
+    _dp_against_the_single_step(*dp_on_one_card["nccl", (name, dtype, batch)],
+                                cuda, batch == "tie_free")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype,batch", DP_CASES)
+def test_dp_step_two_gloo_ranks_on_one_card_match_the_single_step(
+        cuda, dp_on_one_card, name, dtype, batch):
+    """The data-parallel step on two ranks through gloo, both on the one
+    card: BatchNorm's statistics, the dropout masks and the loss over the
+    whole batch, the single step."""
+    _dp_against_the_single_step(*dp_on_one_card["gloo", (name, dtype, batch)],
+                                cuda, batch == "tie_free")
 
 
 @pytest.mark.cuda
@@ -900,7 +1083,10 @@ def test_dp_step_over_the_visible_cards(cuda, name):
     from interpret_quality_tpu_torch.parallel import make_mesh
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two or more cards")
-    _dp_against_the_single_step(name, "nccl", make_mesh())
+    devices = make_mesh()
+    case = _dp_case(name)
+    _dp_against_the_single_step(case, _dp_ranks("nccl", devices, [case])[0],
+                                devices[0])
 
 
 @pytest.mark.cuda
@@ -946,14 +1132,14 @@ def test_gather_extrema_bf16_routes_bit_equal_to_plain(cuda, N, F, offset):
     """Kernel 2's bf16 route (a bf16 copy of the values) bit-equal to the
     plain version on the rounded values, on the route the shape takes and
     each route forced; F not a multiple of 8 takes the scalar copy; the
-    launch counts in ROUTE_LAUNCHES too."""
+    launch counts under its route too."""
     idx, a = _gather_case(cuda, 2, min(N, 512), N, F, 20, seed=N + F,
                           offset=offset)
     want = nb.gather_extrema_plain(idx, a, parts=1)
     assert not torch.equal(want[0], nb.gather_extrema_plain(idx, a)[0])
     info = nb.gather_extrema_route(N, F, 20, parts=1)
     assert info["route"] == ("rows" if N == 16384 else "slice")
-    nb.reset_launches()
+    launch.reset_launches()
     routes = ("shape", "rows") if N == 16384 else ("shape", "slice", "rows")
     for route in routes:
         got = nb._gather_extrema(idx, a, nb.ROUTES[route], parts=1)
@@ -962,7 +1148,7 @@ def test_gather_extrema_bf16_routes_bit_equal_to_plain(cuda, N, F, offset):
             assert torch.equal(g_, w_), route
     for g_, w_ in zip(nb.gather_extrema(idx, a, parts=1), want):
         assert torch.equal(g_, w_)
-    assert nb.ROUTE_LAUNCHES["gather_extrema:bf16"] == len(routes) + 1
+    assert launch.LAUNCHES["gather_extrema:bf16"] == len(routes) + 1
 
 
 @pytest.mark.cuda
@@ -973,11 +1159,11 @@ def test_gather_rows_bf16_bit_equal_to_plain(cuda, F, offset):
     values = buf[offset:].view(3, 1024, F)
     idx = torch.randint(0, 1024, (3, 256, 20), generator=g,
                         dtype=torch.int32).to(cuda)
-    gr.reset_launches()
+    launch.reset_launches()
     got = gr.gather_rows(values, idx, parts=1)
     torch.cuda.synchronize()
     assert torch.equal(got, gr.gather_rows_plain(values, idx, parts=1))
-    assert gr.ROUTE_LAUNCHES["gather_rows:bf16"] == 1
+    assert launch.LAUNCHES["gather_rows:bf16"] == 1
 
 
 @pytest.mark.cuda
@@ -997,7 +1183,7 @@ def test_ball_mlp3_one_pass_matches_emulation(cuda, widths, k, radius,
     w, a1f = _ball_weights(g, widths, with_uf, cuda)
     uf = (3.0 * torch.randn(2, 512, 5, generator=g).to(cuda) @ a1f
           if with_uf else None)
-    gr.reset_launches()
+    launch.reset_launches()
     with _matmul_precision(precision):
         got = gr.fused_ball_mlp3(new_xyz, xyz, uf, *w, radius=radius, k=k,
                                  parts=parts)
@@ -1008,7 +1194,7 @@ def test_ball_mlp3_one_pass_matches_emulation(cuda, widths, k, radius,
                                              radius=radius, k=k, parts=parts))
     exact = gr.fused_ball_mlp3(new_xyz, xyz, uf, *w, radius=radius, k=k)
     assert not torch.allclose(got, exact, rtol=1e-5, atol=1e-6)
-    assert gr.ROUTE_LAUNCHES[f"fused_ball_mlp3:{precision}"] == 1
+    assert launch.LAUNCHES[f"fused_ball_mlp3:{precision}"] == 1
 
 
 @pytest.mark.cuda
@@ -1022,13 +1208,13 @@ def test_pointconv_sa_one_pass_matches_emulation(cuda, widths, k, D, B, S,
     the contraction three products)."""
     from interpret_quality_tpu_torch.ops.cuda import emulation as em
     args = _pconv_args(cuda, widths, k, D, B, S)
-    gr.reset_launches()
+    launch.reset_launches()
     with _matmul_precision(precision):
         got = gr.fused_pointconv_sa(*args, k=k, parts=parts)
     _one_pass_close(got, em.pointconv_sa_at(*args, k=k, precision=precision,
                                             parts=parts),
                     gr.fused_pointconv_sa_plain(*args, k=k, parts=parts))
-    assert gr.ROUTE_LAUNCHES[f"fused_pointconv_sa:{precision}"] == 1
+    assert launch.LAUNCHES[f"fused_pointconv_sa:{precision}"] == 1
 
 
 @pytest.mark.cuda
@@ -1168,14 +1354,16 @@ def test_dense_pool_matches_plain(cuda, B, N, kind):
     """Kernel 9 at highest against its plain version (DENSE_TOL), one
     launch; deterministic (a second launch bit-equal)."""
     feats, conv, bn = _head_args(cuda, B, N, kind, seed=B + N)
-    dn.reset_launches()
+    launch.reset_launches()
     got = dn.dense_pool(feats, conv, bn)
     torch.cuda.synchronize()
-    assert got.shape == (B, 2048) and dn.LAUNCHES == {"dense_pool": 1}
+    assert got.shape == (B, 2048)
+    assert launch.launches("dense_pool") == {"dense_pool": 1}
     assert torch.allclose(got, dn.dense_pool_plain(feats, conv, bn),
                           **DENSE_TOL)
     assert torch.equal(dn.dense_pool(feats, conv, bn), got)
-    assert dn.ROUTE_LAUNCHES == {"dense_pool:high": 0, "dense_pool:default": 0}
+    assert launch.launches("dense_pool:high", "dense_pool:default") == {
+        "dense_pool:high": 0, "dense_pool:default": 0}
 
 
 @pytest.mark.cuda
@@ -1186,10 +1374,10 @@ def test_dense_pool_one_pass_matches_emulation(cuda, B, N, kind, precision):
     ``emulation.matmul_at``'s product (exact products of the rounded
     operands): the gap within a tenth of the rounding's RMS and half its
     largest value (``_one_pass_close``: only the order of the f32 sums
-    differs); coarser than highest's; counted in ROUTE_LAUNCHES."""
+    differs); coarser than highest's; counted under its route."""
     from interpret_quality_tpu_torch.ops.cuda import emulation as em
     feats, conv, bn = _head_args(cuda, B, N, kind, seed=B + N)
-    dn.reset_launches()
+    launch.reset_launches()
     with _matmul_precision(precision):
         got = dn.dense_pool(feats, conv, bn)
     exact = dn.dense_pool_plain(feats, conv, bn)
@@ -1197,7 +1385,7 @@ def test_dense_pool_one_pass_matches_emulation(cuda, B, N, kind, precision):
         feats, conv, bn, product=lambda x, w: em.matmul_at(x, w, precision)),
         exact)
     assert not torch.allclose(got, exact, rtol=1e-5, atol=1e-6)
-    assert dn.ROUTE_LAUNCHES[f"dense_pool:{precision}"] == 1
+    assert launch.LAUNCHES[f"dense_pool:{precision}"] == 1
 
 
 @pytest.mark.cuda
@@ -1231,12 +1419,12 @@ def test_fused_forward_launches_dense_pool_once(cuda, name):
     x, _ = _grid_clouds(256, 3)
     torch.manual_seed(0)
     model = build_model(name, 10, 20).to(cuda).eval()
-    dn.reset_launches()
+    launch.reset_launches()
     with torch.inference_mode():
         model(x.to(cuda))
-        assert dn.LAUNCHES == {"dense_pool": 1}
+        assert launch.launches("dense_pool") == {"dense_pool": 1}
         model(x.to(cuda), fused=False)
-    assert dn.LAUNCHES == {"dense_pool": 1}
+    assert launch.launches("dense_pool") == {"dense_pool": 1}
 
 
 @pytest.mark.cuda

@@ -11,6 +11,7 @@ import torch
 
 from interpret_quality_tpu.ops.pallas import gather_rows as pallas_gather_rows
 from interpret_quality_tpu_torch.ops.cuda import groups as gr
+from interpret_quality_tpu_torch.ops.cuda import launch
 
 
 def test_plain_gather_matches_pallas_interpret():
@@ -31,11 +32,11 @@ def test_gather_is_an_exact_copy(F):
     rng = np.random.RandomState(F)
     a = rng.randn(2, 50, F).astype(np.float32)
     idx = rng.randint(0, 50, (2, 33, 4)).astype(np.int32)
-    gr.reset_launches()
+    launch.reset_launches()
     got = gr.gather_rows(torch.from_numpy(a), torch.from_numpy(idx)).numpy()
     want = a[np.arange(2)[:, None, None], idx]              # (2, 33, 4, F)
     np.testing.assert_array_equal(got, want)
-    assert gr.LAUNCHES["gather_rows"] == 0
+    assert launch.LAUNCHES["gather_rows"] == 0
 
 
 def test_off_cpu_tensors_never_reach_the_plain_version():

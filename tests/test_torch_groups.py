@@ -28,6 +28,7 @@ from interpret_quality_tpu_torch.attrib.coalitions import (
 from interpret_quality_tpu_torch.ops.cuda import emulation as em
 from interpret_quality_tpu_torch.ops.cuda import fps as fp
 from interpret_quality_tpu_torch.ops.cuda import groups as gr
+from interpret_quality_tpu_torch.ops.cuda import launch
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 
@@ -176,14 +177,39 @@ def test_pointconv_sa_kernel_arithmetic_close_to_pallas(kind):
 def test_cpu_tensors_take_the_plain_versions_without_counting():
     xyz = torch.from_numpy(_clouds("masked"))
     inv = torch.rand(2, 128) + 0.5
-    fp.reset_launches()
-    gr.reset_launches()
+    launch.reset_launches()
     assert torch.equal(fp.fps(xyz, 16), fp.fps_plain(xyz, 16))
     for g, w in zip(gr.knn_with_density(xyz, xyz, inv, 8),
                     gr.knn_with_density_plain(xyz, xyz, inv, 8)):
         assert torch.equal(g, w)
-    assert fp.LAUNCHES == {"fps": 0}
-    assert set(gr.LAUNCHES.values()) == {0}
+    assert launch.launches("fps") == {"fps": 0}
+    assert set(launch.LAUNCHES.values()) == {0}
+
+
+def test_launch_registry_counts_kernels_and_routes():
+    """A launch counts under its kernel, and at a setting other than the
+    exact one under "<kernel>:<setting>" as well; a reading since an
+    earlier one subtracts it, a kernel or setting the registry does not
+    know raises and counts nothing, and a reset zeroes every count."""
+    launch.reset_launches()
+    before = launch.launches()
+    launch.count_launch("fused_ball_mlp3", "highest")
+    launch.count_launch("fused_ball_mlp3", "default")
+    launch.count_launch("knn", "exact")
+    launch.count_launch("gather_rows")
+    assert launch.launches(since=before) == dict(
+        dict.fromkeys(launch.KERNELS, 0), fused_ball_mlp3=2, knn=1,
+        gather_rows=1)
+    assert {k: v for k, v in launch.LAUNCHES.items()
+            if v and k not in launch.KERNELS} == {"fused_ball_mlp3:default": 1}
+    counted = dict(launch.LAUNCHES)
+    for kernel, setting in (("fps", "bf16"), ("knn", "high"),
+                            ("ball_query", None)):
+        with pytest.raises(KeyError):
+            launch.count_launch(kernel, setting)
+    assert launch.LAUNCHES == counted
+    launch.reset_launches()
+    assert set(launch.LAUNCHES.values()) == {0}
 
 
 @pytest.mark.parametrize("call", ["fps", "knn_with_density",

@@ -21,9 +21,10 @@
 // iq_knn has two routes, chosen by shape alone (knn_route): the xyz route (knn_xyz.cuh: the cloud staged once
 // a block, a warp per query, a selection on (distance, index)) for clouds of
 // C <= 4 channels whose database fits shared memory, else the tiled
-// select_knn (knn_select.cuh), which iq_knn_gather_extrema calls too.  Both
-// compute a distance by the same instructions and return a stable sort's
-// order, so all three agree bit for bit on the indices.  The two gathers are
+// select_knn (knn_select.cuh), which iq_knn_gather_extrema calls too, on the
+// distinct database rows only (each with its copies).  All three compute a
+// distance by the same instructions and return a stable sort's order, so
+// they agree bit for bit on the indices.  The two gathers are
 // separate functions: iq_knn_gather_extrema gathers with
 // gather_extrema_rows; iq_gather_extrema stages a column slice
 // of the cloud in shared memory (gather_extrema_slice_kernel) and takes
@@ -188,13 +189,21 @@ inline KnnXyz knn_xyz_launcher(int N, int k, int sel) {
 }
 
 // Replaces knn_gather_extrema -> _extrema_kernel and its nq twin
-// (ops/pallas/neighbors.py:187-368).  Bound: operations; the selected
-// indices stay in select_knn's shared lists, where the gather reads them.
+// (ops/pallas/neighbors.py:187-368).  Bound: operations, in the tile loop
+// of select_knn; the selected indices stay in its shared lists, where the
+// gather reads them.  Queries and database are the same cloud, so both are
+// its distinct rows: a block of distinct query rows streams the cloud's d
+// distinct rows (the compacted scan, kCompact), d^2 distances a cloud where
+// the full scan took d N, and each distinct row enters a list with its
+// copies (copy_lists_kernel), so the lists, and the outputs, are those of the
+// full scan bit for bit.  tie_rows: the tie path's count, or nullptr.
 // kKeyed: the packed or bf16 class.
 template <bool kKeyed>
 __global__ void __launch_bounds__(kSelThreads, 2)
 knn_gather_extrema_kernel(const float* __restrict__ xs, const float* __restrict__ a,
                           const int* __restrict__ rows, const int* __restrict__ nrows,
+                          const int* __restrict__ starts, const int* __restrict__ copies,
+                          unsigned long long* __restrict__ tie_rows,
                           float* __restrict__ omax, float* __restrict__ omin,
                           int N, int C, int F, int k, int nqb, SelectKey key) {
   extern __shared__ __align__(16) float smem[];
@@ -204,7 +213,8 @@ knn_gather_extrema_kernel(const float* __restrict__ xs, const float* __restrict_
   if (q0 >= ns) return;
   const int* qrows = rows + (size_t)b * N;
   const float* xb = xs + (size_t)b * N * C;
-  const int* li = select_knn<1, kKeyed>(xb, qrows, xb, ns, N, C, k, q0, key, smem);
+  const CopyLists cl{qrows, starts + (size_t)b * (N + 1), copies + (size_t)b * N, ns, tie_rows};
+  const int* li = select_knn<1, kKeyed, true>(xb, qrows, xb, ns, N, C, k, q0, key, smem, cl);
   const size_t off = (size_t)b * N * F;
   gather_extrema_rows(li, 32, k, a + off, F, qrows, q0, min(kQueries, ns - q0), omax + off,
                       omin + off);
@@ -401,8 +411,11 @@ int gather_extrema_route_info(int N, int F, int k, int* info) {
 
 extern "C" {
 
-// scratch (iq_knn, iq_knn_gather_extrema): B * (2 * S + 1) ints of device
-// memory, S the number of query rows of a cloud (see DistinctRows).
+// scratch (iq_knn): B * (2 * S + 1) ints of device memory, S the number of
+// query rows of a cloud; (iq_knn_gather_extrema) B * (4 * N + 2), the copy
+// lists included (see DistinctRows).  tie_rows (iq_knn_gather_extrema): a
+// counter to which the kernel adds the candidates that took the tie path
+// of the compacted scan (knn_select.cuh), or nullptr.
 // route (iq_knn): 0 chooses by shape (knn_route), kXyzRoute or kTiledRoute
 // forces one (a forced xyz route on a shape it does not take is refused).
 // sel (iq_knn, iq_knn_gather_extrema): the selection class, kSelExact,
@@ -454,22 +467,24 @@ int iq_knn_route(int N, int C, int k, int* info) {
 }
 
 int iq_knn_gather_extrema(const float* xs, const float* a, float* omax, float* omin,
-                          int* scratch, int B, int N, int C, int F, int k, int sel,
-                          void* stream) {
+                          int* scratch, unsigned long long* tie_rows, int B, int N, int C,
+                          int F, int k, int sel, void* stream) {
   if (B <= 0 || N <= 0) return cudaSuccess;
   if (k < 1 || k > kMaxK || k > N || C < 1 || F < 1 || !select_key_valid(sel))
     return cudaErrorInvalidValue;
-  const size_t smem = select_smem_floats(1) * sizeof(float);
+  const size_t smem = (select_smem_floats(1) + kCompactWords) * sizeof(float);
   const int nqb = (N + kQueries - 1) / kQueries;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const DistinctRows d(scratch, B, N);
   cudaError_t err;
   if ((err = distinct_rows(xs, d, B, N, C, s)) != cudaSuccess) return err;
+  if ((err = copy_lists(d, B, N, s)) != cudaSuccess) return err;
   const auto kernel =
       sel == kSelExact ? knn_gather_extrema_kernel<false> : knn_gather_extrema_kernel<true>;
   if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
   kernel<<<(unsigned)B * nqb, kSelThreads, smem, s>>>(
-      xs, a, d.rows, d.nrows, omax, omin, N, C, F, k, nqb, select_key_for(sel, N));
+      xs, a, d.rows, d.nrows, d.starts, d.copies, tie_rows, omax, omin, N, C, F, k, nqb,
+      select_key_for(sel, N));
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return copy_duplicate_rows(d, omax, omin, B, N, F, s);
 }

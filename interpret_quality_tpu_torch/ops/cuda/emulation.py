@@ -3,7 +3,8 @@ tensor-core products of ``csrc/groups.cu`` at each matmul precision (both
 ``fused_ball_mlp3``'s and ``fused_pointconv_sa``'s layers, the latter's
 WeightNet and contraction), the rounding of gathered values to bf16, the
 distance chain of ``csrc/knn_select.cuh``, the selection of the kNN
-kernels' xyz route (``csrc/knn_xyz.cuh``) and the argmax of
+kernels' xyz route (``csrc/knn_xyz.cuh``), kernel 3's compacted scan
+(``select_knn`` with kCompact, its copy lists included) and the argmax of
 ``csrc/fps.cu``'s register route.
 
 At the ``highest`` matmul precision the kernels that run a matrix product on
@@ -353,3 +354,142 @@ def select_knn_xyz(query: torch.Tensor, db: torch.Tensor, k: int,
     li = torch.where((count > 0)[:, None], mi, li)
     return XyzSelection(li[:, :k].reshape(B, S, k).to(torch.int32),
                         survivors.reshape(B, S), flushes.reshape(B, S))
+
+
+class CopyLists(NamedTuple):
+    """A cloud's distinct rows and their copies, as kernel 3's launch builds
+    them (``csrc/knn_select.cuh`` ``copy_lists_kernel``): distinct row
+    ``rows[p]`` has the copies ``copies[starts[p]:starts[p + 1]]``,
+    ascending, itself first; ``first[n]`` is the lowest row equal to row n."""
+    first: torch.Tensor      # (N,) int64
+    rows: torch.Tensor       # (d,) int64, ascending
+    starts: torch.Tensor     # (d + 1,) int64
+    copies: torch.Tensor     # (N,) int64
+
+
+def copy_lists(x: torch.Tensor) -> CopyLists:
+    """The copy lists of one cloud x (N, C) float32, rows equal bit for bit
+    forming a class, as the distinct-row pass compares them."""
+    N = x.shape[0]
+    n = torch.arange(N)
+    _, inverse = torch.unique(x.contiguous().view(torch.int32), dim=0,
+                              return_inverse=True)
+    lowest = torch.full((int(inverse.max()) + 1,), N, dtype=torch.int64)
+    first = lowest.scatter_reduce(0, inverse, n, "amin")[inverse]
+    rows = torch.nonzero(first == n).flatten()
+    place = torch.empty(N, dtype=torch.int64)
+    place[rows] = torch.arange(len(rows))
+    cls = place[first]
+    starts = torch.zeros(len(rows) + 1, dtype=torch.int64)
+    starts[1:] = torch.bincount(cls, minlength=len(rows)).cumsum(0)
+    return CopyLists(first, rows, starts, torch.argsort(cls * N + n))
+
+
+class CompactSelection(NamedTuple):
+    """What ``select_knn_compact`` returns: the indices, and per cloud the
+    candidates (over its distinct query rows) whose copies took the tie path
+    and the distances the scan computed."""
+    idx: torch.Tensor          # (B, N, k) int32
+    tie_rows: torch.Tensor     # (B,) int64
+    distances: torch.Tensor    # (B,) int64
+
+
+def select_knn_compact(xs: torch.Tensor, k: int,
+                       cls: str = "exact") -> CompactSelection:
+    """Kernel 3's compacted scan (``select_knn`` with kCompact) step for
+    step, on ``square_distance_chain``'s distances at the selection class
+    ``cls``: each distinct query row of a cloud against its distinct rows,
+    in ascending order.  The first tile of 64 goes into the empty list of
+    32 by rank (its rows of one copy and a finite distance, ``_key_sort``),
+    then its rows of several copies; after it, 32 rows at a time against
+    the (distance, index) of entry k - 1 as it stood before the 32, the 32's
+    rows of one copy first (behind every key below it), then those of
+    several.  A row of several copies goes in as one block where no entry
+    has its distance, else (the tie path) one copy at a time.  A copy takes
+    its original's list.
+
+    xs (B, N, C) float32, k <= min(32, N) -> ``CompactSelection``.
+    """
+    B, N, _ = xs.shape
+    if not 1 <= k <= min(LANES, N):
+        raise ValueError(f"k={k} must lie in [1, min({LANES}, N={N})]")
+    inf = float("inf")
+    dist = square_distance_chain(xs, xs, cls) + 0.0
+    lanes = torch.arange(LANES)
+    idx = torch.empty(B, N, k, dtype=torch.int32)
+    ties = torch.zeros(B, dtype=torch.int64)
+    work = torch.zeros(B, dtype=torch.int64)
+
+    def shift(v, by):              # entry e takes entry e - by (e >= by)
+        return v.gather(1, (lanes - by).clamp(min=0).expand_as(v))
+
+    def below(ld, li, d, j):       # keys (distance, index) below (d, j)
+        return ((ld < d[:, None]) | ((ld == d[:, None]) & (li < j))).sum(1)
+
+    def put(ld, li, go, pos, d, j):
+        at = lanes[None] == pos[:, None]
+        after = (lanes[None] > pos[:, None]) & go[:, None]
+        at = at & go[:, None]
+        ld = torch.where(at, d[:, None], torch.where(after, shift(ld, 1), ld))
+        li = torch.where(at, j, torch.where(after, shift(li, 1), li))
+        return ld, li
+
+    def put_copies(ld, li, go, dp, cps):
+        """A row of several copies cps at distances dp, where go; returns
+        the lists and the rows that took the tie path."""
+        tie = go & (ld == dp[:, None]).any(1)
+        block = go & ~tie
+        pos = (ld < dp[:, None]).sum(1)
+        r = lanes[None] - pos[:, None]
+        inside = block[:, None] & (r >= 0) & (r < len(cps))
+        after = block[:, None] & (r >= len(cps))
+        ld = torch.where(inside, dp[:, None],
+                         torch.where(after, shift(ld, len(cps)), ld))
+        li = torch.where(inside, cps[r.clamp(0, len(cps) - 1)],
+                         torch.where(after, shift(li, len(cps)), li))
+        for ji in cps.tolist():
+            ld, li = put(ld, li, tie, below(ld, li, dp, ji), dp, ji)
+        return ld, li, int(tie.sum())
+
+    for b in range(B):
+        cl = copy_lists(xs[b])
+        q = cl.rows
+        d = dist[b][q][:, q]                               # (Q, ND)
+        Q, ND = d.shape
+        work[b] = Q * ND
+        counts = cl.starts[1:] - cl.starts[:-1]
+
+        def copies_of(p):
+            return cl.copies[int(cl.starts[p]):int(cl.starts[p + 1])][:LANES]
+        # the first tile: rows of one copy by rank, then those of several
+        n0 = min(2 * LANES, ND)
+        one = (counts[:n0] == 1)[None] & (d[:, :n0] < inf)
+        sd, si = _key_sort(torch.where(one, d[:, :n0], inf),
+                           q[:n0].expand(Q, -1))
+        ld = torch.full((Q, LANES), inf)
+        li = torch.zeros((Q, LANES), dtype=torch.int64)
+        m = min(LANES, n0)
+        ld[:, :m] = sd[:, :m]
+        li[:, :m] = torch.where(sd[:, :m] < inf, si[:, :m], 0)
+        for p in range(n0):
+            if counts[p] > 1:
+                ld, li, n = put_copies(ld, li, d[:, p] < inf, d[:, p], copies_of(p))
+                ties[b] += n
+        for g in range(n0, ND, LANES):
+            wd, wi = ld[:, k - 1].clone(), li[:, k - 1].clone()
+            group = range(g, min(g + LANES, ND))
+            for p in ([p for p in group if counts[p] == 1]
+                      + [p for p in group if counts[p] > 1]):
+                dp, j = d[:, p], int(q[p])
+                go = (dp < wd) | ((dp == wd) & (j < wi))
+                if not bool(go.any()):
+                    continue
+                if counts[p] == 1:
+                    ld, li = put(ld, li, go, below(ld, li, dp, j), dp, j)
+                else:
+                    ld, li, n = put_copies(ld, li, go, dp, copies_of(p))
+                    ties[b] += n
+        lists = torch.empty(N, k, dtype=torch.int32)
+        lists[q] = li[:, :k].to(torch.int32)
+        idx[b] = lists[cl.first]
+    return CompactSelection(idx, ties, work)

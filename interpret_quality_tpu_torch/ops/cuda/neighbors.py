@@ -29,10 +29,15 @@ database fits shared memory, else the tiled selection that
 (``gather_extrema_route``): a column slice of the cloud staged in shared
 memory, and for clouds whose slice does not fit, rows read through the
 cache.  ``_knn`` and ``_gather_extrema`` force a route, for the checks.
-While a profiler records, ``knn_gather_extrema`` adds the distances its
-kernel computes, distinct query rows times database rows, to the work
-counter ``K3_DISTANCES`` (``utils.profiling``), from the count of distinct
-rows the launch leaves in its scratch.
+``knn_gather_extrema``'s kernel scans a cloud's distinct database rows
+only: each stands for its copies, which enter the neighbour lists where a
+stable sort over all N rows puts them, so the indices are those of the full
+scan.  While a profiler records, it adds the distances its kernel computes,
+distinct query rows times distinct database rows, to the work counter
+``K3_DISTANCES`` (``utils.profiling``), from the count of distinct rows the
+launch leaves in its scratch, and the kernel adds the rows whose copies took
+the tie path (another row's entry at their distance: the copies go in one
+at a time) to ``K3_TIE_ROWS``.
 
 The gathers follow ``--gather_precision`` where their TPU counterparts
 split the values into bf16 planes (``parts``): at ``bf16`` (parts 1) each
@@ -72,10 +77,12 @@ from . import build
 from .launch import (SELECT_CODES, I, P, check, count_launch, on_cpu,
                      raise_on, stream)
 
-# the work counter of knn_gather_extrema (``utils.profiling.accumulator``): per
-# launch, the sum over clouds of the distinct query rows times the N
-# database rows the kernel scans for each
+# the work counters of knn_gather_extrema (``utils.profiling.accumulator``):
+# per launch, the sum over clouds of the distinct query rows times the
+# distinct database rows the kernel scans for each; and the candidates, over
+# every query, whose copies took the tie path
 K3_DISTANCES = "k3_distances"
+K3_TIE_ROWS = "k3_tie_rows"
 
 MAX_K = 32      # largest neighbourhood the kernels take (kMaxK in the source)
 MAX_QUERY_ROWS = 12288    # most query rows of a cloud (kMaxDistinctRows)
@@ -88,19 +95,23 @@ def _lib() -> ctypes.CDLL:
     lib.iq_knn_route.argtypes = [I, I, I, P]
     lib.iq_gather_extrema.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P]
     lib.iq_gather_extrema_route.argtypes = [I, I, I, I, P]
-    lib.iq_knn_gather_extrema.argtypes = [P, P, P, P, P, I, I, I, I, I, I,
-                                          P]
+    lib.iq_knn_gather_extrema.argtypes = [P, P, P, P, P, P, I, I, I, I, I,
+                                          I, P]
     for fn in (lib.iq_knn, lib.iq_knn_route, lib.iq_gather_extrema,
                lib.iq_gather_extrema_route, lib.iq_knn_gather_extrema):
         fn.restype = ctypes.c_int
     return lib
 
 
-def _distinct_rows_scratch(B: int, S: int, device) -> torch.Tensor:
+def _distinct_rows_scratch(B: int, S: int, device,
+                           copy_lists: bool = False) -> torch.Tensor:
     """Scratch of the selection kernels: each query row's first copy, the
     list of distinct rows and their count per cloud (the kernels select for
-    the distinct query rows only; copies take their original's result)."""
-    return torch.empty(B * (2 * S + 1), dtype=torch.int32, device=device)
+    the distinct query rows only; copies take their original's result);
+    with ``copy_lists`` (kernel 3), each distinct row's copies besides."""
+    n = B * (2 * S + 1)
+    return torch.empty(2 * n if copy_lists else n, dtype=torch.int32,
+                       device=device)
 
 
 def _check_k(k: int, n: int):
@@ -322,15 +333,21 @@ def _knn_gather_extrema(xs: torch.Tensor, a: torch.Tensor, k: int,
     a = gather_values(a, parts)
     amax = torch.empty((B, N, F), dtype=torch.float32, device=a.device)
     amin = torch.empty_like(amax)
-    scratch = _distinct_rows_scratch(B, N, xs.device)
+    scratch = _distinct_rows_scratch(B, N, xs.device, copy_lists=True)
+    # the tie path's count, passed to the kernel only while a profiler
+    # records
+    tracing = profiling.tracing()
+    ties = (profiling.accumulator(K3_TIE_ROWS, xs.device).data_ptr()
+            if tracing else None)
     with record_function("iq_knn_gather_extrema"):
         rc = _lib().iq_knn_gather_extrema(xs.data_ptr(), a.data_ptr(),
                                           amax.data_ptr(), amin.data_ptr(),
-                                          scratch.data_ptr(), B, N, C, F, k,
-                                          SELECT_CODES[cls], stream(xs))
+                                          scratch.data_ptr(), ties, B, N, C, F,
+                                          k, SELECT_CODES[cls], stream(xs))
     raise_on(rc, "iq_knn_gather_extrema")
-    if profiling.tracing():     # after the span: the kernel's time is its own
+    if tracing:                 # after the span: the kernel's time is its own
+        nrows = scratch[2 * B * N:2 * B * N + B].long()
         profiling.accumulator(K3_DISTANCES, xs.device).add_(
-            scratch[2 * B * N:].sum(), alpha=N)
+            (nrows * nrows).sum())
     count_launch("knn_gather_extrema", cls)
     return amax, amin

@@ -265,10 +265,19 @@ def test_selection_on_ragged_clouds(cuda, C, k):
 def _route_clouds(kind, B, N, C, seed):
     """Clouds for the route tests: random, on a 1/64 grid (every distance
     exact), all points on one, or masked (a random 30% kept, the rest on the
-    cloud's mean, as a coalition puts its absent regions on the centre)."""
+    cloud's mean, as a coalition puts its absent regions on the centre).
+    grid_masked: every coordinate in {-1, -0.5, 0, 0.5, 1} (distances exact,
+    rows of other classes often tied), 70% of the points from N // 3 on
+    sitting on the grid point of row N // 3, so the collapsed row arrives
+    after rows it ties with."""
     g = torch.Generator().manual_seed(seed)
     if kind == "grid":
         return torch.randint(-64, 64, (B, N, C), generator=g).float() / 64
+    if kind == "grid_masked":
+        x = torch.randint(-2, 3, (B, N, C), generator=g).float() / 2
+        absent = ((torch.rand(B, N, generator=g) < 0.7)
+                  & (torch.arange(N) >= N // 3))
+        return torch.where(absent[..., None], x[:, N // 3:N // 3 + 1], x)
     if kind == "coincident":
         return torch.randn(B, 1, C, generator=g).expand(B, N, C).contiguous()
     x = torch.randn(B, N, C, generator=g)
@@ -385,6 +394,73 @@ def test_knn_gather_extrema_select_classes(cuda, C):
             else:
                 os.environ[key] = value
     launch.reset_launches()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [7, 20, 32])
+@pytest.mark.parametrize("C", [3, 64, 128])
+@pytest.mark.parametrize("kind", ["masked", "coincident"])
+def test_knn_gather_extrema_compacted_scan(cuda, kind, C, k):
+    """Kernel 3 scans a cloud's distinct rows only, each entering the lists
+    with its copies: at N = 300 and 1024 its extrema are bit-equal to the
+    plain gather of kernel 1's indices (a scan of every row), the collapsed
+    centre's copies past entry k - 1 falling off (it has more than 32)."""
+    g = torch.Generator().manual_seed(k)
+    for N in (300, 1024):
+        xs = _route_clouds(kind, 3, N, C, seed=N + C + k).to(cuda)
+        a = torch.randn(3, N, 24, generator=g).to(cuda)
+        idx = nb.knn(xs, xs, k)
+        for got, want in zip(nb.knn_gather_extrema(xs, a, k),
+                             nb.gather_extrema_plain(idx, a)):
+            assert torch.equal(got, want), N
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [7, 20, 32])
+@pytest.mark.parametrize("C", [3, 64, 128])
+def test_knn_gather_extrema_ties_across_rows(cuda, C, k):
+    """grid_masked clouds (every distance exact, rows of other classes tied
+    with the collapsed one) at N = 300 and 1024: kernel 3's extrema
+    bit-equal to the gather of knn_plain's indices and of kernel 1's;
+    traced, k3_tie_rows and k3_distances equal the emulated scan's
+    (emulation.select_knn_compact), the tie path taken; on random clouds,
+    which have no copies, never."""
+    from interpret_quality_tpu_torch.ops.cuda import emulation as em
+    g = torch.Generator().manual_seed(C + k)
+    ties = 0
+    for N in (300, 1024):
+        xs = _route_clouds("grid_masked", 2, N, C, seed=N + C + k)
+        a = torch.randn(2, N, 24, generator=g).to(cuda)
+        emu = em.select_knn_compact(xs, k)
+        xs = xs.to(cuda)
+        got, counts = _traced(lambda: nb.knn_gather_extrema(xs, a, k))
+        for idx in (nb.knn_plain(xs, xs, k), nb.knn(xs, xs, k)):
+            for g_, w in zip(got, nb.gather_extrema_plain(idx, a)):
+                assert torch.equal(g_, w), N
+        assert counts == {nb.K3_DISTANCES: int(emu.distances.sum()),
+                          nb.K3_TIE_ROWS: int(emu.tie_rows.sum())}, N
+        ties += counts[nb.K3_TIE_ROWS]
+    assert ties > 0
+    xs = _route_clouds("random", 2, 300, C, seed=k).to(cuda)
+    a = torch.randn(2, 300, 24, generator=g).to(cuda)
+    _, counts = _traced(lambda: nb.knn_gather_extrema(xs, a, k))
+    assert counts[nb.K3_TIE_ROWS] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("select", ["two_pass", "packed", "bf16"])
+@pytest.mark.parametrize("kind", ["masked", "grid_masked"])
+def test_knn_gather_extrema_compacted_scan_at_each_class(cuda, kind, select):
+    """At each selection class, on clouds with a collapsed centre (1024
+    points, C = 64, k = 20): kernel 3 bit-equal to the gather of kernel 1's
+    indices at the class, whose selection scans every row."""
+    g = torch.Generator().manual_seed(9)
+    xs = _route_clouds(kind, 4, 1024, 64, seed=9).to(cuda)
+    a = torch.randn(4, 1024, 32, generator=g).to(cuda)
+    idx = nb.knn(xs, xs, 20, select=select)
+    for got, want in zip(nb.knn_gather_extrema(xs, a, 20, select=select),
+                         nb.gather_extrema(idx, a)):
+        assert torch.equal(got, want), select
 
 
 @pytest.mark.cuda
@@ -1299,8 +1375,9 @@ def test_ball_mlp3_counts_its_rows(cuda, with_uf, widths):
 @pytest.mark.cuda
 @pytest.mark.parametrize("C", [3, 64])
 def test_knn_gather_extrema_counts_its_distances(cuda, C):
-    """Traced, kernel 3 counts its distinct query rows times the N rows it
-    scans for each; its output is bit-equal to the untraced launch's."""
+    """Traced, kernel 3 counts its distinct query rows times the distinct
+    database rows it scans for each, and no tie path on these random rows;
+    its output is bit-equal to the untraced launch's."""
     g = torch.Generator().manual_seed(5)
     xs = torch.randn(3, 700, C, generator=g)
     xs[0, 350:] = xs[0, :1]
@@ -1311,7 +1388,8 @@ def test_knn_gather_extrema_counts_its_distances(cuda, C):
     assert torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])
     distinct = sum(torch.unique(x, dim=0).shape[0] for x in xs.cpu())
     assert distinct == 350 + 100 + 700
-    assert counts == {nb.K3_DISTANCES: distinct * 700}
+    assert counts == {nb.K3_DISTANCES: 350 ** 2 + 100 ** 2 + 700 ** 2,
+                      nb.K3_TIE_ROWS: 0}
 
 
 # ------------------------------------------------- kernel 9: DGCNN's head

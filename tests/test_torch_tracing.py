@@ -317,20 +317,29 @@ def test_kernel5_gets_a_counter_only_while_tracing(monkeypatch):
 
 def test_kernel3_counts_distinct_rows_times_database_rows(monkeypatch):
     """From the distinct rows a launch leaves in its scratch (the stand-in
-    writes 5 and 9 for the two clouds): (5 + 9) x N, while tracing only."""
+    writes 5 and 9 for the two clouds): 5^2 + 9^2, each cloud's distinct
+    query rows times the distinct database rows the kernel scans for each;
+    and the tie path's counter, None untraced, traced the accumulator into
+    which the kernel adds (here the stand-in adds 3).  Nothing untraced."""
     B, n = 2, 16
 
     def write_counts(args):
         (ctypes.c_int * (B * (2 * n + 1))).from_address(args[4])[2 * B * n:] = [5, 9]
+        if args[5] is not None:
+            (ctypes.c_longlong * 1).from_address(args[5])[0] += 3
     launcher = stand_in(monkeypatch, nb, "iq_knn_gather_extrema", write_counts)
     xs = torch.rand(B, n, 3)
     a = torch.rand(B, n, 8)
     nb.knn_gather_extrema(xs, a, 4)
+    assert launcher.calls[-1][5] is None
     assert profiling.counters() == {}
     with profile(activities=[ProfilerActivity.CPU]):
         nb.knn_gather_extrema(xs, a, 4)
     assert len(launcher.calls) == 2
-    assert profiling.counters() == {nb.K3_DISTANCES: (5 + 9) * n}
+    assert launcher.calls[-1][5] == profiling.accumulator(nb.K3_TIE_ROWS,
+                                                          "cpu").data_ptr()
+    assert profiling.counters() == {nb.K3_DISTANCES: 5 * 5 + 9 * 9,
+                                    nb.K3_TIE_ROWS: 3}
 
 
 def test_density_runs_in_its_span():

@@ -8,7 +8,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
   1. build   one nvcc per kernel source of interpret_quality_tpu_torch
              (csrc/*.cu), all started together, into build/torch_kernels/.
-  2. kernels each of the nine kernels at the main path's shapes — the
+  2. kernels each of the ten kernels at the main path's shapes — the
              masked-coalition batch of one synthetic cloud (50 orders x 33
              rows = 1650 clouds of 1024 points) and each layer or level a
              forward gives it, with a seeded model's own weights — against
@@ -42,8 +42,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
                  version of the same function;
                dense_pool (DGCNN's head on its four edge outputs): rtol
                  1e-4 / atol 1e-5, a second launch bit-equal, beside
-                 today's cuBLAS product and PyTorch tail (library_ms).
-  3. model   full-width logits of all five families through the kernels vs
+                 today's cuBLAS product and PyTorch tail (library_ms);
+               knn_group_max (PCT's two sample-and-group levels, on the
+                 seeded model's own inputs: the plan's kNN indices, the
+                 hoisted rows u and the centres' share c): rtol 1e-4 /
+                 atol 1e-5 of its plain version a chunk of clouds at a time
+                 (the plain version writes a (B, S, 32, C) tensor), a
+                 second launch bit-equal.
+  3. model   full-width logits of all six families through the kernels vs
              the same modules on the plain versions (PointNet, which has no
              kernel: card vs CPU), every BatchNorm randomised, on one
              order's batch (33 clouds).
@@ -51,15 +57,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
              interaction engine with a short last chunk, and one smoothness
              epoch of all regions.
   5. main    the CLIs a user runs (MAIN_PATH_CUTS lists the cuts of depth):
-             save_fps; Shapley init for DGCNN, GCNN, PointNet++, PointConv
-             and PointNet; trans enumeration on the plan path for DGCNN,
-             PointNet++ and PointConv; gen_pair -> interaction_logits ->
+             save_fps; Shapley init for DGCNN, GCNN, PointNet++, PointConv,
+             PointNet and PCT; trans enumeration on the plan path for DGCNN,
+             PointNet++, PointConv and PCT; gen_pair -> interaction_logits ->
              cal_interactions for DGCNN and PointNet++; smoothness_enum
              (linearity, both objectives) for DGCNN; then the results
              stage, cli.result (sensitivity, correlation, smoothness) for
-             DGCNN, PointNet++ and PointConv on the tree they wrote.  Every
-             kernel on the path must launch there (OFF_PATH names the one
-             no path reaches), every artifact must be finite and of its
+             DGCNN, PointNet++, PointConv and PCT on the tree they
+             wrote.  Every kernel on the path must launch there (OFF_PATH
+             names the one no path reaches), every artifact must be finite and of its
              shape, every family's per-order estimates must sum to
              v(N) - v(empty), every pair's v(whole cloud) - v(all-centre
              cloud) must equal the norm factor, the smoothness run must
@@ -209,12 +215,13 @@ FPS_NPOINTS = (512, 128)          # the two SA levels of PointNet++/PointConv
 BALL_TOL = 1e-6                   # |d - r^2| of a ball-boundary point (f32 noise)
 BALL_CHUNK = 66                   # clouds per plain fused_ball_mlp3 call
 PCONV_CHUNK = 165                 # clouds per plain fused_pointconv_sa call
+GROUP_CHUNK = 165                 # clouds per plain knn_group_max call
 
 # The main path: (stage, CLI, argv).  Depth is cut (MAIN_PATH_CUTS); every
 # forward is full width: 1024 points, 32 regions, 50 orders = 1650 clouds.
 INIT_ORDERS = {"dgcnn": 100, "gcnn": 50, "pointnet2": 100, "pointconv": 100,
-               "pointnet": 100}
-ENUM_MODELS = ("dgcnn", "pointnet2", "pointconv")
+               "pointnet": 100, "pct": 100}
+ENUM_MODELS = ("dgcnn", "pointnet2", "pointconv", "pct")
 POSES = 4
 INTERACTION_MODELS = ("dgcnn", "pointnet2")
 INTER_PAIRS = 20
@@ -402,7 +409,12 @@ NO_TPU_KERNEL = {"dense_pool": "the JAX package leaves DGCNN's head to XLA, "
                                "which fuses it on the TPU; on the card the "
                                "head was a cuBLAS f32 product and six "
                                "PyTorch passes over a (B, N, 1024) "
-                               "activation, 45% of a DGCNN forward"}
+                               "activation, 45% of a DGCNN forward",
+                 "knn_group_max": "the JAX package has no PCT; in plain "
+                                  "PyTorch each of its sample-and-group "
+                                  "levels writes (B, S, 32, C) gathered rows "
+                                  "and their product, 13.8 GB each a forward "
+                                  "of 1650 clouds"}
 
 
 def emit(obj) -> None:
@@ -1231,6 +1243,90 @@ def check_pointconv_kernels(gr, fp, model, masked):
     return summary(k6), summary(k7), details
 
 
+def check_knn_group(kg, model, masked):
+    """Kernel 10 at both PCT levels on the seeded model's own inputs: the
+    embedding of the masked batch, the plan's FPS and kNN indices (kernels
+    4 and 1), the hoisted rows u and the centres' share c with BatchNorm 1
+    folded, layer 2 with BatchNorm 2 folded, as ``models.pct.LocalOp``
+    builds them.  Within rtol 1e-4 / atol 1e-5 of knn_group_max_plain on
+    every chunk of GROUP_CHUNK clouds (the split drops lo*lo and sums in
+    another order), a second launch bit-equal; the first chunk also against
+    the plain version on the emulated TF32 split.  The bound counts layer 2
+    on every slot (the kernel's work; the benchmark's reader counts the
+    distinct ones).  Returns (numbers, details)."""
+    import torch
+    from interpret_quality_tpu_torch.models.common import (bn_affine,
+                                                           conv_bn_relu)
+    from interpret_quality_tpu_torch.models.pct import _weight
+    from interpret_quality_tpu_torch.models.plans import pct_plan
+    from interpret_quality_tpu_torch.ops.cuda.emulation import (
+        knn_group_max_at)
+    from interpret_quality_tpu_torch.ops.geometry import index_points
+    plan = pct_plan(masked, model.levels)
+    f = conv_bn_relu(masked, model.conv1, model.bn1)
+    f = conv_bn_relu(f, model.conv2, model.bn2)
+    tot = dict(ms=0.0, plain=0.0, nbytes=0.0, mops=0.0, f32=0.0, max_abs=0.0)
+    details = []
+    for level, (fps_idx, idx) in enumerate(plan):
+        op = getattr(model, f"gather_local_{level}")
+        C = f.shape[-1]
+        w1 = _weight(op.conv1)
+        mul1, shift1 = bn_affine(op.bn1)
+        mul2, shift2 = bn_affine(op.bn2)
+        u = torch.matmul(f, w1[:, :C].T * mul1).contiguous()
+        c = (torch.matmul(index_points(f, fps_idx), (w1[:, C:] - w1[:, :C]).T
+                          * mul1) + shift1).contiguous()
+        a2 = (_weight(op.conv2).T * mul2).contiguous()
+        args = (idx, u, c, a2, shift2)
+        out = kg.knn_group_max(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(kg.knn_group_max(*args), out):
+            raise AssertionError("knn_group_max: two launches differ")
+        B, S, K = idx.shape
+        N, C1, C2 = u.shape[1], u.shape[2], a2.shape[1]
+
+        def on(sl):
+            return (idx[sl], u[sl], c[sl], a2, shift2)
+        first = next(chunks(B, GROUP_CHUNK))
+        emu_abs = float((out[first] - knn_group_max_at(
+            *on(first), precision="highest")).abs().max())
+        lvl_abs = 0.0
+        for sl in chunks(B, GROUP_CHUNK):
+            want = kg.knn_group_max_plain(*on(sl))
+            if not torch.allclose(out[sl], want, rtol=1e-4, atol=1e-5):
+                raise AssertionError(
+                    f"knn_group_max level {level + 1}: max abs diff "
+                    f"{float((out[sl] - want).abs().max())} outside rtol "
+                    f"1e-4 / atol 1e-5 of the plain version")
+            lvl_abs = max(lvl_abs, float((out[sl] - want).abs().max()))
+            del want
+        t_k = cuda_ms(lambda: kg.knn_group_max(*args))
+        t_p = cuda_ms(lambda: [kg.knn_group_max_plain(*on(sl))
+                               for sl in chunks(B, GROUP_CHUNK)], reps=1)
+        b_ = 4.0 * (B * S * K + B * N * C1 + B * S * C1 + C1 * C2 + C2
+                    + B * S * C2)
+        m_ = 2.0 * B * S * K * C1 * C2
+        f32_ = B * S * K * (2.0 * C1 + C2)      # layer 1's add and ReLU, the max
+        details.append({"kernel": "knn_group_max", "level": level + 1,
+                        "B": B, "S": S, "N": N, "K": K, "C": [C1, C2],
+                        "ms": t_k, "plain_ms": t_p,
+                        "bound_ms": bound_ms(b_, f32_, m_)[0],
+                        "plain_compared_in_chunks_of": GROUP_CHUNK,
+                        "max_abs_diff": lvl_abs,
+                        "max_abs_diff_to_3xtf32_emulation_first_chunk": emu_abs,
+                        "max_abs_value": float(out.abs().max()),
+                        "repeat_bit_equal": True})
+        for key, v in (("ms", t_k), ("plain", t_p), ("nbytes", b_),
+                       ("mops", m_), ("f32", f32_)):
+            tot[key] += v
+        tot["max_abs"] = max(tot["max_abs"], lvl_abs)
+        f = out
+        del u, c, args
+    bound, by = bound_ms(tot["nbytes"], tot["f32"], tot["mops"])
+    return (dict(max_abs_err=tot["max_abs"], ms=tot["ms"],
+                 plain_ms=tot["plain"], bound_ms=bound, bound_by=by), details)
+
+
 def worst_case_clouds(masked):
     """The selection's two worst cases at the main path's size: every point
     one of 8 exact copies ("duplicate"), and clouds with all regions but one
@@ -1459,6 +1555,10 @@ KERNEL_CALLS = {
     "pointconv": {"fps": "fps.fps_plain",
                   "knn_with_density": "groups.knn_with_density_plain",
                   "fused_pointconv_sa": "groups.fused_pointconv_sa_plain"},
+    "pct": {"knn_group_max": "knn_group.knn_group_max_plain",
+            "dense_pool": "dense.dense_pool_plain"},
+    # PCT's plan when its forward is given none
+    "plans": {"fps": "fps.fps_plain", "knn": "neighbors.knn_plain"},
 }
 
 
@@ -1486,8 +1586,9 @@ def plain_kernels():
 def selection_tie_clouds(name, model, batch):
     """(B,) clouds where the kernels and the plain versions may rightly
     select differently: for PointNet++, a point on a ball's boundary at f32
-    noise (FPS is bit-equal, so the centres agree); for PointConv, another
-    kNN neighbour set (near ties in xyz).  None for the other families."""
+    noise (FPS is bit-equal, so the centres agree); for PointConv and PCT,
+    another kNN neighbour set (near ties in xyz).  None for the other
+    families."""
     import torch
     from interpret_quality_tpu_torch.ops.cuda import fps as fp
     from interpret_quality_tpu_torch.ops.cuda import groups as gr
@@ -1511,19 +1612,29 @@ def selection_tie_clouds(name, model, batch):
             tie |= (got.sort(-1).values != want.sort(-1).values).any(-1).any(-1)
             xyz = new_xyz
         return tie
+    if name == "pct":
+        from interpret_quality_tpu_torch.ops.cuda import neighbors as nb
+        for npoint, nsample in model.levels:
+            new_xyz = index_points(xyz, fp.fps(xyz, npoint))
+            got = nb.knn(new_xyz, xyz, nsample)
+            want = nb.knn_plain(new_xyz, xyz, nsample)
+            tie |= (got.sort(-1).values != want.sort(-1).values).any(-1).any(-1)
+            xyz = new_xyz
+        return tie
     return None
 
 
 def check_models(masked, device):
     """Full-width logits through the kernels vs through the plain versions
     on one order's batch (33 clouds), every BatchNorm randomised, within
-    rtol 1e-3 / atol 1e-3; a PointNet++ or PointConv cloud may leave it
-    only where selection_tie_clouds finds a tie.  PointNet has no kernel:
+    rtol 1e-3 / atol 1e-3; a PointNet++, PointConv or PCT cloud may leave
+    it only where selection_tie_clouds finds a tie.  PointNet has no kernel:
     its logits on the card are held against the CPU's."""
     import torch
     out = {}
     batch = masked[:R + 1]                         # one order: 33 clouds
-    for name in ("dgcnn", "gcnn", "pointnet2", "pointconv", "pointnet"):
+    for name in ("dgcnn", "gcnn", "pointnet2", "pointconv", "pointnet",
+                 "pct"):
         model = seeded_model(name, device)
         with torch.inference_mode():
             if name == "pointnet":
@@ -3710,6 +3821,7 @@ def main() -> int:
     from interpret_quality_tpu_torch.ops.cuda import dense as dn
     from interpret_quality_tpu_torch.ops.cuda import fps as fp
     from interpret_quality_tpu_torch.ops.cuda import groups as gr
+    from interpret_quality_tpu_torch.ops.cuda import knn_group as kg
     from interpret_quality_tpu_torch.ops.cuda import neighbors as nb
     from interpret_quality_tpu_torch.ops.precision import set_matmul_precision
     set_matmul_precision("highest")
@@ -3751,7 +3863,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         split = pointconv_forward_split(pconv, masked)
         del pconv
-    for d in d1 + d2 + d3 + d4 + d5 + d67 + d16 + [d8, d9]:
+        torch.cuda.empty_cache()
+        k10, d10 = check_knn_group(kg, seeded_model("pct", device), masked)
+    for d in d1 + d2 + d3 + d4 + d5 + d67 + d16 + d10 + [d8, d9]:
         emit({"phase": "kernel_shape", **d})
     emit({"phase": "pointconv_forward_split", **split})
     torch.cuda.empty_cache()
@@ -3838,7 +3952,8 @@ def main() -> int:
             ("knn_with_density", "groups", "groups.py:337", k6),
             ("fused_pointconv_sa", "groups", "groups.py:469", k7),
             ("gather_rows", "groups", "groups.py:171", k8),
-            ("dense_pool", "dense", None, k9))
+            ("dense_pool", "dense", None, k9),
+            ("knn_group_max", "knn_group", None, k10))
     emit({"kernels": [
         {"name": kname, "route": "cuda", "source": src(module),
          "replaces": pallas + where if where else None,

@@ -11,13 +11,14 @@ from __future__ import annotations
 import argparse
 
 from ..config import (DEVICES, GATHER_PRECISIONS, MATMUL_PRECISIONS,
-                      MODEL_NAMES, ExperimentConfig, set_gather_value_parts,
-                      set_matmul_precision)
+                      PORT_MODEL_NAMES, ExperimentConfig,
+                      set_gather_value_parts, set_matmul_precision)
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=description)
-    p.add_argument("--model", type=str, default="pointnet", choices=MODEL_NAMES)
+    p.add_argument("--model", type=str, default="pointnet",
+                   choices=PORT_MODEL_NAMES)
     p.add_argument("--dataset", type=str, default="modelnet10",
                    choices=["modelnet10", "shapenet"])
     p.add_argument("--seed", type=int, default=1)

@@ -3,6 +3,7 @@ counterpart of ``interpret_quality_tpu/cli/train.py``).  Writes run.log,
 ``models/model_{epoch}.t7`` every 10 epochs and ``models/model_best.t7``
 under ``<checkpoints_root>/exp_MODEL_<m>_DATA_<d>_POINTNUM_<n>_clean<suffix>``,
 where the shapley and enumeration stages read it by default."""
+from ..config import MODEL_NAMES
 from .common import base_parser, config_from_args
 
 
@@ -24,6 +25,9 @@ def main(argv=None):
                    help="min test acc before model_best is written "
                         "(reference main_cls_seed.py:108); 0 = always save")
     args = p.parse_args(argv)
+    if args.model not in MODEL_NAMES:
+        p.error(f"training {args.model} is not ported: cli.train takes "
+                f"{', '.join(MODEL_NAMES)}")
     cfg = config_from_args(args)
 
     from .. import config as _config

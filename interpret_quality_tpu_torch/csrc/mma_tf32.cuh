@@ -1,6 +1,7 @@
 // The tensor-core product at each matmul precision, shared by the kernels
 // that multiply on the tensor cores (groups.cu: iq_ball_mlp3 and
-// iq_pointconv_sa; dense.cu: iq_dense_pool).
+// iq_pointconv_sa; dense.cu: iq_dense_pool; knn_group.cu:
+// iq_knn_group_max).
 //
 // The instruction is mma.sync.m16n8k8 (row.col, tf32 in, f32 out).  At
 // kPrecHighest f32 accuracy is kept by a three-product split: every f32
@@ -16,7 +17,7 @@
 
 namespace {
 
-// The matmul precisions (ops/cuda/groups.py PRECISION_CODES).
+// The matmul precisions (ops/cuda/launch.py PRECISION_CODES).
 constexpr int kPrecHighest = 0;             // three TF32 products: f32 accuracy
 constexpr int kPrecHigh = 1;                // one product of TF32-rounded operands
 constexpr int kPrecDefault = 2;             // one product of bf16-rounded operands

@@ -17,6 +17,8 @@ What each family's plan carries, and the enum modes that may reuse it:
   * pointconv: per SA level the FPS indices, kNN indices, gathered inverse
     densities and their per-group max, plus the group-all level's inverse
     density.  Density values change under scale: trans/rotate only.
+  * pct: the FPS indices and the kNN indices (in xyz) of both
+    sample-and-group levels; trans/rotate/scale.
   * pointnet: no plan (no graph; its transformers are pose-dependent).
 
 On the card the plans' kNN selections (``knn``, ``knn_with_density``)
@@ -42,6 +44,7 @@ PLAN_MODES = {
     "gcnn_adv": frozenset({"trans", "rotate", "scale"}),
     "pointnet2": frozenset({"trans", "rotate", "scale"}),
     "pointconv": frozenset({"trans", "rotate"}),
+    "pct": frozenset({"trans", "rotate", "scale"}),
 }
 
 
@@ -76,10 +79,25 @@ def pointconv_plan(x: torch.Tensor, levels_spec, bandwidth_all: float):
     return (tuple(levels), 1.0 / compute_density(xyz, bandwidth_all))
 
 
+def pct_plan(x: torch.Tensor, levels):
+    """Per level (FPS indices (B, S) int32, kNN indices (B, S, K) int32):
+    each level's centres by FPS and their K nearest points of the level's
+    cloud in xyz.  ``levels``: (centres, neighbours) per level, (512, 32)
+    and (256, 32) for PCT."""
+    plan, xyz = [], x.contiguous()
+    for npoint, nsample in levels:
+        fps_idx = fps(xyz, npoint)
+        new_xyz = index_points(xyz, fps_idx)
+        plan.append((fps_idx, knn(new_xyz, xyz, nsample)))
+        xyz = new_xyz
+    return tuple(plan)
+
+
 def make_plan_fn(model) -> Optional[Callable]:
     """Plan function ``(B, N, 3) -> plan`` for a model instance; None for a
     family without a plan (PointNet)."""
     from .dgcnn import _DGCNNBase
+    from .pct import PCTCls
     from .pointconv import PointConvDensityClsSsg
     from .pointnet import PointNetCls
     from .pointnet2 import PointNet2ClsMsg
@@ -94,6 +112,9 @@ def make_plan_fn(model) -> Optional[Callable]:
                 for sa in (model.sa1, model.sa2)]
         bandwidth_all = model.sa3.bandwidth
         return lambda x: pointconv_plan(x, spec, bandwidth_all)
+    if isinstance(model, PCTCls):
+        levels = model.levels
+        return lambda x: pct_plan(x, levels)
     if isinstance(model, PointNetCls):
         return None
     raise NotImplementedError(f"no plan rule for {type(model).__name__}")

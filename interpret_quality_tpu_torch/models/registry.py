@@ -8,6 +8,7 @@ import torch
 from torch.profiler import record_function
 
 from .dgcnn import DGCNNCls, GCNNCls
+from .pct import PCTCls
 from .pointconv import PointConvDensityClsSsg
 from .pointnet import PointNetCls
 from .pointnet2 import PointNet2ClsMsg
@@ -19,6 +20,7 @@ MODEL_REGISTRY = {
     "dgcnn": DGCNNCls,
     "gcnn": GCNNCls,
     "gcnn_adv": GCNNCls,
+    "pct": PCTCls,
 }
 EDGE_CONV = ("dgcnn", "gcnn", "gcnn_adv")
 

@@ -1,11 +1,12 @@
 """The arithmetic of the redesigned kernels, emulated in plain PyTorch: the
 tensor-core products of ``csrc/groups.cu`` at each matmul precision (both
 ``fused_ball_mlp3``'s and ``fused_pointconv_sa``'s layers, the latter's
-WeightNet and contraction), the rounding of gathered values to bf16, the
-distance chain of ``csrc/knn_select.cuh``, the selection of the kNN
-kernels' xyz route (``csrc/knn_xyz.cuh``), kernel 3's compacted scan
-(``select_knn`` with kCompact, its copy lists included) and the argmax of
-``csrc/fps.cu``'s register route.
+WeightNet and contraction) and of ``csrc/knn_group.cu`` (kernel 10's
+layer 2), the rounding of gathered values to bf16, the distance chain of
+``csrc/knn_select.cuh``, the selection of the kNN kernels' xyz route
+(``csrc/knn_xyz.cuh``), kernel 3's compacted scan (``select_knn`` with
+kCompact, its copy lists included) and the argmax of ``csrc/fps.cu``'s
+register route.
 
 At the ``highest`` matmul precision the kernels that run a matrix product on
 the tensor cores keep f32 accuracy by splitting every f32 operand into two
@@ -153,6 +154,19 @@ def pointconv_sa_3xtf32(idx, den, dmax, new_xyz, u, xyz, csw, a2, b2, a3, b3,
     the split products."""
     return pointconv_sa_at(idx, den, dmax, new_xyz, u, xyz, csw, a2, b2, a3,
                            b3, dnet, wnet, k=k, precision="highest")
+
+
+def knn_group_max_at(idx, u, c, a2, b2, *, precision: str,
+                     parts: int = 2) -> torch.Tensor:
+    """``knn_group_max`` as its kernel (kernel 10) computes it: layer 1's
+    rows relu(u[idx] + c) in f32 on the gathered rows of u at ``parts``,
+    layer 2 on the tensor cores at ``precision`` (``matmul_at``), then its
+    bias, ReLU and the max over the slots.  Arguments and result are those
+    of ``ops.cuda.knn_group.knn_group_max_plain``."""
+    from .knn_group import knn_group_max_plain
+    return knn_group_max_plain(
+        idx, u, c, a2, b2, parts,
+        product=lambda h, w: matmul_at(h, w, precision))
 
 
 def fps_register_route(xyz: torch.Tensor, npoint: int,

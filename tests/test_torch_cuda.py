@@ -1526,3 +1526,137 @@ def test_dense_pool_counts_its_products_in_its_span(cuda):
     assert torch.equal(on, off)
     assert counts == {DENSE_PRODUCTS: 2 * B * N * 512 * 1024}
     assert "iq_dense_pool" in {e.key for e in prof.key_averages()}
+
+
+# ------------------------------------- kernel 10: PCT's sample-and-group
+# (B, S, N, C1, C2, kind): both levels at the main path's shapes (a tenth
+# of its 1650 clouds: the plain version writes a (B, S, 32, C1) tensor),
+# ragged S, one centre, and clouds whose points all coincide (every u row
+# equal, each centre's kNN the first 32 rows)
+GROUP_CASES = [(165, 512, 1024, 128, 128, "random"),
+               (165, 256, 512, 256, 256, "random"),
+               (3, 255, 512, 256, 256, "random"), (2, 7, 40, 128, 128, "random"),
+               (1, 1, 32, 256, 256, "random"),
+               (4, 512, 1024, 128, 128, "coincident"),
+               (4, 256, 512, 256, 256, "coincident")]
+
+
+def _group_args(device, B, S, N, C1, C2, kind, seed=0):
+    """kNN indices, hoisted layer-1 rows u, the centres' share c, layer 2
+    (C1, C2) and its shift, as ``models.pct`` passes them."""
+    g = torch.Generator().manual_seed(seed)
+    if kind == "coincident":
+        idx = torch.arange(32, dtype=torch.int32).expand(B, S, 32)
+        u = torch.randn(B, 1, C1, generator=g).expand(B, N, C1)
+    else:
+        idx = torch.randint(0, N, (B, S, 32), generator=g, dtype=torch.int32)
+        u = torch.randn(B, N, C1, generator=g)
+    c = torch.randn(B, S, C1, generator=g)
+    a2 = torch.randn(C1, C2, generator=g) / C1 ** 0.5
+    b2 = 0.1 * torch.randn(C2, generator=g)
+    return [t.contiguous().to(device) for t in (idx, u, c, a2, b2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,N,C1,C2,kind", GROUP_CASES)
+def test_knn_group_max_matches_plain(cuda, B, S, N, C1, C2, kind):
+    """Kernel 10 at highest against its plain version (DENSE_TOL: the
+    split drops lo*lo and sums in another order than cuBLAS), one launch;
+    deterministic (a second launch bit-equal)."""
+    from interpret_quality_tpu_torch.ops.cuda import knn_group as kg
+    args = _group_args(cuda, B, S, N, C1, C2, kind, seed=S + C1)
+    launch.reset_launches()
+    got = kg.knn_group_max(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (B, S, C2)
+    assert launch.launches("knn_group_max") == {"knn_group_max": 1}
+    assert torch.allclose(got, kg.knn_group_max_plain(*args), **DENSE_TOL)
+    assert torch.equal(kg.knn_group_max(*args), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("B,S,N,C1,C2,kind", GROUP_CASES[2:])
+def test_knn_group_max_one_pass_matches_emulation(cuda, B, S, N, C1, C2, kind,
+                                                  precision):
+    """Kernel 10 at a one-pass setting against ``emulation.knn_group_max_at``
+    (``_one_pass_close``); coarser than highest's; counted under its
+    route."""
+    from interpret_quality_tpu_torch.ops.cuda import emulation as em
+    from interpret_quality_tpu_torch.ops.cuda import knn_group as kg
+    args = _group_args(cuda, B, S, N, C1, C2, kind, seed=S + C1)
+    launch.reset_launches()
+    with _matmul_precision(precision):
+        got = kg.knn_group_max(*args)
+    exact = kg.knn_group_max_plain(*args)
+    _one_pass_close(got, em.knn_group_max_at(*args, precision=precision),
+                    exact)
+    assert not torch.allclose(got, exact, rtol=1e-5, atol=1e-6)
+    assert launch.LAUNCHES[f"knn_group_max:{precision}"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["slots", "c1", "c2", "int64", "devices"])
+def test_knn_group_max_refuses_what_the_kernel_does_not_take(cuda, case):
+    """K other than 32, C1 not a multiple of 32, C2 other than 128 or 256,
+    int64 indices and tensors on two devices raise on the card; the plain
+    version takes the shapes on the CPU."""
+    from interpret_quality_tpu_torch.ops.cuda import knn_group as kg
+    shape = {"c1": (2, 8, 64, 48, 128), "c2": (2, 8, 64, 64, 64)}.get(
+        case, (2, 8, 64, 64, 128))
+    idx, u, c, a2, b2 = _group_args(cuda, *shape, "random")
+    if case == "slots":
+        idx = idx[..., :16].contiguous()
+    elif case == "int64":
+        idx = idx.long()
+    elif case == "devices":
+        a2 = a2.cpu()
+    with pytest.raises(ValueError):
+        kg.knn_group_max(idx, u, c, a2, b2)
+    if case != "int64":
+        cpu = [t.cpu() for t in (idx, u, c, a2, b2)]
+        assert kg.knn_group_max(*cpu).shape == (2, 8, shape[4])
+
+
+@pytest.mark.cuda
+def test_pct_forward_matches_the_reference(cuda):
+    """PCT at its published widths on one order's 33 masked clouds of 1024
+    points, the benchmark's seeded weights: the plan's indices equal to
+    the reference's (kernels 4 and 1 select as its FPS and fmaf-chain kNN
+    do), kernels 4, 1, 10 and 9 launched, the median cloud's logits within
+    1e-4 of their RMS (f32 rounding through the attention's energies, up
+    to 2e4: the benchmark's cell reads 2e-5; a cloud whose softmax column
+    sits at the normalisation's 1e-9 may jump, so the median)."""
+    import json
+    import os
+
+    import numpy as np
+    from interpret_quality_tpu_torch.models import build_model, make_forward_fn
+    from iqbench import inputs, weights
+    from iqbench.reference import attribution as A
+    from iqbench.reference import pct as ref
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "iqbench", "configs", "pct.json")) as f:
+        cfg = json.load(f)
+    state = weights.seeded_state(cfg, 2 ** 31 + 5, cuda)
+    model = build_model("pct", 10)
+    model.load_state_dict(state, strict=True)
+    fwd = make_forward_fn(model.to(cuda).eval())
+    rng = np.random.RandomState(3)
+    pc, _ = inputs.synthetic_cloud(rng, 1024)
+    region = inputs.region_ids(pc, inputs.fps_np(pc, 32))
+    masked = A.mask(torch.from_numpy(pc).to(cuda),
+                    torch.from_numpy(A.keep_matrix(inputs.orders(rng, 1, 32)))
+                    .to(cuda), torch.from_numpy(region).to(cuda)).contiguous()
+    shift = torch.tensor([0.1, -0.2, 0.05], device=cuda)
+    launch.reset_launches()
+    with torch.inference_mode():
+        plan = fwd.plan_fn(masked)
+        got = fwd.apply_plan_fn(masked + shift, plan)
+        want = ref.forward(state, cfg, masked + shift, ref.plan(cfg, masked))
+    for port, theirs in zip(plan, ref.plan(cfg, masked)):
+        assert all(torch.equal(a.long(), b) for a, b in zip(port, theirs))
+    assert launch.launches("fps", "knn", "knn_group_max", "dense_pool") == {
+        "fps": 2, "knn": 2, "knn_group_max": 2, "dense_pool": 1}
+    per = (got - want).abs().amax(-1) / want.pow(2).mean().sqrt()
+    assert float(per.median()) < 1e-4, per

@@ -19,6 +19,8 @@ from interpret_quality_tpu_torch.attrib.shapley import ShapleyEngine
 from interpret_quality_tpu_torch.models import build_model, make_forward_fn
 from interpret_quality_tpu_torch.ops import precision
 from interpret_quality_tpu_torch.ops.cuda import groups as gr
+from interpret_quality_tpu_torch.ops.cuda import knn_group as kg
+from interpret_quality_tpu_torch.ops.cuda import launch
 from interpret_quality_tpu_torch.ops.cuda import neighbors as nb
 from interpret_quality_tpu_torch.utils import profiling
 
@@ -355,3 +357,44 @@ def test_density_runs_in_its_span():
     assert len(density) == 3
     assert all("iq_plan" in parents(e) for e in density)
     assert not [e for e in forward_events if e.name == "iq_density"]
+
+
+def test_kernel10_runs_in_its_span_and_counts_slots_while_tracing(monkeypatch):
+    """Each launch of ``knn_group_max`` runs in one ``iq_knn_group_max``
+    span and counts once in the launch registry; traced, ``k10_slots``
+    counts B x S x K a launch (every centre, repeated ones too), untraced
+    nothing."""
+    launcher = stand_in(monkeypatch, kg, "iq_knn_group_max")
+    g = torch.Generator().manual_seed(0)
+    B, S, N, C1, C2 = 2, 5, 40, 64, 256
+    args = (torch.randint(0, N, (B, S, kg.SLOTS), generator=g,
+                          dtype=torch.int32),
+            torch.rand(B, N, C1, generator=g), torch.rand(B, S, C1, generator=g),
+            torch.rand(C1, C2, generator=g), torch.rand(C2, generator=g))
+    before = launch.launches("knn_group_max")["knn_group_max"]
+    assert kg.knn_group_max(*args).shape == (B, S, C2)
+    assert launcher.calls[-1][7:14] == (B, S, N, kg.SLOTS, C1, C2, 0)
+    assert profiling.counters() == {}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        kg.knn_group_max(*args)
+        kg.knn_group_max(*args)
+    assert [e.name for e in prof.events()].count("iq_knn_group_max") == 2
+    assert profiling.counters() == {kg.K10_SLOTS: 2 * B * S * kg.SLOTS}
+    assert launch.launches("knn_group_max")["knn_group_max"] == before + 3
+
+
+def test_offset_attention_runs_in_its_span():
+    """PCT's four offset-attention layers are one ``iq_offset_attention``
+    span each, inside the forward and not in the plan."""
+    torch.manual_seed(0)
+    model = build_model("pct", 10)
+    model.levels = ((48, 32), (32, 32))
+    fwd = make_forward_fn(model)
+    x = torch.from_numpy(cloud(5, n=96)[0])[None]
+    with torch.no_grad():
+        plan, plan_events = traced(lambda: fwd.plan_fn(x))
+        _, events = traced(lambda: fwd.apply_plan_fn(x, plan))
+    attention = [e for e in events if e.name == "iq_offset_attention"]
+    assert len(attention) == 4
+    assert all("iq_forward" in parents(e) for e in attention)
+    assert not [e for e in plan_events if e.name == "iq_offset_attention"]

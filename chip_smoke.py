@@ -43,6 +43,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
                dense_pool (DGCNN's head on its four edge outputs): rtol
                  1e-4 / atol 1e-5, a second launch bit-equal, beside
                  today's cuBLAS product and PyTorch tail (library_ms);
+                 its listed route on layer 1's copy lists (listed_ms) the
+                 same, its max bit-equal to every row's;
                knn_group_max (PCT's two sample-and-group levels, on the
                  seeded model's own inputs: the plan's kNN indices, the
                  hoisted rows u and the centres' share c): rtol 1e-4 /
@@ -1498,29 +1500,40 @@ def check_dense(dn, masked, device):
     clouds of 1024 points): within rtol 1e-4 / atol 1e-5 of dense_pool_plain
     (the split drops lo*lo and sums in another order), a second launch
     bit-equal; timed beside its plain version and, as library_ms, today's
-    cuBLAS product and PyTorch tail on the concatenated rows.  The bound
-    counts the products on the distinct points.  Returns (numbers,
-    detail)."""
+    cuBLAS product and PyTorch tail on the concatenated rows.  Its listed
+    route on the copy lists of layer 1's kernel-3 launch (as DGCNN's forward
+    without a plan passes them) is held the same way, its max bit-equal to
+    the every-row launch's, and timed (listed_ms).  The bound counts the
+    products on the distinct points.  Returns (numbers, detail)."""
     import torch
     from interpret_quality_tpu_torch.models.common import bn_eval, leaky_relu02
     from interpret_quality_tpu_torch.models.dgcnn import edge_conv
     model = seeded_model("dgcnn", device)
     conv, bn = model.conv5[0], model.bn5
     with torch.inference_mode():
-        feats, h = [], masked
-        for block in (model.conv1, model.conv2, model.conv3, model.conv4):
+        h, lists = edge_conv(masked, model.conv1, K, copy_lists=True)
+        feats = [h]
+        for block in (model.conv2, model.conv3, model.conv4):
             h = edge_conv(h, block, K)
             feats.append(h)
-        got = dn.dense_pool(feats, conv, bn)
         want = dn.dense_pool_plain(feats, conv, bn)
-        torch.cuda.synchronize()
-        if not torch.allclose(got, want, rtol=1e-4, atol=1e-5):
-            raise AssertionError("dense_pool: kernel differs from its plain "
-                                 "version beyond rtol 1e-4 / atol 1e-5")
-        if not torch.equal(dn.dense_pool(feats, conv, bn), got):
-            raise AssertionError("dense_pool: two launches differ")
-        max_abs = float((got - want).abs().max())
-        del got, want
+        outs = {}
+        for route, args in (("every row", ()), ("listed", (lists,))):
+            got = outs[route] = dn.dense_pool(feats, conv, bn, *args)
+            torch.cuda.synchronize()
+            if not torch.allclose(got, want, rtol=1e-4, atol=1e-5):
+                raise AssertionError(f"dense_pool ({route}): kernel differs "
+                                     "from its plain version beyond rtol "
+                                     "1e-4 / atol 1e-5")
+            if not torch.equal(dn.dense_pool(feats, conv, bn, *args), got):
+                raise AssertionError(f"dense_pool ({route}): two launches "
+                                     "differ")
+        C = conv.weight.shape[0]
+        if not torch.equal(outs["listed"][:, :C], outs["every row"][:, :C]):
+            raise AssertionError("dense_pool: the listed route's max differs "
+                                 "from every row's")
+        max_abs = {r: float((o - want).abs().max()) for r, o in outs.items()}
+        del outs, got, want
         cat = torch.cat(feats, dim=-1)
         w = conv.weight.reshape(conv.weight.shape[0], -1)
 
@@ -1528,18 +1541,25 @@ def check_dense(dn, masked, device):
             y = leaky_relu02(bn_eval(torch.matmul(cat, w.T), bn))
             return torch.cat([y.amax(dim=1), y.mean(dim=1)], dim=-1)
         t_k = cuda_ms(lambda: dn.dense_pool(feats, conv, bn))
+        t_listed = cuda_ms(lambda: dn.dense_pool(feats, conv, bn, lists))
         t_p = cuda_ms(lambda: dn.dense_pool_plain(feats, conv, bn))
         t_l = cuda_ms(library)
     B, Kin, C = masked.shape[0], cat.shape[2], w.shape[0]
-    del feats, cat
+    listed_rows = int(lists.nrows.sum())
+    del feats, cat, lists
     distinct = distinct_row_count(masked)
     bound, by = bound_ms(4 * (B * N * Kin + Kin * C + 4 * C + 2 * B * C),
                          2 * C * distinct, matrix_ops=2 * Kin * C * distinct)
     detail = {"kernel": "dense_pool", "B": B, "N": N, "K": Kin, "C": C,
-              "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
-              "bound_ms": bound, "distinct_rows": distinct / (B * N),
-              "max_abs_diff": max_abs, "repeat_bit_equal": True}
-    return (dict(max_abs_err=max_abs, ms=t_k, plain_ms=t_p, bound_ms=bound,
+              "ms": t_k, "listed_ms": t_listed, "plain_ms": t_p,
+              "library_ms": t_l, "bound_ms": bound,
+              "distinct_rows": distinct / (B * N),
+              "listed_rows": listed_rows / (B * N),
+              "max_abs_diff": max_abs["every row"],
+              "listed_max_abs_diff": max_abs["listed"],
+              "repeat_bit_equal": True, "listed_max_bit_equal": True}
+    return (dict(max_abs_err=max(max_abs.values()), ms=t_k,
+                 listed_ms=t_listed, plain_ms=t_p, bound_ms=bound,
                  bound_by=by, library_ms=t_l), detail)
 
 

@@ -43,6 +43,20 @@
 // that share it, and one store.  The order is fixed and nothing is atomic,
 // so the result is deterministic.
 //
+// The listed route (kListed).  A masked coalition collapses its absent
+// regions onto one point, so about half of a batch's rows are bit-for-bit
+// copies of an earlier row of their cloud, and so are their products.  Where
+// the caller passes each cloud's distinct rows and the spans of their copies
+// (kernel 3's copy lists, csrc/knn_select.cuh copy_lists_kernel), block b
+// walks rows[b][0 .. nrows[b]) in place of all N: tile row r of tile t is
+// row rows[b][min(t kRows + r, nrows[b] - 1)], read through the same ring.
+// The epilogue masks places from nrows[b] on, folds each place into the max
+// once and adds its value times its number of copies to the sum, which is
+// still divided by N.  The max is over the same values as the every-row walk
+// (a row's products do not depend on its place in the tile); the mean sums
+// the same values in another grouping.  Without lists (kListed false) the
+// block walks all N rows as above.
+//
 // The launcher runs on the caller's stream, allocates nothing and returns
 // cudaGetLastError() (0 on success); cudaErrorInvalidValue for arguments the
 // kernel does not take.
@@ -77,6 +91,16 @@ constexpr float kLeakySlope = 0.2f;
 static_assert(2 * (kRowGroups - 1) * kCols <= kStages * kAFloats,
               "the row groups' partial results fit the ring");
 
+// A cloud's distinct rows and their copies (the listed route): rows[b * N +
+// p] is cloud b's distinct row p, ascending, nrows[b] their count, and
+// starts[b * (N + 1) + p .. p + 1] the span of row p's copies, itself
+// included.
+struct RowLists {
+  const int* rows;
+  const int* nrows;
+  const int* starts;
+};
+
 // The input rows: segment s holds columns [start[s], start[s] + width[s]) of
 // the concatenation, as a (B, N, width[s]) tensor.
 struct Segments {
@@ -107,9 +131,9 @@ __global__ void order_dense_weights_kernel(const float* __restrict__ w, int K, i
   frag[e] = make_float2(round_operand(prec, row[0]), round_operand(prec, row[4]));
 }
 
-template <int PREC>
+template <int PREC, bool kListed>
 __global__ void __launch_bounds__(kDenseThreads, kMinBlocks)
-    dense_pool_kernel(Segments seg, const float2* __restrict__ frag,
+    dense_pool_kernel(Segments seg, RowLists lists, const float2* __restrict__ frag,
                       const float* __restrict__ mean, const float* __restrict__ mul,
                       const float* __restrict__ bias, float* __restrict__ out, int N, int K,
                       int C) {
@@ -119,7 +143,10 @@ __global__ void __launch_bounds__(kDenseThreads, kMinBlocks)
   const int slices = C / kCols;
   const int b = blockIdx.x / slices, cs = blockIdx.x - b * slices;
   const int chunks = K / kKChunk;
-  const int steps = ((N + kRows - 1) / kRows) * chunks;
+  // the rows the block walks: all N, or the cloud's distinct rows
+  const int nr = kListed ? __ldg(lists.nrows + b) : N;
+  const int* listed = kListed ? lists.rows + (size_t)b * N : nullptr;
+  const int steps = ((nr + kRows - 1) / kRows) * chunks;
   const float* wslice = reinterpret_cast<const float*>(frag) + (size_t)cs * chunks * kWFloats;
 
   // start the copies of stream step `step` (one commit group, empty past the end)
@@ -140,7 +167,8 @@ __global__ void __launch_bounds__(kDenseThreads, kMinBlocks)
       float* da = sa + (step % kStages) * kAFloats;
       for (int e = threadIdx.x; e < kRows * kKChunk / 4; e += kDenseThreads) {
         const int r = e / (kKChunk / 4), q = e % (kKChunk / 4);
-        const int n = min(tile * kRows + r, N - 1);
+        const int p = min(tile * kRows + r, nr - 1);
+        const int n = kListed ? __ldg(listed + p) : p;
         cp_async16(da + r * kAStride + 4 * q, src + (size_t)n * width + 4 * q, true);
       }
       const float* ws = wslice + (size_t)ch * kWFloats;
@@ -222,6 +250,17 @@ __global__ void __launch_bounds__(kDenseThreads, kMinBlocks)
     }
     if ((step + 1) % chunks == 0) {              // the tile's products are done
       const int row0 = (step / chunks) * kRows + rg * 64 + g;
+      float copies[4][2];                        // listed: each place's copies
+      if constexpr (kListed) {
+        const int* sb = lists.starts + (size_t)b * (N + 1);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int p = min(row0 + mt * 16 + 8 * h, nr - 1);
+            copies[mt][h] = (float)(__ldg(sb + p + 1) - __ldg(sb + p));
+          }
+      }
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
@@ -234,8 +273,9 @@ __global__ void __launch_bounds__(kDenseThreads, kMinBlocks)
             for (int h = 0; h < 2; ++h) {
               float y = __fadd_rn(__fmul_rn(__fsub_rn(acc[mt][nt][2 * h + j], m), u), c);
               y = y > 0.f ? y : __fmul_rn(y, kLeakySlope);
-              if (row0 + mt * 16 + 8 * h < N) {
+              if (row0 + mt * 16 + 8 * h < nr) {
                 vmax[nt][j] = fmaxf(vmax[nt][j], y);
+                if constexpr (kListed) y = __fmul_rn(copies[mt][h], y);   // exact counts
                 vsum[nt][j] = __fadd_rn(vsum[nt][j], y);
               }
             }
@@ -302,10 +342,14 @@ extern "C" {
 // (B, 2C).
 // scratch: K * C floats of device memory on a 16-byte boundary (the weights
 // in fragment order).  prec: kPrecHighest, kPrecHigh or kPrecDefault.
+// rows, nrows, starts: each cloud's distinct rows, their count and their
+// copies' spans, as kernel 3's launch leaves them ((B, N), (B,), (B, N + 1)
+// int32), for the listed route; all three nullptr: every row.
 int iq_dense_pool(const float* x0, const float* x1, const float* x2, const float* x3, int w0,
                   int w1, int w2, int w3, const float* weight, const float* mean,
-                  const float* mul, const float* bias, float* out, float* scratch, int B,
-                  int N, int C, int prec, void* stream) {
+                  const float* mul, const float* bias, float* out, float* scratch,
+                  const int* rows, const int* nrows, const int* starts, int B, int N, int C,
+                  int prec, void* stream) {
   if (B <= 0) return cudaSuccess;
   const float* xs[kMaxSegments] = {x0, x1, x2, x3};
   const int ws[kMaxSegments] = {w0, w1, w2, w3};
@@ -320,6 +364,8 @@ int iq_dense_pool(const float* x0, const float* x1, const float* x2, const float
     ++seg.n;
     K += ws[s];
   }
+  const bool listed = rows != nullptr;
+  if (listed != (nrows != nullptr) || listed != (starts != nullptr)) return cudaErrorInvalidValue;
   if (prec < kPrecHighest || prec > kPrecDefault || seg.n == 0 || N < 1 || C < kCols ||
       C % kCols || (long long)B * (C / kCols) > 0x7fffffffLL ||
       (long long)K * C > 0x7fffffffLL)
@@ -328,14 +374,17 @@ int iq_dense_pool(const float* x0, const float* x1, const float* x2, const float
   cudaError_t err;
   float2* frag = reinterpret_cast<float2*>(scratch);
   order_dense_weights_kernel<<<(K * C / 2 + 255) / 256, 256, 0, s>>>(weight, K, C, frag, prec);
-  using Kernel = decltype(&dense_pool_kernel<kPrecHighest>);
-  static const Kernel kernels[3] = {dense_pool_kernel<kPrecHighest>,
-                                    dense_pool_kernel<kPrecHigh>,
-                                    dense_pool_kernel<kPrecDefault>};
-  const Kernel kernel = kernels[prec];
+  using Kernel = decltype(&dense_pool_kernel<kPrecHighest, false>);
+  static const Kernel kernels[2][3] = {
+      {dense_pool_kernel<kPrecHighest, false>, dense_pool_kernel<kPrecHigh, false>,
+       dense_pool_kernel<kPrecDefault, false>},
+      {dense_pool_kernel<kPrecHighest, true>, dense_pool_kernel<kPrecHigh, true>,
+       dense_pool_kernel<kPrecDefault, true>}};
+  const Kernel kernel = kernels[listed][prec];
   if ((err = prepare(kernel, kDenseSmem)) != cudaSuccess) return err;
-  kernel<<<(unsigned)(B * (C / kCols)), kDenseThreads, kDenseSmem, s>>>(seg, frag, mean, mul,
-                                                                        bias, out, N, K, C);
+  const RowLists lists{rows, nrows, starts};
+  kernel<<<(unsigned)(B * (C / kCols)), kDenseThreads, kDenseSmem, s>>>(seg, lists, frag, mean,
+                                                                        mul, bias, out, N, K, C);
   return cudaGetLastError();
 }
 

@@ -25,7 +25,10 @@ from the neighbour kernels: ``knn_gather_extrema`` (graph from features) or
 ``gather_extrema`` (given indices).  The eval head, conv5 with its
 BatchNorm and LeakyReLU and the max and mean over the points, is one
 kernel, ``dense_pool`` (``ops/cuda/dense.py``), which reads the four edge
-outputs where they lie: the (B, N, 1024) activation never exists.
+outputs where they lie: the (B, N, 1024) activation never exists.  DGCNN
+hands it the copy lists of its first kernel-3 launch, so on the card it
+multiplies each cloud's distinct rows only (a masked coalition's collapsed
+regions repeat one row).
 
 Training, and an eval forward that must be differentiated, take the
 un-fused edge conv and head (``fused=False``): the edge features
@@ -58,11 +61,15 @@ EMB_DIMS = 1024
 
 
 def edge_conv(x: torch.Tensor, block: nn.Sequential, k: int,
-              idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+              idx: Optional[torch.Tensor] = None,
+              copy_lists: bool = False):
     """Eval edge convolution on channels-last x (B, N, C) -> (B, N, F).
 
     ``idx`` (B, N, k): use these neighbours; None: select the k nearest
     neighbours of x in feature space inside the fused kernel.
+    ``copy_lists`` (with ``idx`` None): return (out, lists), the kernel's
+    distinct rows of x and their copies (``neighbors.DistinctRows``; None
+    on the CPU).  A row equal to an earlier one in x is equal to it in out.
     """
     conv, bn = block[0], block[1]
     C = x.shape[-1]
@@ -71,12 +78,14 @@ def edge_conv(x: torch.Tensor, block: nn.Sequential, k: int,
     a = matmul(x, w1.T).contiguous()                           # (B, N, F)
     b = matmul(x, (w2 - w1).T)
     if idx is None:
-        amax, amin = knn_gather_extrema(x.contiguous(), a, k)
+        amax, amin, lists = knn_gather_extrema(x.contiguous(), a, k,
+                                               copy_lists=True)
     else:
-        amax, amin = gather_extrema(idx, a)
+        (amax, amin), lists = gather_extrema(idx, a), None
     alpha, beta = bn_affine(bn)
     m_ext = b + torch.where(alpha > 0, amax, amin)
-    return leaky_relu02(alpha * m_ext + beta)
+    out = leaky_relu02(alpha * m_ext + beta)
+    return (out, lists) if copy_lists else out
 
 
 def graph_knn(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -151,7 +160,7 @@ class _DGCNNBase(nn.Module):
                              "(it folds eval BatchNorm); pass fused=False")
         convs = (self.conv1, self.conv2, self.conv3, self.conv4)
         x = x.contiguous()
-        feats = []
+        feats, lists = [], None
         if not fused:
             fix_idx = plan if plan is not None else graph_knn(x, self.k)
             h = x
@@ -161,10 +170,20 @@ class _DGCNNBase(nn.Module):
                 h = edge_conv_unfused(h, block, idx)
                 feats.append(h)
         elif self.dynamic_graph:
-            h = edge_conv(x, convs[0], self.k, idx=plan)
-            feats.append(h)
-            for block in convs[1:]:
-                h = edge_conv(h, block, self.k)
+            # The head walks the distinct rows of the first kernel-3 launch
+            # (layer 2 with a plan, layer 1 without): its copies take their
+            # original's result, so rows equal in its input stay equal in
+            # every later edge output.  A later launch's classes may merge
+            # rows that differ in an earlier output, so only the first
+            # launch's lists hold for all four.
+            h, first = x, 0 if plan is None else 1
+            for i, block in enumerate(convs):
+                if i < first:
+                    h = edge_conv(h, block, self.k, idx=plan)
+                elif i == first:
+                    h, lists = edge_conv(h, block, self.k, copy_lists=True)
+                else:
+                    h = edge_conv(h, block, self.k)
                 feats.append(h)
         else:
             fix_idx = plan if plan is not None else knn(x, x, self.k)
@@ -174,7 +193,9 @@ class _DGCNNBase(nn.Module):
                 feats.append(h)
 
         if fused:       # conv5, BN, LeakyReLU and both poolings in one kernel
-            h = dense_pool(feats, self.conv5[0], self.bn5)      # (B, 2048)
+            # the lists only where there are any: not on the CPU, not GCNN
+            h = dense_pool(feats, self.conv5[0], self.bn5,
+                           *([] if lists is None else [lists]))  # (B, 2048)
         else:
             h = torch.cat(feats, dim=-1)                        # (B, N, 512)
             h = leaky_relu02(bn_apply(pointwise(h, self.conv5[0]), self.bn5))

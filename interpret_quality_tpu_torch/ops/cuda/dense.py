@@ -29,12 +29,23 @@ counts in the launch registry (``launch.count_launch``) under
 the profiler span ``iq_dense_pool``; while a profiler records, its products
 (2 x B x N x in x out) count in the work counter ``dense_products``, as
 ``ops.precision.matmul`` counts the products it runs.
+
+A masked coalition collapses its absent regions onto one point, so about
+half of a batch's rows repeat an earlier row of their cloud.  Given each
+cloud's distinct rows and their copies (``lists``: kernel 3's copy lists,
+``neighbors.knn_gather_extrema(..., copy_lists=True)``), the kernel walks
+the distinct rows only (its listed route): the max takes each once, the
+mean weighs each by its copies and still divides by N.  The max is the
+every-row walk's bit for bit; the mean sums in another grouping.  The
+products it then counts are 2 x (distinct rows) x in x out, added on the
+device from the lists' counts.  ``emulation.dense_pool_listed`` is the
+listed walk's plain model.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -46,6 +57,7 @@ from ..precision import DENSE_PRODUCTS, matmul
 from . import build
 from .launch import (PRECISION_CODES, I, P, check, count_launch, on_cpu,
                      raise_on, stream)
+from .neighbors import DistinctRows
 
 MAX_SEGMENTS = 4     # feature segments the kernel reads (kMaxSegments)
 SEGMENT_QUANTUM = 32  # each segment's width a multiple of it (kKChunk)
@@ -55,7 +67,7 @@ COLUMN_QUANTUM = 256  # the output width a multiple of it (kCols)
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load("dense")
-    lib.iq_dense_pool.argtypes = [P] * 4 + [I] * 4 + [P] * 6 + [I] * 4 + [P]
+    lib.iq_dense_pool.argtypes = [P] * 4 + [I] * 4 + [P] * 9 + [I] * 4 + [P]
     lib.iq_dense_pool.restype = ctypes.c_int
     return lib
 
@@ -91,6 +103,19 @@ def _check_args(feats: Sequence[torch.Tensor], conv: nn.Module,
                          f"(training={bn.training})")
 
 
+def _check_lists(lists: DistinctRows, B: int, N: int, device) -> None:
+    """The listed route's lists: int32 rows (B, N), nrows (B,) and
+    starts (B, N + 1) on the features' device, each contiguous (views of
+    kernel 3's scratch).  Their values are the caller's contract: nrows in
+    [1, N], rows ascending in [0, N), the copies' spans summing to N."""
+    for t, name, shape in zip(lists, DistinctRows._fields,
+                              ((B, N), (B,), (B, N + 1))):
+        check(t, f"lists.{name}", torch.int32, len(shape))
+        if tuple(t.shape) != shape or t.device != device:
+            raise ValueError(f"lists.{name}: expected {shape} on {device}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+
+
 def dense_pool_plain(feats: Sequence[torch.Tensor], conv: nn.Module,
                      bn: nn.Module, product=matmul) -> torch.Tensor:
     """Plain version of ``dense_pool``: the concatenation, conv5 by
@@ -106,7 +131,8 @@ def dense_pool_plain(feats: Sequence[torch.Tensor], conv: nn.Module,
 
 
 def dense_pool(feats: Sequence[torch.Tensor], conv: nn.Module,
-               bn: nn.Module) -> torch.Tensor:
+               bn: nn.Module,
+               lists: Optional[DistinctRows] = None) -> torch.Tensor:
     """The edge-conv family's eval head: out[b, c] = max_n y[b, n, c] and
     out[b, C + c] = mean_n y[b, n, c] with
     y = leaky_relu_0.2(bn_eval(cat(feats) @ W^T)).
@@ -115,6 +141,9 @@ def dense_pool(feats: Sequence[torch.Tensor], conv: nn.Module,
       feats: 1 to 4 (B, N, C_i) segments (DGCNN's four edge-conv outputs)
         in conv's dtype, their widths summing to conv's input width.
       conv: conv5 (Conv1d(K, C, 1) without bias); bn: its eval BatchNorm.
+      lists: each cloud's distinct rows and their copies, rows equal bit
+        for bit in every segment (``neighbors.DistinctRows``, on the card);
+        None walks every row.
     Returns:
       (B, 2C) in conv's dtype.
 
@@ -125,6 +154,8 @@ def dense_pool(feats: Sequence[torch.Tensor], conv: nn.Module,
     """
     _check_args(feats, conv, bn)
     if on_cpu(*feats, conv.weight):
+        if lists is not None:
+            raise ValueError("lists: the plain version walks every row")
         return dense_pool_plain(feats, conv, bn)
     from ...models.common import bn_eval_terms
     precision = config.matmul_precision()
@@ -137,6 +168,8 @@ def dense_pool(feats: Sequence[torch.Tensor], conv: nn.Module,
                              f"multiples of {SEGMENT_QUANTUM} on a 16-byte "
                              f"boundary, got {f.shape[2]} at "
                              f"{f.data_ptr() % 16} past one")
+    if lists is not None:
+        _check_lists(lists, B, N, conv.weight.device)
     if C % COLUMN_QUANTUM:
         raise ValueError(f"conv: the kernel takes an output width that is a "
                          f"multiple of {COLUMN_QUANTUM}, got {C}")
@@ -151,12 +184,17 @@ def dense_pool(feats: Sequence[torch.Tensor], conv: nn.Module,
     out = torch.empty((B, 2 * C), dtype=torch.float32, device=w.device)
     # the weights in the order the kernel's fragments read them
     scratch = torch.empty(w.numel(), dtype=torch.float32, device=w.device)
-    profiling.count(DENSE_PRODUCTS, 2 * B * N * K * C)
+    if lists is None:
+        profiling.count(DENSE_PRODUCTS, 2 * B * N * K * C)
     with record_function("iq_dense_pool"):
-        rc = _lib().iq_dense_pool(*ptrs, *widths, w.data_ptr(),
-                                  *[t.data_ptr() for t in params],
-                                  out.data_ptr(), scratch.data_ptr(), B, N, C,
-                                  PRECISION_CODES[precision], stream(w))
+        rc = _lib().iq_dense_pool(
+            *ptrs, *widths, w.data_ptr(), *[t.data_ptr() for t in params],
+            out.data_ptr(), scratch.data_ptr(),
+            *([None] * 3 if lists is None else [t.data_ptr() for t in lists]),
+            B, N, C, PRECISION_CODES[precision], stream(w))
     raise_on(rc, "iq_dense_pool")
+    if lists is not None and profiling.tracing():   # after the span
+        profiling.accumulator(DENSE_PRODUCTS, w.device).add_(
+            lists.nrows.sum(dtype=torch.int64) * (2 * K * C))
     count_launch("dense_pool", precision)
     return out

@@ -5,7 +5,8 @@ WeightNet and contraction) and of ``csrc/knn_group.cu`` (kernel 10's
 layer 2), the rounding of gathered values to bf16, the distance chain of
 ``csrc/knn_select.cuh``, the selection of the kNN kernels' xyz route
 (``csrc/knn_xyz.cuh``), kernel 3's compacted scan (``select_knn`` with
-kCompact, its copy lists included) and the argmax of ``csrc/fps.cu``'s
+kCompact, its copy lists included), kernel 9's walk of those lists
+(``csrc/dense.cu``'s listed route) and the argmax of ``csrc/fps.cu``'s
 register route.
 
 At the ``highest`` matmul precision the kernels that run a matrix product on
@@ -31,7 +32,7 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from ..geometry import index_points
-from ..precision import gather_values, round_bf16, selection_keys
+from ..precision import gather_values, matmul, round_bf16, selection_keys
 
 _LOW13 = 0x1FFF          # the 13 mantissa bits that TF32 does not keep
 
@@ -397,6 +398,30 @@ def copy_lists(x: torch.Tensor) -> CopyLists:
     starts = torch.zeros(len(rows) + 1, dtype=torch.int64)
     starts[1:] = torch.bincount(cls, minlength=len(rows)).cumsum(0)
     return CopyLists(first, rows, starts, torch.argsort(cls * N + n))
+
+
+def dense_pool_listed(feats: Sequence[torch.Tensor], conv, bn,
+                      lists: Sequence[CopyLists], product=matmul) -> torch.Tensor:
+    """``dense.dense_pool_plain`` as kernel 9's listed route walks a
+    batch: for each cloud, the max of conv5 by ``product``, the eval
+    BatchNorm and LeakyReLU over its distinct rows only (``lists[b]``,
+    ``copy_lists`` of the rows that are equal in every segment), and the sum
+    of each distinct row's value times its number of copies, divided by N.
+    The rows' values come from one product over the batch, as the plain
+    version's do: a CPU product of fewer rows may round otherwise (a single
+    row takes another BLAS routine), where the kernel's row does not depend
+    on the rows beside it."""
+    from ...models.common import bn_eval, leaky_relu02
+    h = torch.cat(list(feats), dim=-1)                          # (B, N, K)
+    w = conv.weight.reshape(conv.weight.shape[0], -1)           # (C, K)
+    y = leaky_relu02(bn_eval(product(h, w.T), bn))              # (B, N, C)
+    out = []
+    for yb, cl in zip(y, lists):
+        yd = yb[cl.rows]                                        # (d, C)
+        copies = (cl.starts[1:] - cl.starts[:-1]).to(y.dtype)
+        out.append(torch.cat([yd.amax(dim=0),
+                              (copies[:, None] * yd).sum(dim=0) / y.shape[1]]))
+    return torch.stack(out)                                     # (B, 2C)
 
 
 class CompactSelection(NamedTuple):

@@ -37,7 +37,9 @@ distinct query rows times distinct database rows, to the work counter
 ``K3_DISTANCES`` (``utils.profiling``), from the count of distinct rows the
 launch leaves in its scratch, and the kernel adds the rows whose copies took
 the tie path (another row's entry at their distance: the copies go in one
-at a time) to ``K3_TIE_ROWS``.
+at a time) to ``K3_TIE_ROWS``.  With ``copy_lists=True`` it also returns
+the distinct rows and copy lists its launch built (``DistinctRows``, views
+of its scratch; None on the CPU), which kernel 9 walks in DGCNN's head.
 
 The gathers follow ``--gather_precision`` where their TPU counterparts
 split the values into bf16 planes (``parts``): at ``bf16`` (parts 1) each
@@ -65,7 +67,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -101,6 +103,17 @@ def _lib() -> ctypes.CDLL:
                lib.iq_gather_extrema_route, lib.iq_knn_gather_extrema):
         fn.restype = ctypes.c_int
     return lib
+
+
+class DistinctRows(NamedTuple):
+    """Each cloud's distinct rows and their copies, as kernel 3's launch
+    leaves them in its scratch (``csrc/knn_select.cuh`` ``DistinctRows``):
+    cloud b's distinct row p is ``rows[b, p]`` (ascending, p below
+    ``nrows[b]``), and it has ``starts[b, p + 1] - starts[b, p]`` copies,
+    itself included.  All int32."""
+    rows: torch.Tensor       # (B, N)
+    nrows: torch.Tensor      # (B,)
+    starts: torch.Tensor     # (B, N + 1)
 
 
 def _distinct_rows_scratch(B: int, S: int, device,
@@ -282,18 +295,20 @@ def gather_extrema_route(N: int, F: int, k: int, parts: int = 2) -> dict:
 
 # ------------------------------------------------------ knn_gather_extrema
 def knn_gather_extrema_plain(xs: torch.Tensor, a: torch.Tensor, k: int,
-                             parts: int = 2, cls: str = "exact"
-                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+                             parts: int = 2, cls: str = "exact",
+                             copy_lists: bool = False) -> tuple:
     """Plain version of ``knn_gather_extrema`` at ``parts`` value planes
-    and the selection class ``cls``."""
-    return gather_extrema_plain(knn_plain(xs, xs, k, cls), a, parts)
+    and the selection class ``cls``; it builds no copy lists (None with
+    ``copy_lists``)."""
+    out = gather_extrema_plain(knn_plain(xs, xs, k, cls), a, parts)
+    return (*out, None) if copy_lists else out
 
 
 def knn_gather_extrema(xs: torch.Tensor, a: torch.Tensor, k: int,
                        parts: Optional[int] = None,
                        select: Optional[str] = None,
-                       layout: Optional[str] = None
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+                       layout: Optional[str] = None,
+                       copy_lists: bool = False) -> tuple:
     """Per-point extrema of value rows over the k nearest neighbours in
     feature space; the (N, N) distances and the indices stay on chip.
 
@@ -304,22 +319,26 @@ def knn_gather_extrema(xs: torch.Tensor, a: torch.Tensor, k: int,
         them rounded, in f32); None follows ``precision.value_parts``.
       select, layout: the kNN selection setting (at layout nq the packed
         class whatever ``select``); None follows ``precision.knn_class``.
+      copy_lists: also return the launch's ``DistinctRows`` of xs (None on
+        the CPU).
     Returns:
-      (amax, amin), each (B, N, F) float32.
+      (amax, amin), each (B, N, F) float32; with ``copy_lists``, (amax,
+      amin, lists).
     """
     cpu = on_cpu(xs, a)
     parts = value_parts(parts, cpu)
     cls = knn_class(select, cpu, "knn_gather_extrema", layout)
     if cpu:
-        return knn_gather_extrema_plain(xs, a, k, parts, cls)
-    return _knn_gather_extrema(xs, a, k, parts, cls)
+        return knn_gather_extrema_plain(xs, a, k, parts, cls, copy_lists)
+    return _knn_gather_extrema(xs, a, k, parts, cls, copy_lists)
 
 
 def _knn_gather_extrema(xs: torch.Tensor, a: torch.Tensor, k: int,
-                        parts: int = 2, cls: str = "exact"
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+                        parts: int = 2, cls: str = "exact",
+                        copy_lists: bool = False) -> tuple:
     """Launch iq_knn_gather_extrema at ``parts`` value planes and the
-    selection class ``cls``."""
+    selection class ``cls``; with ``copy_lists``, return its
+    ``DistinctRows`` after the extrema."""
     check(xs, "xs", torch.float32, 3)
     check(a, "a", torch.float32, 3)
     B, N, C = xs.shape
@@ -345,9 +364,13 @@ def _knn_gather_extrema(xs: torch.Tensor, a: torch.Tensor, k: int,
                                           scratch.data_ptr(), ties, B, N, C, F,
                                           k, SELECT_CODES[cls], stream(xs))
     raise_on(rc, "iq_knn_gather_extrema")
+    BN = B * N                  # the scratch's rows, nrows and starts
+    lists = DistinctRows(scratch[BN:2 * BN].view(B, N),
+                         scratch[2 * BN:2 * BN + B],
+                         scratch[2 * BN + B:BN * 3 + 2 * B].view(B, N + 1))
     if tracing:                 # after the span: the kernel's time is its own
-        nrows = scratch[2 * B * N:2 * B * N + B].long()
+        nrows = lists.nrows.long()
         profiling.accumulator(K3_DISTANCES, xs.device).add_(
             (nrows * nrows).sum())
     count_launch("knn_gather_extrema", cls)
-    return amax, amin
+    return (amax, amin, lists) if copy_lists else (amax, amin)

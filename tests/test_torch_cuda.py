@@ -1528,6 +1528,159 @@ def test_dense_pool_counts_its_products_in_its_span(cuda):
     assert "iq_dense_pool" in {e.key for e in prof.key_averages()}
 
 
+# kernel 9's listed route on kernel 3's own copy lists: (B, N, kind) of the
+# clouds that kernel 3 takes (``_route_clouds``), rows whose xyz repeat made
+# equal in every segment; "coincident" gives nrows == 1, "random" nrows == N
+LISTED_CASES = [(6, 1024, "grid_masked"), (5, 1000, "masked"),
+                (4, 300, "random"), (3, 1024, "coincident"), (2, 37, "masked")]
+
+
+def _listed_head_args(device, B, N, kind, seed=0):
+    """Kernel 3's ``DistinctRows`` of clouds (B, N, 3), and DGCNN's head
+    arguments whose edge outputs repeat the clouds' copies bit for bit (each
+    row the first copy's), checked against ``emulation.copy_lists``."""
+    from interpret_quality_tpu_torch.ops.cuda import emulation as em
+    xs = _route_clouds(kind, B, N, 3, seed)
+    cl = [em.copy_lists(c) for c in xs]
+    xs = xs.to(device)
+    a = torch.zeros(B, N, 32, device=device)
+    _, _, lists = nb.knn_gather_extrema(xs, a, min(20, N), copy_lists=True)
+    for b, c in enumerate(cl):
+        d = len(c.rows)
+        assert int(lists.nrows[b]) == d
+        assert torch.equal(lists.rows[b, :d].cpu().long(), c.rows)
+        assert torch.equal(lists.starts[b, :d + 1].cpu().long(), c.starts)
+    first = torch.stack([c.first for c in cl]).to(device)
+    feats, conv, bn = _head_args(device, B, N, "random", seed)
+    feats = [torch.gather(f, 1, first[..., None].expand_as(f)).contiguous()
+             for f in feats]
+    return feats, conv, bn, lists
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("B,N,kind", LISTED_CASES)
+def test_dense_pool_listed_route_matches_every_row(cuda, B, N, kind,
+                                                   precision):
+    """Kernel 9 walking kernel 3's lists against its every-row launch at
+    each precision: the max bit-equal, the mean within DENSE_TOL (bit-equal
+    where no row repeats); both against the plain version (DENSE_TOL at
+    highest, ``_one_pass_close`` to the emulated product at one pass);
+    nrows == 1 (every point on one) and nrows == N (no copies) included;
+    deterministic; counted as one launch each."""
+    from interpret_quality_tpu_torch.ops.cuda import emulation as em
+    feats, conv, bn, lists = _listed_head_args(cuda, B, N, kind, seed=N + B)
+    nrows = lists.nrows.cpu()
+    if kind == "coincident":
+        assert bool((nrows == 1).all())
+    elif kind == "random":
+        assert bool((nrows == N).all())
+    else:
+        assert int(nrows.max()) < N
+    C = bn.num_features
+    launch.reset_launches()
+    with _matmul_precision(precision):
+        every = dn.dense_pool(feats, conv, bn)
+        listed = dn.dense_pool(feats, conv, bn, lists)
+        again = dn.dense_pool(feats, conv, bn, lists)
+    torch.cuda.synchronize()
+    assert launch.launches("dense_pool") == {"dense_pool": 3}
+    assert torch.equal(again, listed)
+    assert torch.equal(listed[:, :C], every[:, :C])
+    assert torch.allclose(listed[:, C:], every[:, C:], **DENSE_TOL)
+    if kind == "random":
+        assert torch.equal(listed, every)
+    exact = dn.dense_pool_plain(feats, conv, bn)
+    for got in (every, listed):
+        if precision == "highest":
+            assert torch.allclose(got, exact, **DENSE_TOL)
+        else:
+            _one_pass_close(got, dn.dense_pool_plain(
+                feats, conv, bn,
+                product=lambda x, w: em.matmul_at(x, w, precision)), exact)
+
+
+@pytest.mark.cuda
+def test_dense_pool_refuses_lists_it_cannot_walk(cuda):
+    """Lists of another batch, another dtype or on another device raise
+    before any launch."""
+    feats, conv, bn, lists = _listed_head_args(cuda, 2, 64, "masked")
+    bad = [lists._replace(rows=lists.rows[:1].contiguous()),
+           lists._replace(nrows=lists.nrows.long()),
+           lists._replace(starts=lists.starts.cpu()),
+           lists._replace(starts=lists.starts[:, :64].contiguous())]
+    launch.reset_launches()
+    for lst in bad:
+        with pytest.raises(ValueError, match="lists"):
+            dn.dense_pool(feats, conv, bn, lst)
+    assert launch.launches("dense_pool") == {"dense_pool": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,with_plan,listed", [
+    ("dgcnn", False, True), ("dgcnn", True, True), ("gcnn", False, False),
+    ("gcnn", True, False), ("pct", True, False)])
+def test_forwards_hand_kernel_3_lists_to_the_head(cuda, monkeypatch, name,
+                                                  with_plan, listed):
+    """DGCNN's fused forward, with and without a plan, passes its first
+    kernel-3 launch's lists to kernel 9; GCNN's and PCT's pass none.  On
+    masked clouds the listed head's max is the every-row head's bit for bit
+    (rows equal in the first launch's input stay equal in all four edge
+    outputs) and its mean within DENSE_TOL, and the lists are shorter than
+    the clouds."""
+    import importlib
+    from interpret_quality_tpu_torch.models import build_model, make_forward_fn
+    module = importlib.import_module(
+        f"interpret_quality_tpu_torch.models.{'pct' if name == 'pct' else 'dgcnn'}")
+    calls = []
+
+    def recorded(*args):
+        out = dn.dense_pool(*args)
+        calls.append((args, out, dn.dense_pool(*args[:3])))
+        return out
+    monkeypatch.setattr(module, "dense_pool", recorded)
+    x = _route_clouds("masked", 8, 1024, 3, seed=5).to(cuda)
+    torch.manual_seed(0)
+    fwd = make_forward_fn(build_model(name, 10, 20).to(cuda).eval())
+    with torch.inference_mode():
+        if with_plan:
+            fwd.apply_plan_fn(x, fwd.plan_fn(x))
+        else:
+            fwd.model(x)
+    assert len(calls) == 1
+    args, got, every = calls[0]
+    assert (len(args) == 4) == listed
+    if listed:
+        C = args[2].num_features
+        assert int(args[3].nrows.max()) < 1024
+        assert torch.equal(got[:, :C], every[:, :C])
+        assert torch.allclose(got[:, C:], every[:, C:], **DENSE_TOL)
+
+
+@pytest.mark.cuda
+def test_dense_pool_listed_route_counts_distinct_rows(cuda):
+    """Traced, the listed route adds 2 K C (sum of nrows) to
+    ``dense_products`` (on the device, after the span) and runs inside
+    ``iq_dense_pool``; its output is bit-equal to the untraced launch's."""
+    from torch.profiler import ProfilerActivity, profile
+    from interpret_quality_tpu_torch.ops.precision import DENSE_PRODUCTS
+    from interpret_quality_tpu_torch.utils import profiling
+    feats, conv, bn, lists = _listed_head_args(cuda, 4, 1000, "grid_masked")
+    off = dn.dense_pool(feats, conv, bn, lists)
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        on = dn.dense_pool(feats, conv, bn, lists)
+        torch.cuda.synchronize()
+    counts = profiling.counters()
+    profiling.reset_counters()
+    assert torch.equal(on, off)
+    d = int(lists.nrows.sum())
+    assert d < 4 * 1000
+    assert counts == {DENSE_PRODUCTS: 2 * d * 512 * 1024}
+    assert "iq_dense_pool" in {e.key for e in prof.key_averages()}
+
+
 # ------------------------------------- kernel 10: PCT's sample-and-group
 # (B, S, N, C1, C2, kind): both levels at the main path's shapes (a tenth
 # of its 1650 clouds: the plain version writes a (B, S, 32, C1) tensor),

@@ -71,9 +71,9 @@ SHAPENET_CAT2ID = {v: k for k, v in SHAPENET_ID2CAT.items()}
 MATMUL_PRECISIONS = ("default", "high", "highest")
 GATHER_PRECISIONS = ("bf16", "hilo")
 MODEL_NAMES = ["pointnet", "pointnet2", "pointconv", "dgcnn", "gcnn", "gcnn_adv"]
-# the models the CLIs take: the reference pipeline's, and PCT, the port's
-# alone (the tables and plots over every model keep MODEL_NAMES)
-PORT_MODEL_NAMES = MODEL_NAMES + ["pct"]
+# the models the CLIs take: the reference pipeline's, and PCT and PointMLP,
+# the port's alone (the tables and plots over every model keep MODEL_NAMES)
+PORT_MODEL_NAMES = MODEL_NAMES + ["pct", "pointmlp"]
 DATASET_NAMES = ["modelnet10", "shapenet"]
 DEVICES = ["cuda", "cpu"]
 
@@ -91,6 +91,7 @@ CONFIG = {
         "gcnn": 50,
         "pointconv": 50,
         "pct": 50,
+        "pointmlp": 50,
     },
     "interaction_batch_size": {
         "pointnet2": 200,
@@ -99,6 +100,7 @@ CONFIG = {
         "gcnn": 200,
         "pointconv": 400,
         "pct": 200,
+        "pointmlp": 200,
     },
 }
 

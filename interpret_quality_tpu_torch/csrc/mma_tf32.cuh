@@ -1,7 +1,7 @@
 // The tensor-core product at each matmul precision, shared by the kernels
 // that multiply on the tensor cores (groups.cu: iq_ball_mlp3 and
 // iq_pointconv_sa; dense.cu: iq_dense_pool; knn_group.cu:
-// iq_knn_group_max).
+// iq_knn_group_max; group_mlp.cu: iq_group_res_mlp).
 //
 // The instruction is mma.sync.m16n8k8 (row.col, tf32 in, f32 out).  At
 // kPrecHighest f32 accuracy is kept by a three-product split: every f32

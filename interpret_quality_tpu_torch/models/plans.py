@@ -19,6 +19,8 @@ What each family's plan carries, and the enum modes that may reuse it:
     density.  Density values change under scale: trans/rotate only.
   * pct: the FPS indices and the kNN indices (in xyz) of both
     sample-and-group levels; trans/rotate/scale.
+  * pointmlp: the same of its four stages; its per-cloud std is of the
+    features, so it stays in the forward; trans/rotate/scale.
   * pointnet: no plan (no graph; its transformers are pose-dependent).
 
 On the card the plans' kNN selections (``knn``, ``knn_with_density``)
@@ -45,6 +47,7 @@ PLAN_MODES = {
     "pointnet2": frozenset({"trans", "rotate", "scale"}),
     "pointconv": frozenset({"trans", "rotate"}),
     "pct": frozenset({"trans", "rotate", "scale"}),
+    "pointmlp": frozenset({"trans", "rotate", "scale"}),
 }
 
 
@@ -93,12 +96,21 @@ def pct_plan(x: torch.Tensor, levels):
     return tuple(plan)
 
 
+def pointmlp_plan(x: torch.Tensor, levels):
+    """Per stage (FPS indices (B, S) int32, kNN indices (B, S, K) int32),
+    as ``pct_plan`` makes them; ``levels``: (anchors, neighbours) per stage,
+    (512, 24), (256, 24), (128, 24) and (64, 24) for PointMLP at 1024
+    points."""
+    return pct_plan(x, levels)
+
+
 def make_plan_fn(model) -> Optional[Callable]:
     """Plan function ``(B, N, 3) -> plan`` for a model instance; None for a
     family without a plan (PointNet)."""
     from .dgcnn import _DGCNNBase
     from .pct import PCTCls
     from .pointconv import PointConvDensityClsSsg
+    from .pointmlp import PointMLP
     from .pointnet import PointNetCls
     from .pointnet2 import PointNet2ClsMsg
     if isinstance(model, _DGCNNBase):
@@ -115,6 +127,9 @@ def make_plan_fn(model) -> Optional[Callable]:
     if isinstance(model, PCTCls):
         levels = model.levels
         return lambda x: pct_plan(x, levels)
+    if isinstance(model, PointMLP):
+        levels = model.levels
+        return lambda x: pointmlp_plan(x, levels)
     if isinstance(model, PointNetCls):
         return None
     raise NotImplementedError(f"no plan rule for {type(model).__name__}")

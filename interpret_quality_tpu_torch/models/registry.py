@@ -11,6 +11,7 @@ from .dgcnn import DGCNNCls, GCNNCls
 from .pct import PCTCls
 from .pointconv import PointConvDensityClsSsg
 from .pointnet import PointNetCls
+from .pointmlp import PointMLP
 from .pointnet2 import PointNet2ClsMsg
 
 MODEL_REGISTRY = {
@@ -21,6 +22,7 @@ MODEL_REGISTRY = {
     "gcnn": GCNNCls,
     "gcnn_adv": GCNNCls,
     "pct": PCTCls,
+    "pointmlp": PointMLP,
 }
 EDGE_CONV = ("dgcnn", "gcnn", "gcnn_adv")
 

@@ -23,7 +23,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG_DIR, "csrc")
 # csrc/<name>.cu
-SOURCES = ("neighbors", "fps", "groups", "dense", "knn_group")
+SOURCES = ("neighbors", "fps", "groups", "dense", "knn_group", "group_mlp")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

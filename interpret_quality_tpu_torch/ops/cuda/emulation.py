@@ -1,8 +1,9 @@
 """The arithmetic of the redesigned kernels, emulated in plain PyTorch: the
 tensor-core products of ``csrc/groups.cu`` at each matmul precision (both
 ``fused_ball_mlp3``'s and ``fused_pointconv_sa``'s layers, the latter's
-WeightNet and contraction) and of ``csrc/knn_group.cu`` (kernel 10's
-layer 2), the rounding of gathered values to bf16, the distance chain of
+WeightNet and contraction), of ``csrc/knn_group.cu`` (kernel 10's
+layer 2) and of ``csrc/group_mlp.cu`` (kernel 11's four layers), the
+rounding of gathered values to bf16, the distance chain of
 ``csrc/knn_select.cuh``, the selection of the kNN kernels' xyz route
 (``csrc/knn_xyz.cuh``), kernel 3's compacted scan (``select_knn`` with
 kCompact, its copy lists included), kernel 9's walk of those lists
@@ -167,6 +168,20 @@ def knn_group_max_at(idx, u, c, a2, b2, *, precision: str,
     from .knn_group import knn_group_max_plain
     return knn_group_max_plain(
         idx, u, c, a2, b2, parts,
+        product=lambda h, w: matmul_at(h, w, precision))
+
+
+def group_res_mlp_at(idx, fps, u, c, sig, blocks, *, precision: str,
+                     parts: int = 2) -> torch.Tensor:
+    """``group_res_mlp`` as its kernel (kernel 11) computes it: h0 =
+    relu(sig (u[idx] - u[fps]) + c) in f32 on the gathered rows of u at
+    ``parts``, each residual block's two products on the tensor cores at
+    ``precision`` (``matmul_at``), their biases, residual and ReLUs in
+    f32, then the max over the slots.  Arguments and result are those of
+    ``ops.cuda.group_mlp.group_res_mlp_plain``."""
+    from .group_mlp import group_res_mlp_plain
+    return group_res_mlp_plain(
+        idx, fps, u, c, sig, blocks, parts,
         product=lambda h, w: matmul_at(h, w, precision))
 
 

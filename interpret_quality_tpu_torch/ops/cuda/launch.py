@@ -14,13 +14,13 @@ F = ctypes.c_float
 # The kernels a wrapper launches, listed once
 KERNELS = ("knn", "gather_extrema", "knn_gather_extrema", "fps",
            "fused_ball_mlp3", "knn_with_density", "fused_pointconv_sa",
-           "gather_rows", "dense_pool", "knn_group_max")
+           "gather_rows", "dense_pool", "knn_group_max", "group_res_mlp")
 # The settings a kernel runs at, by the code its launcher takes; code 0 is
 # the exact setting.  The sel argument of iq_knn, iq_knn_gather_extrema and
 # iq_knn_density, by selection class (kSel* in knn_select.cuh); the prec
-# argument of iq_ball_mlp3, iq_pointconv_sa, iq_dense_pool and
-# iq_knn_group_max (kPrec* in mma_tf32.cuh); the bf16 argument of
-# iq_gather_extrema and iq_gather_rows.
+# argument of iq_ball_mlp3, iq_pointconv_sa, iq_dense_pool,
+# iq_knn_group_max and iq_group_res_mlp (kPrec* in mma_tf32.cuh); the bf16
+# argument of iq_gather_extrema and iq_gather_rows.
 SELECT_CODES = {"exact": 0, "packed": 1, "bf16": 2}
 PRECISION_CODES = {"highest": 0, "high": 1, "default": 2}
 GATHER_CODES = {"f32": 0, "bf16": 1}
@@ -30,6 +30,7 @@ SETTINGS = {"knn": SELECT_CODES, "knn_gather_extrema": SELECT_CODES,
             "fused_pointconv_sa": PRECISION_CODES,
             "dense_pool": PRECISION_CODES,
             "knn_group_max": PRECISION_CODES,
+            "group_res_mlp": PRECISION_CODES,
             "gather_extrema": GATHER_CODES, "gather_rows": GATHER_CODES}
 # The launch registry: the launches of each kernel since the last
 # reset_launches(), and under "<kernel>:<setting>" those at each setting
@@ -85,7 +86,7 @@ def reset_launches() -> None:
 
 def launches(*keys: str, since: Optional[dict] = None) -> dict:
     """The counts of ``keys`` (kernels or "<kernel>:<setting>"), by default of
-    the ten kernels; with ``since``, an earlier reading, those made since
+    the eleven kernels; with ``since``, an earlier reading, those made since
     it."""
     since = since or {}
     return {key: LAUNCHES[key] - since.get(key, 0) for key in keys or KERNELS}

@@ -1813,3 +1813,227 @@ def test_pct_forward_matches_the_reference(cuda):
         "fps": 2, "knn": 2, "knn_group_max": 2, "dense_pool": 1}
     per = (got - want).abs().amax(-1) / want.pow(2).mean().sqrt()
     assert float(per.median()) < 1e-4, per
+
+
+# ------------------------------- kernel 11: PointMLP's grouped residual chain
+# (B, S, N, C, kind): the four stages at the main path's shapes (a fiftieth
+# of its 1650 clouds: the plain version writes (B, S, 24, C) tensors), a
+# ragged tile, one centre, and clouds whose points all coincide (every u row
+# equal, each centre its own row: h0 = relu(c), the empty coalition's case)
+RES_CASES = [(33, 512, 1024, 128, "masked"), (33, 256, 512, 256, "masked"),
+             (33, 128, 256, 512, "masked"), (33, 64, 128, 1024, "masked"),
+             (3, 7, 40, 256, "masked"), (1, 1, 24, 1024, "masked"),
+             (4, 64, 128, 1024, "coincident")]
+
+
+def _res_args(device, B, S, N, C, kind, seed=0):
+    """kNN indices with repeated slots (a masked cloud's collapsed points),
+    the centres' rows, hoisted rows u, the centres' share c, each cloud's
+    scale and two residual blocks, as ``models.pointmlp`` passes them."""
+    g = torch.Generator().manual_seed(seed)
+    if kind == "coincident":
+        idx = torch.arange(24, dtype=torch.int32).expand(B, S, 24)
+        fps = torch.zeros(B, S, dtype=torch.int32)
+        u = torch.randn(B, 1, C, generator=g).expand(B, N, C)
+        sig = torch.full((B,), 1e5)
+    else:
+        idx = torch.randint(0, N, (B, S, 24), generator=g, dtype=torch.int32)
+        idx[:, :, 16:] = idx[:, :, :1]
+        fps = torch.randint(0, N, (B, S), generator=g, dtype=torch.int32)
+        u = torch.randn(B, N, C, generator=g)
+        sig = torch.rand(B, generator=g) + 0.5
+    c = torch.randn(B, S, C, generator=g) * 0.5
+    blocks = [tuple(t.contiguous().to(device) for t in (
+        torch.randn(C, C, generator=g) / C ** 0.5, 0.1 * torch.randn(C, generator=g),
+        torch.randn(C, C, generator=g) / C ** 0.5, 0.1 * torch.randn(C, generator=g)))
+        for _ in range(2)]
+    return [t.contiguous().to(device) for t in (idx, fps, u, c, sig)] + [blocks]
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,N,C,kind", RES_CASES)
+def test_group_res_mlp_matches_plain(cuda, B, S, N, C, kind):
+    """Kernel 11 at highest against its plain version, within 1e-4 of the
+    largest value (the split drops lo*lo and sums in another order than
+    cuBLAS, through four chained products: 1e-5 read at C = 1024), one
+    launch; deterministic (a second launch bit-equal)."""
+    from interpret_quality_tpu_torch.ops.cuda import group_mlp as gm
+    args = _res_args(cuda, B, S, N, C, kind, seed=S + C)
+    launch.reset_launches()
+    got = gm.group_res_mlp(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (B, S, C)
+    assert launch.launches("group_res_mlp") == {"group_res_mlp": 1}
+    assert _rel(got, gm.group_res_mlp_plain(*args)) < 1e-4
+    assert torch.equal(gm.group_res_mlp(*args), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("B,S,N,C,kind", RES_CASES[4:])
+def test_group_res_mlp_one_pass_matches_emulation(cuda, B, S, N, C, kind,
+                                                  precision):
+    """Kernel 11 at a one-pass setting against ``emulation.
+    group_res_mlp_at``: within ``_one_pass_close``'s shares of the
+    setting's own rounding, or within four times what the emulation
+    moves by when its products are summed in float64 instead of f32,
+    whichever is wider.  Four products in a chain round each layer's f32
+    output to TF32 or bf16 again, so an element that f32 summation order
+    puts on the other side of a rounding boundary moves by a whole step of
+    the one-pass operand, and the next layers carry that on: the kernel
+    and the emulation then part by a share of the rounding that grows with
+    depth (at ``high`` 0.14-0.36 of its RMS on the card, against 0.1 for
+    the two-layer kernels), as the emulation parts from its own
+    float64-summed twin (0.05-0.17 of the rounding on the CPU; the
+    kernel's gap and the twin's each carry one side of such flips, so the
+    factor).  Coarser than highest's; counted under its route."""
+    from interpret_quality_tpu_torch.ops.cuda import emulation as em
+    from interpret_quality_tpu_torch.ops.cuda import group_mlp as gm
+    from interpret_quality_tpu_torch.ops.precision import round_bf16
+    args = _res_args(cuda, B, S, N, C, kind, seed=S + C)
+    launch.reset_launches()
+    with _matmul_precision(precision):
+        got = gm.group_res_mlp(*args)
+    exact = gm.group_res_mlp_plain(*args)
+    emulated = em.group_res_mlp_at(*args, precision=precision)
+    rnd = em.round_tf32 if precision == "high" else round_bf16
+    twin = gm.group_res_mlp_plain(*args, product=lambda h, w: torch.matmul(
+        rnd(h).double(), rnd(w).double()).float())
+    gap, rounding = (got - emulated).double(), (emulated - exact).double()
+    order = (twin - emulated).double()
+
+    def rms(t):
+        return float(t.square().mean().sqrt())
+    assert rms(gap) <= max(ONE_PASS_RMS_SHARE * rms(rounding), 4 * rms(order))
+    assert float(gap.abs().max()) <= max(
+        ONE_PASS_MAX_SHARE * float(rounding.abs().max()),
+        4 * float(order.abs().max()))
+    assert _rel(got, exact) > 1e-5
+    assert launch.LAUNCHES[f"group_res_mlp:{precision}"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["slots", "width", "int64", "devices"])
+def test_group_res_mlp_refuses_what_the_kernel_does_not_take(cuda, case):
+    """K other than 24, C outside 128-1024, int64 indices and tensors on two
+    devices raise on the card; the plain version takes the shapes on the
+    CPU."""
+    from interpret_quality_tpu_torch.ops.cuda import group_mlp as gm
+    C = 64 if case == "width" else 128
+    idx, fps, u, c, sig, blocks = _res_args(cuda, 2, 8, 64, C, "masked")
+    if case == "slots":
+        idx = idx[..., :16].contiguous()
+    elif case == "int64":
+        idx = idx.long()
+    elif case == "devices":
+        sig = sig.cpu()
+    with pytest.raises(ValueError):
+        gm.group_res_mlp(idx, fps, u, c, sig, blocks)
+    if case != "int64":
+        cpu = [t.cpu() for t in (idx, fps, u, c, sig)]
+        blocks = [tuple(t.cpu() for t in b) for b in blocks]
+        assert gm.group_res_mlp(*cpu, blocks).shape == (2, 8, C)
+
+
+@pytest.mark.cuda
+def test_group_res_mlp_counts_slots_only_while_tracing(cuda):
+    """Untraced, ``k11_slots`` counts nothing; traced, B x S x K a launch,
+    and the launch runs inside ``iq_group_res_mlp``."""
+    from torch.profiler import ProfilerActivity, profile
+    from interpret_quality_tpu_torch.ops.cuda import group_mlp as gm
+    from interpret_quality_tpu_torch.utils import profiling
+    args = _res_args(cuda, *RES_CASES[4])
+    profiling.reset_counters()
+    gm.group_res_mlp(*args)
+    assert profiling.counters() == {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        gm.group_res_mlp(*args)
+        torch.cuda.synchronize()
+    counts = profiling.counters()
+    profiling.reset_counters()
+    assert counts == {gm.K11_SLOTS: 3 * 7 * 24}
+    assert "iq_group_res_mlp" in {e.key for e in prof.key_averages()}
+
+
+def _pointmlp_case(device, seed):
+    import json
+    import os
+
+    import numpy as np
+    from interpret_quality_tpu_torch.models import build_model, make_forward_fn
+    from iqbench import inputs, weights
+    from iqbench.reference import attribution as A
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "iqbench", "configs", "pointmlp.json")) as f:
+        cfg = json.load(f)
+    state = weights.seeded_state(cfg, seed, device)
+    model = build_model("pointmlp", 10)
+    model.load_state_dict(state, strict=True)
+    rng = np.random.RandomState(3)
+    pc, _ = inputs.synthetic_cloud(rng, 1024)
+    region = inputs.region_ids(pc, inputs.fps_np(pc, 32))
+    masked = A.mask(torch.from_numpy(pc).to(device),
+                    torch.from_numpy(A.keep_matrix(inputs.orders(rng, 1, 32)))
+                    .to(device), torch.from_numpy(region).to(device)).contiguous()
+    return cfg, state, make_forward_fn(model.to(device).eval()), masked
+
+
+@pytest.mark.cuda
+def test_pointmlp_forward_matches_the_reference(cuda):
+    """PointMLP at its published widths on one order's 33 masked clouds of
+    1024 points, the benchmark's seeded weights: the plan's indices equal
+    to the reference's, kernels 4, 1 and 11 launched (four each), every
+    cloud's logits within 1e-4 of their RMS (f32 rounding through 20
+    layers: the benchmark's cell reads 6e-5 at its median)."""
+    from iqbench.reference import pointmlp as ref
+    cfg, state, fwd, masked = _pointmlp_case(cuda, 2 ** 31 + 5)
+    shift = torch.tensor([0.1, -0.2, 0.05], device=cuda)
+    launch.reset_launches()
+    with torch.inference_mode():
+        plan = fwd.plan_fn(masked)
+        got = fwd.apply_plan_fn(masked + shift, plan)
+        want = ref.forward(state, cfg, masked + shift, ref.plan(cfg, masked))
+    for port, theirs in zip(plan, ref.plan(cfg, masked)):
+        assert all(torch.equal(a.long(), b) for a, b in zip(port, theirs))
+    assert launch.launches("fps", "knn", "group_res_mlp") == {
+        "fps": 4, "knn": 4, "group_res_mlp": 4}
+    per = (got - want).abs().amax(-1) / want.pow(2).mean().sqrt()
+    assert float(per.max()) < 1e-4, per
+
+
+@pytest.mark.cuda
+def test_run_enum_smoke_on_pointmlp(cuda, tmp_path, monkeypatch):
+    """save_fps, Shapley init and the trans enumeration on the plan path
+    through the CLIs for PointMLP on one synthetic cloud (10 orders, two
+    poses): four kernel-11 launches a forward, no fallback, finite
+    artifacts of their shapes."""
+    import importlib
+
+    import numpy as np
+    from interpret_quality_tpu_torch.config import ExperimentConfig
+    monkeypatch.chdir(tmp_path)             # save_fps writes into the cwd
+    common = ["--synthetic", "--allow_random_init", "--device", "cuda",
+              "--checkpoints_root", str(tmp_path / "ck"), "--num_points",
+              "1024", "--num_regions", "32", "--samples", "0"]
+    orders = ["--num_samples_save", "10"]
+    launch.reset_launches()
+    for cli, argv in (("save_fps", ["--model", "pointmlp"]),
+                      ("shapley_value", ["--model", "pointmlp", *orders]),
+                      ("enum", ["--model", "pointmlp", "--mode", "trans",
+                                *orders, "--num_samples", "10",
+                                "--max_poses", "2"])):
+        importlib.import_module(
+            f"interpret_quality_tpu_torch.cli.{cli}").main(argv + common)
+    torch.cuda.synchronize()
+    n = launch.launches("group_res_mlp", "fps", "knn")
+    assert n["group_res_mlp"] > 0 and n["group_res_mlp"] % 4 == 0, n
+    assert n["fps"] == n["knn"] > 0, n
+    folder = ExperimentConfig(model="pointmlp", checkpoints_root=str(tmp_path / "ck"),
+                              num_points=1024, num_regions=32).exp_folder
+    sv = np.load(folder + "synthetic_00/trans_all/region_shapley_value.npy")
+    assert sv.shape == (2, 32) and np.isfinite(sv).all()

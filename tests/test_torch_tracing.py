@@ -17,7 +17,9 @@ from interpret_quality_tpu_torch.attrib.interactions import InteractionEngine
 from interpret_quality_tpu_torch.attrib.perturbations import MODES
 from interpret_quality_tpu_torch.attrib.shapley import ShapleyEngine
 from interpret_quality_tpu_torch.models import build_model, make_forward_fn
+from interpret_quality_tpu_torch.models.pointmlp import PointMLP
 from interpret_quality_tpu_torch.ops import precision
+from interpret_quality_tpu_torch.ops.cuda import group_mlp as gm
 from interpret_quality_tpu_torch.ops.cuda import groups as gr
 from interpret_quality_tpu_torch.ops.cuda import knn_group as kg
 from interpret_quality_tpu_torch.ops.cuda import launch
@@ -398,3 +400,47 @@ def test_offset_attention_runs_in_its_span():
     assert len(attention) == 4
     assert all("iq_forward" in parents(e) for e in attention)
     assert not [e for e in plan_events if e.name == "iq_offset_attention"]
+
+
+def test_kernel11_runs_in_its_span_and_counts_slots_while_tracing(monkeypatch):
+    """Each launch of ``group_res_mlp`` runs in one ``iq_group_res_mlp``
+    span and counts once in the launch registry; traced, ``k11_slots``
+    counts B x S x K a launch (every centre, repeated ones too), untraced
+    nothing."""
+    launcher = stand_in(monkeypatch, gm, "iq_group_res_mlp")
+    monkeypatch.setattr(gm, "capacity", lambda C, code, device: 3)
+    g = torch.Generator().manual_seed(0)
+    B, S, N, C = 2, 5, 40, 128
+    blocks = [tuple(torch.rand(*shape, generator=g)
+                    for shape in ((C, C), (C,), (C, C), (C,)))
+              for _ in range(2)]
+    args = (torch.randint(0, N, (B, S, gm.SLOTS), generator=g,
+                          dtype=torch.int32),
+            torch.randint(0, N, (B, S), generator=g, dtype=torch.int32),
+            torch.rand(B, N, C, generator=g), torch.rand(B, S, C, generator=g),
+            torch.rand(B, generator=g), blocks)
+    before = launch.launches("group_res_mlp")["group_res_mlp"]
+    assert gm.group_res_mlp(*args).shape == (B, S, C)
+    assert launcher.calls[-1][9:16] == (3, B, S, N, gm.SLOTS, C, 0)
+    assert profiling.counters() == {}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        gm.group_res_mlp(*args)
+        gm.group_res_mlp(*args)
+    assert [e.name for e in prof.events()].count("iq_group_res_mlp") == 2
+    assert profiling.counters() == {gm.K11_SLOTS: 2 * B * S * gm.SLOTS}
+    assert launch.launches("group_res_mlp")["group_res_mlp"] == before + 3
+
+
+def test_group_std_runs_in_its_span():
+    """PointMLP's four per-cloud standard deviations are one
+    ``iq_group_std`` span each, inside the forward and not in the plan."""
+    torch.manual_seed(0)
+    fwd = make_forward_fn(PointMLP(10, points=192).eval())
+    x = torch.from_numpy(cloud(5, n=192)[0])[None]
+    with torch.no_grad():
+        plan, plan_events = traced(lambda: fwd.plan_fn(x))
+        _, events = traced(lambda: fwd.apply_plan_fn(x, plan))
+    spans = [e for e in events if e.name == "iq_group_std"]
+    assert len(spans) == 4
+    assert all("iq_forward" in parents(e) for e in spans)
+    assert not [e for e in plan_events if e.name == "iq_group_std"]
